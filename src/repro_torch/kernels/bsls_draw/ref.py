@@ -1,0 +1,19 @@
+"""Plain PyTorch version of the ``two_level_draw`` kernel.
+
+``kg, km = split(key)``; ``g = argmax(c + gumbel(kg, (G,)))``;
+``m = argmax(v[g] + gumbel(km, (1, M)))``; returns ``g·M + m`` — the draw
+``repro/kernels/bsls_draw/ops.py::two_level_draw`` makes with the same key.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import prng
+
+
+def two_level_draw_ref(c: torch.Tensor, v: torch.Tensor, key) -> torch.Tensor:
+    """(1,) int32 flat index of the draw."""
+    kg, km = prng.split(key)
+    g = torch.argmax(c + prng.gumbel(kg, c.shape, c.device))
+    m = torch.argmax(v[g] + prng.gumbel(km, (1, v.shape[1]), v.device)[0])
+    return (g * v.shape[1] + m).to(torch.int32).reshape(1)

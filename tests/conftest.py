@@ -5,6 +5,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the card with "
+        "`PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py`)")
+
+
 @pytest.fixture(scope="session")
 def tiny_problem():
     """Small sparse classification problem shared across FW tests."""

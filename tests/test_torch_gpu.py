@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``; each test skips without a CUDA card (decided in the fixture,
+not at import).  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports neither JAX nor the JAX package: the card's machine has
+neither.  Tolerances: kernel against plain version allclose at rtol 1e-5 /
+atol 1e-6 (the plain versions add with atomics, in another order); draws
+equal index for index; the card's solve against the CPU's (plain versions)
+by the cross-engine contract — coordinates exactly, w and gaps within 1e-4.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import FWConfig, prng, solve
+from repro_torch.core.samplers.group_argmax import ga_init
+from repro_torch.core.samplers.two_level import tl_init, tl_rebuild_
+from repro_torch.core.solvers.torch_sparse import fw_setup
+from repro_torch.core.sparse.formats import host_to_padded, tiered_from_padded
+from repro_torch.data.synthetic import make_sparse_classification
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.bsls_draw import two_level_draw
+from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
+from repro_torch.kernels.coord_update import coord_update
+from repro_torch.kernels.coord_update.ref import coord_update_ref
+from repro_torch.kernels.spmv import ell_rmatvec
+from repro_torch.kernels.spmv.ref import ell_rmatvec_ref
+
+pytestmark = pytest.mark.gpu
+LOSSES = ["logistic", "squared", "lad", "huber", "smoothed_hinge"]
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def problem(cuda):
+    X, y, _ = make_sparse_classification(n=600, d=2000, nnz_per_row=12, informative=20,
+                                         seed=3)
+    return X, y, host_to_padded(X, device=cuda)
+
+
+def test_ell_rmatvec_kernel_matches_plain(problem):
+    X, _, (pcsr, pcsc) = problem
+    q = torch.randn(X.shape[0], generator=torch.Generator().manual_seed(0)).cuda()
+    before = launch_counts()["ell_rmatvec"]
+    got = ell_rmatvec(pcsr, q, pcsc)
+    assert launch_counts()["ell_rmatvec"] == before + 1
+    ref = ell_rmatvec_ref(pcsr.indices, pcsr.values, q, X.shape[1])
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, ell_rmatvec(pcsr, q, pcsc))          # deterministic
+    tiered = tiered_from_padded(pcsc, 8)
+    assert torch.equal(got, ell_rmatvec(pcsr, q, tiered))        # same sums, same order
+    with pytest.raises(ValueError, match="pcsc"):
+        ell_rmatvec(pcsr, q)
+
+
+def test_two_level_draw_kernel_matches_plain(problem):
+    X, y, (pcsr, pcsc) = problem
+    alpha = fw_setup(pcsr, torch.from_numpy(y.astype(np.float32)).cuda(), loss="logistic",
+                     pcsc=pcsc)[2]
+    state = tl_init(alpha.abs() * 200.0)
+    _, keys = prng.key_chain(prng.PRNGKey(1), 300)
+    for k in keys:
+        assert int(two_level_draw(state.c, state.v, k)) == int(two_level_draw_ref(
+            state.c, state.v, k)), k
+
+
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_coord_update_kernel_matches_plain(problem, loss, private):
+    X, y, (pcsr, pcsc) = problem
+    y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+    setup = fw_setup(pcsr, y_t, loss=loss, pcsc=pcsc)
+    col_nnz = pcsc.nnz.cpu().numpy()
+    for j in (int(np.argmax(col_nnz)), int(np.argmin(np.where(col_nnz > 0, col_nnz, 99))),
+              int(np.argsort(col_nnz)[-40])):
+        outs = []
+        for fn in (coord_update, coord_update_ref):
+            st = [t.clone() for t in setup] + [torch.zeros(X.shape[1], device="cuda"),
+                                               torch.tensor(0.8, device="cuda"),
+                                               torch.tensor(0.5, device="cuda")]
+            vbar, qbar, alpha, w, w_m, g_tilde = st
+            queue = tl_init(alpha.abs() * 30.0) if private else ga_init(alpha.abs())
+            gaps = torch.zeros(2, device="cuda")
+            coords = torch.zeros(2, dtype=torch.int32, device="cuda")
+            fn(torch.tensor([j], dtype=torch.int32, device="cuda"), pcsr, pcsc, y_t, w, w_m,
+               g_tilde, vbar, qbar, alpha, queue, t=4.0, lam=8.0, inv_n=1.0 / X.shape[0],
+               em_scale=30.0, loss=loss, gaps=gaps, coords=coords, slot=1)
+            if private:
+                tl_rebuild_(queue)
+            outs.append(st + [gaps, coords.float()] +
+                        ([queue.v, queue.c] if private else [queue.p, queue.bound]))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_card_solve_matches_cpu_solve(problem, loss, private):
+    X, y, pair = problem
+    cfg = FWConfig(lam=8.0, steps=40, loss=loss, queue="two_level" if private else None)
+    reset_launch_counts()
+    card = solve(pair, y, cfg)
+    counts = launch_counts()
+    assert counts["coord_update"] == 40
+    assert counts["two_level_draw"] == (40 if private else 0)
+    assert counts["ell_rmatvec"] == (2 if loss in ("logistic", "squared") else 1)
+    cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
+    assert torch.equal(card.coords.cpu(), cpu.coords)
+    torch.testing.assert_close(card.w.cpu(), cpu.w, rtol=0, atol=1e-4)
+    torch.testing.assert_close(card.gaps.cpu(), cpu.gaps, rtol=0, atol=1e-4)
+    again = solve(pair, y, cfg)
+    assert torch.equal(again.w, card.w) and torch.equal(again.coords, card.coords)
+    tiered = solve((pair[0], tiered_from_padded(pair[1], 8)), y, cfg)
+    assert torch.equal(tiered.coords, card.coords)
