@@ -25,11 +25,11 @@ STOP_MAX_SECONDS = "max_seconds"  # wall-clock budget exhausted
 class FWConfig:
     """One Frank-Wolfe run, declaratively (see ``repro.core.solvers.config``)."""
 
-    backend: str = "torch_sparse"
+    backend: str = "dense"       # dense | torch_sparse (alias jax_sparse)
     lam: float = 50.0            # L1 radius λ
     steps: int = 4000            # T
     loss: str = "logistic"
-    selection: str = "argmax"    # Alg-1 rule (dense engine only)
+    selection: str = "argmax"    # Alg-1 rule: argmax | noisy_max | gumbel
     queue: Optional[str] = None  # Alg-2 rule; None → backend non-private default
     epsilon: float = 1.0
     delta: float = 1e-6
@@ -50,16 +50,17 @@ class FWConfig:
     def loss_fn(self) -> Objective:
         return get_loss(self.loss)
 
+    @property
+    def early_stopping(self) -> bool:
+        """True when this config can stop before ``steps`` iterations."""
+        return self.gap_tol > 0.0 or self.max_seconds is not None
+
 
 # field → (is it set?, the ROADMAP.md item that implements it)
 _UNSUPPORTED = (
-    ("gap_tol", lambda c: c.gap_tol > 0.0, "A5 (chunked driver, early stopping)"),
-    ("max_seconds", lambda c: c.max_seconds is not None, "A5 (chunked driver, early stopping)"),
-    ("chunk_steps", lambda c: c.chunk_steps is not None, "A5 (chunked driver, early stopping)"),
     ("screen_every", lambda c: c.screen_every > 0, "A8 (screening and λ-paths)"),
     ("lambdas", lambda c: c.lambdas is not None, "A8 (screening and λ-paths)"),
     ("mesh", lambda c: c.mesh is not None, "A12 (sharded engine)"),
-    ("selection", lambda c: c.selection != "argmax", "A9 (the other engines)"),
 )
 
 

@@ -4,11 +4,12 @@
     result = solve(X, y, FWConfig(lam=30.0, steps=500))          # on cuda
     result = solve(X, y, FWConfig(lam=30.0, steps=500, device="cpu"))
 
-One backend is registered in this slice, ``torch_sparse`` (``backends.py``).
-:func:`solve` refuses what the slice does not implement, coerces ``X`` — a
-``HostCSR``, a dense numpy matrix, or a padded pair — into the padded pair
-on ``config.device``, and translates queue names through
-``QUEUE_ALIASES["device"]`` as the JAX registry does.
+Two backends are registered (``backends.py``): ``dense`` (Alg 1, the
+default, as in the JAX package) and ``torch_sparse`` (Alg 2; the JAX name
+``jax_sparse`` is accepted for it).  :func:`solve` refuses what the port
+does not implement, coerces ``X`` — a ``HostCSR``, a dense numpy matrix, or
+a padded pair — into the backend's data format on ``config.device``, and
+translates queue names through ``QUEUE_ALIASES`` as the JAX registry does.
 """
 from __future__ import annotations
 
@@ -29,9 +30,14 @@ class Backend:
     """A registered solver: adapter fn + the data layout and queues it speaks."""
 
     name: str
-    fn: Callable  # (padded pair, y, config) -> FWResult
+    fn: Callable  # (data, y, config) -> FWResult
+    data_format: str  # "dense" | "padded": the layout solve() coerces X into
     queues: Mapping[str, str]
     default_queue: Optional[str]
+
+    def prepare(self, X, device="cuda"):
+        """Coerce ``X`` into this backend's data layout on ``device``."""
+        return _COERCE[self.data_format](X, device)
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -44,14 +50,23 @@ QUEUE_ALIASES: Mapping[str, Mapping[str, str]] = {
         "bsls": "two_level", "gumbel": "two_level",
         "fib_heap": "group_argmax", "argmax": "group_argmax",
     },
+    # Alg 1 has no queue; queue names map onto its `selection` rule.
+    "selection": {
+        "argmax": "argmax", "fib_heap": "argmax", "group_argmax": "argmax",
+        "noisy_max": "noisy_max",
+        "gumbel": "gumbel", "bsls": "gumbel", "two_level": "gumbel",
+    },
 }
 
+# the JAX package's backend names that a port backend serves
+BACKEND_ALIASES: Mapping[str, str] = {"jax_sparse": "torch_sparse"}
 
-def register(name: str, *, queues: Mapping[str, str],
+
+def register(name: str, *, data_format: str, queues: Mapping[str, str],
              default_queue: Optional[str]) -> Callable:
-    """Decorator: add ``fn(padded pair, y, config) -> FWResult`` under ``name``."""
+    """Decorator: add ``fn(data, y, config) -> FWResult`` under ``name``."""
     def deco(fn: Callable) -> Callable:
-        _REGISTRY[name] = Backend(name=name, fn=fn, queues=queues,
+        _REGISTRY[name] = Backend(name=name, fn=fn, data_format=data_format, queues=queues,
                                   default_queue=default_queue)
         return fn
     return deco
@@ -69,7 +84,7 @@ def available_backends() -> Tuple[str, ...]:
 def get_backend(name: str) -> Backend:
     _ensure_builtins()
     try:
-        return _REGISTRY[name]
+        return _REGISTRY[BACKEND_ALIASES.get(name, name)]
     except KeyError:
         raise NotImplementedError(
             f"backend {name!r} is not ported (available: {', '.join(available_backends())});"
@@ -91,6 +106,31 @@ def as_padded(X, device="cuda"):
         return host_to_padded(dense_to_host(X), device)
     raise TypeError("X must be a HostCSR, a 2-D numpy matrix, or a (PaddedCSR, "
                     f"PaddedCSC | TieredCSC) pair; got {type(X).__name__}")
+
+
+def as_dense(X, device="cuda"):
+    """→ a dense float32 ``(N, D)`` tensor on ``device``, or a padded pair
+    (moved to ``device``), which Alg 1 consumes through the spmv kernels.
+
+    A ``HostCSR`` is scattered on the device: the float32 values equal the
+    JAX package's ``jnp.asarray(X.to_dense(), float32)`` without an N×D
+    float64 copy on the host.
+    """
+    if _is_padded_pair(X):
+        return X[0].to(device), X[1].to(device)
+    if isinstance(X, HostCSR):
+        out = torch.zeros(X.shape, dtype=torch.float32, device=device)
+        rows = torch.from_numpy(X.row_ids()).to(device)
+        cols = torch.from_numpy(X.indices).to(device)
+        out[rows, cols] = torch.from_numpy(X.data.astype(np.float32)).to(device)
+        return out
+    if isinstance(X, (np.ndarray, torch.Tensor)) and X.ndim == 2:
+        return torch.as_tensor(X, dtype=torch.float32, device=device)
+    raise TypeError("X must be a HostCSR, a 2-D matrix, or a (PaddedCSR, "
+                    f"PaddedCSC | TieredCSC) pair; got {type(X).__name__}")
+
+
+_COERCE = {"dense": as_dense, "padded": as_padded}
 
 
 def resolve_queue(backend: Backend, config: FWConfig) -> FWConfig:
@@ -132,7 +172,7 @@ def solve(X, y, config: Optional[FWConfig] = None, **overrides) -> FWResult:
     device = check_device(config.device)
     backend = get_backend(config.backend)
     config = resolve_queue(backend, config)
-    data = as_padded(X, device)
+    data = backend.prepare(X, device)
     if isinstance(y, torch.Tensor):
         y = y.to(device=device, dtype=torch.float32)
     else:

@@ -21,6 +21,14 @@ non-private queue synchronises once per lazy-repair pop.
 The key chain ``key, sel_t = split(key)`` depends on nothing but the key and
 T, so it is computed on the host once per chunk; the draw kernel receives
 each step's selection key as two uint32 arguments.
+
+Early stopping (``gap_tol``, ``max_seconds``) runs the masked form of the
+chunk under the shared chunk loop (``stopping.drive_chunks``).  The masking is
+on the device: ``coord_update`` sets the carry's ``done``/``stop_at`` on the
+step whose gap is ``<= gap_tol`` and applies it; every later launch of it and
+of the draw finds ``done`` set and writes only the sentinels (0.0, -1), so
+the private path still runs without a host round trip.  The non-private
+host queue reads ``done`` before each pop and leaves a frozen queue alone.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from repro_torch.core.samplers.group_argmax import (GroupArgmaxState, ga_get_nex
 from repro_torch.core.samplers.two_level import (TwoLevelSamplerState, tl_init,
                                                  tl_rebuild_)
 from repro_torch.core.solvers.config import STOP_MAX_STEPS, FWConfig, FWResult
+from repro_torch.core.solvers.stopping import assemble_outputs, drive_chunks, resolve_chunk
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
 from repro_torch.kernels.bsls_draw.ops import two_level_draw
 from repro_torch.kernels.coord_update.ops import coord_update
@@ -78,8 +87,9 @@ class FWCarry:
     """Full loop state of one Frank-Wolfe run (the JAX ``FWCarry`` fields).
 
     ``w_m``/``g_tilde`` are 0-d device tensors; ``key`` is the uint32[2] PRNG
-    key as an int64 CPU tensor; ``done``/``stop_at`` are the early-stopping
-    flags, kept for interop (this slice runs fixed T).
+    key as an int64 CPU tensor; ``done`` (bool) and ``stop_at`` (int32, the
+    number of steps applied once ``done`` is set) are the early-stopping
+    flags, on the device.
     """
 
     w: torch.Tensor
@@ -117,13 +127,12 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
     """Advance ``carry`` (in place) by ``steps`` iterations after global step
     ``t0``; returns (carry, (gaps, coords)) for this chunk.
 
-    ``y`` (labels) is required for label-coupled objectives.  ``gap_tol``
-    is accepted for the JAX signature; masked early stopping
-    (``early_stop=True``) is ROADMAP item A5.
+    ``y`` (labels) is required for label-coupled objectives.  With
+    ``early_stop`` the chunk is masked: the step that observes
+    ``g_t <= gap_tol`` is still applied, after it the carry (PRNG key
+    included) stays as it was and the outputs are (0.0, -1).  The key is
+    settled after the chunk, which reads ``done`` back once.
     """
-    if early_stop:
-        raise NotImplementedError(
-            "masked early stopping is not ported yet: see ROADMAP.md item A5")
     n, _ = pcsr.shape
     obj = get_loss(loss)
     if not obj.separable and y is None:
@@ -134,20 +143,29 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
     j = torch.zeros(1, dtype=torch.int32, device=dev)
     scratch = torch.empty(n, dtype=torch.float32, device=dev)
     key_next, sel_keys = prng.key_chain(carry.key, steps)
+    mask = dict(done=carry.done, stop_at=carry.stop_at, gap_tol=float(gap_tol)) \
+        if early_stop else {}
     for i in range(steps):
         # ---- line 15: select coordinate --------------------------------------
         if private:
-            two_level_draw(carry.sampler.c, carry.sampler.v, sel_keys[i], out=j)
+            two_level_draw(carry.sampler.c, carry.sampler.v, sel_keys[i], out=j,
+                           done=mask.get("done"))
         else:
+            if early_stop and bool(carry.done):   # frozen: the queue stays as it is
+                coords[i:] = -1
+                break
             jj, carry.sampler = ga_get_next(carry.sampler)
             j.fill_(jj)
         # ---- lines 16-29 ---------------------------------------------------------
         coord_update(j, pcsr, pcsc, y, carry.w, carry.w_m, carry.g_tilde, carry.vbar,
                      carry.qbar, carry.alpha, carry.sampler, t=float(t0 + i + 1), lam=lam,
                      inv_n=1.0 / n, em_scale=em_scale, loss=loss, gaps=gaps,
-                     coords=coords, slot=i, scratch=scratch)
+                     coords=coords, slot=i, scratch=scratch, **mask)
         if private:
-            tl_rebuild_(carry.sampler)
+            tl_rebuild_(carry.sampler)   # no group touched after done: c unchanged
+    if early_stop and bool(carry.done):
+        ran = min(max(int(carry.stop_at) - t0, 0), steps)
+        key_next = prng.key_chain(carry.key, ran)[0]
     carry.key = key_next
     return carry, (gaps, coords)
 
@@ -161,7 +179,8 @@ def fw_scan(pcsr: PaddedCSR, pcsc: ColumnLayout, vbar0, qbar0, alpha0, lam, em_s
     carry, (gaps, coords) = fw_scan_chunk(
         pcsr, pcsc, carry, lam, em_scale, gap_tol, 0, y, steps=steps, loss=loss,
         private=private, early_stop=early_stop)
-    return carry.w * carry.w_m, gaps, coords, steps
+    stop_step = torch.where(carry.done, carry.stop_at, steps)
+    return carry.w * carry.w_m, gaps, coords, stop_step
 
 
 def em_scale_for(config: FWConfig, n_rows: int) -> float:
@@ -174,9 +193,32 @@ def em_scale_for(config: FWConfig, n_rows: int) -> float:
         n_rows=n_rows, lipschitz=config.loss_fn().lipschitz)
 
 
+def _chunked_fw(pcsr, pcsc, setup, config: FWConfig, em_scale: float, private: bool,
+                y=None) -> FWResult:
+    """Masked chunks under the shared chunk loop until the gap certificate
+    lands, ``max_seconds`` expires, or T is spent."""
+    carry0 = fw_carry_init(pcsr.shape[1], pcsr.values.dtype, *setup, em_scale,
+                           prng.PRNGKey(config.seed), private=private)
+
+    def advance(carry, t0, c):
+        return fw_scan_chunk(pcsr, pcsc, carry, config.lam, em_scale, config.gap_tol, t0, y,
+                             steps=c, loss=config.loss, private=private, early_stop=True)
+
+    carry, outs, stop_step, stop_reason = drive_chunks(
+        advance, carry0, steps=config.steps, chunk=resolve_chunk(config),
+        max_seconds=config.max_seconds, done_of=lambda cy: cy.done,
+        stop_at_of=lambda cy: cy.stop_at)
+    gaps, coords = assemble_outputs(outs, config.steps, (0.0, -1))
+    return FWResult(w=carry.w * carry.w_m, gaps=gaps, coords=coords,
+                    losses=torch.zeros_like(gaps), stop_step=stop_step,
+                    stop_reason=stop_reason)
+
+
 def torch_sparse_fw(pcsr: PaddedCSR, pcsc: ColumnLayout, y: torch.Tensor,
                     config: FWConfig, setup=None) -> FWResult:
-    """One fixed-T solve through the kernels.
+    """One solve through the kernels: fixed T in one chunk, or the chunked
+    chunk loop when the config can stop early — the same arithmetic per step,
+    so the iterates agree bit for bit at every prefix.
 
     ``setup`` injects a precomputed (v̄₀, q̄₀, α₀), which must be what
     ``fw_setup`` would compute for (X, y, loss).
@@ -187,6 +229,8 @@ def torch_sparse_fw(pcsr: PaddedCSR, pcsc: ColumnLayout, y: torch.Tensor,
     y_scan = None if config.loss_fn().separable else y
     if setup is None:
         setup = fw_setup(pcsr, y, loss=config.loss, pcsc=pcsc)
+    if config.early_stopping:
+        return _chunked_fw(pcsr, pcsc, setup, config, em_scale, private, y=y_scan)
     w, gaps, coords, _ = fw_scan(
         pcsr, pcsc, *setup, config.lam, em_scale, prng.PRNGKey(config.seed), 0.0, y_scan,
         steps=config.steps, loss=config.loss, private=private)

@@ -151,8 +151,15 @@ class PaddedCSR:
                          self.nnz.to(device), self.shape)
 
     def matvec(self, w: torch.Tensor) -> torch.Tensor:
-        """X · w over the padded lanes."""
-        return (self.values * w[self.indices.long()]).sum(dim=1)
+        """X · w over the padded lanes (the plain version of ``ell_matvec``)."""
+        from repro_torch.kernels.spmv.ref import ell_matvec_ref
+        return ell_matvec_ref(self.indices, self.values, w)
+
+    def rmatvec(self, q: torch.Tensor) -> torch.Tensor:
+        """Xᵀ · q, a scatter-add over the padded lanes in row order (the plain
+        version of ``ell_rmatvec``)."""
+        from repro_torch.kernels.spmv.ref import ell_rmatvec_ref
+        return ell_rmatvec_ref(self.indices, self.values, q, self.shape[1])
 
 
 @dataclasses.dataclass

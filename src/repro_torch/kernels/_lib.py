@@ -28,6 +28,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (
+    _PKG / "spmv" / "csrc" / "ell_matvec.cu",
     _PKG / "spmv" / "csrc" / "ell_rmatvec.cu",
     _PKG / "bsls_draw" / "csrc" / "two_level_draw.cu",
     _PKG / "coord_update" / "csrc" / "coord_update.cu",
@@ -41,10 +42,12 @@ LIB_NAME = "libreproport.so"
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _COLS = [_P, _P, _P, _P, _P, _P, _I, _I]
 SIGNATURES = {
+    "port_ell_matvec": [_P, _P, _P, _I, _P, _P, _I, _P],
     "port_ell_rmatvec": _COLS + [_P, _P, _I, _P],
-    "port_two_level_draw": [_P, _P, _I, _I, _U, _U, _P, _P],
+    "port_two_level_draw": [_P, _P, _I, _I, _U, _U, _P, _P, _P],
     "port_coord_update": ([_I, _P] + _COLS + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P]),
+                          _P, _P, _P, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _F,
+                          _P]),
 }
 
 

@@ -14,7 +14,9 @@
 // step's key with the same threefry2x32 bits as jax.random (partitionable
 // mode: element c of a shape uses counter (0, c)), so a draw equals the JAX
 // package's draw for the same key.  Ties go to the lower index, as
-// jnp.argmax; logf is the precise one.
+// jnp.argmax; logf is the precise one.  In a masked run (done != null) a
+// launch that finds the early-stopping flag set writes the sentinel -1 and
+// draws nothing.
 //
 // Bound on the H100: neither bytes nor operations.  It reads c (4·G B), one
 // row of v (4·M B) and writes 4 B, with about 100 integer operations per
@@ -29,7 +31,12 @@ constexpr int DRAW_THREADS = 256;
 
 __global__ void __launch_bounds__(DRAW_THREADS)
     two_level_draw_kernel(const float* __restrict__ c, const float* __restrict__ v, int groups,
-                          int group_size, uint32_t k0, uint32_t k1, int* __restrict__ out) {
+                          int group_size, uint32_t k0, uint32_t k1, int* __restrict__ out,
+                          const bool* __restrict__ done) {
+  if (done != nullptr && *done) {
+    if (threadIdx.x == 0) out[0] = -1;
+    return;
+  }
   uint32_t kg0, kg1, km0, km1;
   port::threefry2x32(k0, k1, 0u, 0u, kg0, kg1);
   port::threefry2x32(k0, k1, 0u, 1u, km0, km1);
@@ -66,7 +73,9 @@ __global__ void __launch_bounds__(DRAW_THREADS)
 }  // namespace
 
 extern "C" int port_two_level_draw(const float* c, const float* v, int groups, int group_size,
-                                   uint32_t k0, uint32_t k1, int* out, cudaStream_t stream) {
-  two_level_draw_kernel<<<1, DRAW_THREADS, 0, stream>>>(c, v, groups, group_size, k0, k1, out);
+                                   uint32_t k0, uint32_t k1, int* out, const bool* done,
+                                   cudaStream_t stream) {
+  two_level_draw_kernel<<<1, DRAW_THREADS, 0, stream>>>(c, v, groups, group_size, k0, k1, out,
+                                                        done);
   return static_cast<int>(cudaGetLastError());
 }

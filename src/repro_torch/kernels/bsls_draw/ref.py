@@ -3,6 +3,7 @@
 ``kg, km = split(key)``; ``g = argmax(c + gumbel(kg, (G,)))``;
 ``m = argmax(v[g] + gumbel(km, (1, M)))``; returns ``g·M + m`` — the draw
 ``repro/kernels/bsls_draw/ops.py::two_level_draw`` makes with the same key.
+With the masked run's flag ``done`` set it returns the sentinel -1.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import torch
 from repro_torch import prng
 
 
-def two_level_draw_ref(c: torch.Tensor, v: torch.Tensor, key) -> torch.Tensor:
+def two_level_draw_ref(c: torch.Tensor, v: torch.Tensor, key, done=None) -> torch.Tensor:
     """(1,) int32 flat index of the draw."""
+    if done is not None and bool(done):
+        return torch.full((1,), -1, dtype=torch.int32, device=v.device)
     kg, km = prng.split(key)
     g = torch.argmax(c + prng.gumbel(kg, c.shape, c.device))
     m = torch.argmax(v[g] + prng.gumbel(km, (1, v.shape[1]), v.device)[0])

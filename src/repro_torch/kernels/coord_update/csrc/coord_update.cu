@@ -18,7 +18,12 @@
 //   * line 29: it refreshes the queue priority of every touched coordinate
 //     (|α|, scaled by the EM scale when private) and either marks the
 //     coordinate's group for the log-sum-exp rebuild (two-level sampler) or
-//     ratchets the group's bound (group argmax).
+//     ratchets the group's bound (group argmax);
+//   * early stopping (masked runs, done != null): a launch that finds the
+//     device flag done set writes only the sentinels gap 0 and coordinate
+//     -1 and leaves the state as it was; the launch whose gap is <= gap_tol
+//     applies its step and sets done and stop_at (the global step t), so a
+//     masked run needs no host round trip either.
 //
 // The TPU kernel was race-free only because its grid runs in sequence; it
 // also walked every padded lane, whose "+0" writes land on row 0 and
@@ -96,6 +101,9 @@ struct Args {
   int* coords;
   int slot;
   float* gs;           // (N,) scratch: γᵢ/N of each lane
+  bool* done;          // (1,) early-stopping flag, or null (fixed-T run)
+  int* stop_at;        // (1,) steps applied when done was set
+  float gap_tol;
 };
 
 template <int LOSS>
@@ -104,17 +112,32 @@ __global__ void __launch_bounds__(CU_THREADS) coord_update_kernel(const Args a) 
   __shared__ const int* s_rows;
   __shared__ const float* s_xv;
   __shared__ float s_edt, s_wm, s_gt;
+  __shared__ bool s_frozen;
   const int tid = threadIdx.x;
 
   // ---- lines 16-21 ---------------------------------------------------------
+  if (tid == 0) s_frozen = a.done != nullptr && *a.done;
+  __syncthreads();
+  if (s_frozen) {  // the run stopped at an earlier step: sentinels only
+    if (tid == 0) {
+      a.gaps[a.slot] = 0.0f;
+      a.coords[a.slot] = -1;
+    }
+    return;
+  }
   if (tid == 0) {
     const int j = min(a.j[0], a.d - 1);
     const float aj = a.alpha[j];
     const float sgn = aj > 0.0f ? 1.0f : (aj < 0.0f ? -1.0f : aj);
     const float dt = aj == 0.0f ? a.lam : __fmul_rn(-a.lam, sgn);
     const float gt = a.g_tilde[0];
-    a.gaps[a.slot] = __fsub_rn(gt, __fmul_rn(dt, aj));
+    const float gap = __fsub_rn(gt, __fmul_rn(dt, aj));
+    a.gaps[a.slot] = gap;
     a.coords[a.slot] = j;
+    if (a.done != nullptr && a.gap_tol > 0.0f && gap <= a.gap_tol) {
+      *a.done = true;  // this step is still applied; later launches freeze
+      *a.stop_at = static_cast<int>(a.t);
+    }
     const float eta = __fdiv_rn(2.0f, __fadd_rn(a.t, 2.0f));
     const float ome = __fsub_rn(1.0f, eta);
     const float wm = __fmul_rn(a.w_m[0], ome);
@@ -200,10 +223,12 @@ extern "C" int port_coord_update(
     const int* ridx, const float* rval, const int* rnnz, int kr, const float* y, float* w,
     float* w_m, float* g_tilde, float* vbar, float* qbar, float* alpha, float* prio,
     float* bound, int* touched, int group_size, float em_scale, float t, float lam,
-    float inv_n, int d, float* gaps, int* coords, int slot, float* gs, cudaStream_t stream) {
+    float inv_n, int d, float* gaps, int* coords, int slot, float* gs, bool* done,
+    int* stop_at, float gap_tol, cudaStream_t stream) {
   const Args a{j, port::Cols{cidx, cval, cnnz, heavy_slot, hidx, hval, width, full},
                ridx, rval, rnnz, kr, y, w, w_m, g_tilde, vbar, qbar, alpha, prio, bound,
-               touched, group_size, em_scale, t, lam, inv_n, d, gaps, coords, slot, gs};
+               touched, group_size, em_scale, t, lam, inv_n, d, gaps, coords, slot, gs,
+               done, stop_at, gap_tol};
   switch (loss) {
     case LOGISTIC: launch<LOGISTIC>(a, stream); break;
     case SQUARED: launch<SQUARED>(a, stream); break;

@@ -8,6 +8,11 @@ writes its gap and coordinate into ``gaps[slot]`` / ``coords[slot]``.
 ``queue`` is the sampler state the step refreshes: a ``TwoLevelSamplerState``
 (private; priorities scaled by ``em_scale``, groups marked for
 ``tl_rebuild_``) or a ``GroupArgmaxState`` (bounds ratcheted).
+
+A masked run passes its ``done`` (bool) and ``stop_at`` (int32) device
+flags: a step that finds ``done`` set writes only the sentinels
+``gaps[slot] = 0``, ``coords[slot] = -1``; the step whose gap is
+``<= gap_tol`` (float32) is applied and sets ``done`` and ``stop_at = t``.
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ from repro_torch.kernels.coord_update.ref import coord_update_ref
 def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
                  t: float, lam: float, inv_n: float, em_scale: float, loss: str,
                  gaps: torch.Tensor, coords: torch.Tensor, slot: int,
-                 scratch: Optional[torch.Tensor] = None) -> None:
+                 scratch: Optional[torch.Tensor] = None, done: Optional[torch.Tensor] = None,
+                 stop_at: Optional[torch.Tensor] = None, gap_tol: float = 0.0) -> None:
     """``scratch``: float32 (≥ max column nnz,) buffer on CUDA (allocated if None)."""
     obj = get_loss(loss)
     kw = dict(t=t, lam=lam, inv_n=inv_n, em_scale=em_scale, loss=loss,
-              gaps=gaps, coords=coords, slot=slot)
+              gaps=gaps, coords=coords, slot=slot, done=done, stop_at=stop_at,
+              gap_tol=gap_tol)
     if alpha.device.type == "cpu":
         coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, **kw)
         return
@@ -46,13 +53,17 @@ def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
         raise ValueError("coord_update: padded CSR ids must be int32")
     if not 0 <= slot < gaps.shape[0]:
         raise ValueError(f"coord_update: slot {slot} outside the output arrays")
+    if (done is None) != (stop_at is None) or (done is not None and (
+            done.dtype != torch.bool or stop_at.dtype != torch.int32)):
+        raise ValueError("coord_update: pass both done (bool) and stop_at (int32), or neither")
     if scratch is None:
         scratch = torch.empty(pcsr.shape[0], dtype=torch.float32, device=alpha.device)
     y_arg = None if obj.separable else y
     bound = None if private else queue.bound
     touched = queue.touched if private else None
     _lib.require_cuda("coord_update", j, pcsr.indices, pcsr.values, pcsr.nnz, y_arg, w, w_m,
-                      g_tilde, vbar, qbar, alpha, prio, bound, touched, gaps, coords, scratch)
+                      g_tilde, vbar, qbar, alpha, prio, bound, touched, gaps, coords, scratch,
+                      done, stop_at)
     cols = _lib.col_table(pcsc)
     p = _lib.ptr
     code = _lib.library().port_coord_update(
@@ -60,7 +71,7 @@ def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
         pcsr.indices.shape[1], p(y_arg), p(w), p(w_m), p(g_tilde), p(vbar), p(qbar),
         p(alpha), p(prio), p(bound), p(touched), queue.group_size,
         em_scale if private else 1.0, t, lam, inv_n, alpha.shape[0], p(gaps), p(coords),
-        slot, p(scratch), _lib.stream())
+        slot, p(scratch), p(done), p(stop_at), gap_tol, _lib.stream())
     _lib.check(code, "coord_update")
     coord_update.launches += 1
 

@@ -1,1 +1,1 @@
-from repro_torch.kernels.spmv.ops import ell_rmatvec  # noqa: F401
+from repro_torch.kernels.spmv.ops import ell_matvec, ell_rmatvec  # noqa: F401

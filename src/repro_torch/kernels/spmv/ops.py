@@ -1,9 +1,11 @@
-"""``ell_rmatvec``: Xᵀ·q for the Frank-Wolfe setup sweep.
+"""``ell_matvec`` (X·w) and ``ell_rmatvec`` (Xᵀ·q) over the padded layouts.
 
-On a CUDA tensor it launches the column-gather kernel
-(``csrc/ell_rmatvec.cu``), which walks the ``PaddedCSC``; on a CPU tensor it
-runs the plain version over the ``PaddedCSR``.  There is no fallback from
-one to the other.
+``ell_matvec`` gives the margins of every Alg 1 step; ``ell_rmatvec`` the
+Frank-Wolfe setup sweep and every Alg 1 step's gradient.  On a CUDA tensor
+each launches its kernel: ``csrc/ell_matvec.cu`` (a warp per ``PaddedCSR``
+row) and ``csrc/ell_rmatvec.cu`` (a warp per ``PaddedCSC`` column); on a CPU
+tensor each runs its plain version over the ``PaddedCSR``.  There is no
+fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -11,7 +13,30 @@ import torch
 
 from repro_torch.core.sparse.formats import PaddedCSR
 from repro_torch.kernels import _lib
-from repro_torch.kernels.spmv.ref import ell_rmatvec_ref
+from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref
+
+
+def ell_matvec(X: PaddedCSR, w: torch.Tensor) -> torch.Tensor:
+    """X·w, (N,) float32."""
+    n, d = X.shape
+    if w.device.type == "cpu":
+        return ell_matvec_ref(X.indices, X.values, w)
+    if w.dtype != torch.float32 or w.shape != (d,):
+        raise ValueError(f"ell_matvec: w must be float32 of shape ({d},)")
+    if X.indices.dtype != torch.int32 or X.values.dtype != torch.float32 or \
+            X.nnz.dtype != torch.int32:
+        raise ValueError("ell_matvec: padded CSR must be int32 ids, float32 values")
+    _lib.require_cuda("ell_matvec", X.indices, X.values, X.nnz, w)
+    out = torch.empty(n, dtype=torch.float32, device=w.device)
+    code = _lib.library().port_ell_matvec(
+        _lib.ptr(X.indices), _lib.ptr(X.values), _lib.ptr(X.nnz), X.indices.shape[1],
+        _lib.ptr(w), _lib.ptr(out), n, _lib.stream())
+    _lib.check(code, "ell_matvec")
+    ell_matvec.launches += 1
+    return out
+
+
+ell_matvec.launches = 0
 
 
 def ell_rmatvec(X: PaddedCSR, q: torch.Tensor, pcsc=None) -> torch.Tensor:

@@ -28,8 +28,8 @@ from repro_torch.kernels.bsls_draw import two_level_draw
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
 from repro_torch.kernels.coord_update import coord_update
 from repro_torch.kernels.coord_update.ref import coord_update_ref
-from repro_torch.kernels.spmv import ell_rmatvec
-from repro_torch.kernels.spmv.ref import ell_rmatvec_ref
+from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec
+from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref
 
 pytestmark = pytest.mark.gpu
 LOSSES = ["logistic", "squared", "lad", "huber", "smoothed_hinge"]
@@ -62,6 +62,21 @@ def test_ell_rmatvec_kernel_matches_plain(problem):
     assert torch.equal(got, ell_rmatvec(pcsr, q, tiered))        # same sums, same order
     with pytest.raises(ValueError, match="pcsc"):
         ell_rmatvec(pcsr, q)
+
+
+def test_ell_matvec_kernel_matches_plain(problem):
+    X, _, (pcsr, _) = problem
+    w = torch.randn(X.shape[1], generator=torch.Generator().manual_seed(1)).cuda()
+    w[::4] = 0.0
+    before = launch_counts()["ell_matvec"]
+    got = ell_matvec(pcsr, w)
+    assert launch_counts()["ell_matvec"] == before + 1
+    ref = ell_matvec_ref(pcsr.indices, pcsr.values, w)
+    scale = ell_matvec_ref(pcsr.indices, pcsr.values.abs(), w.abs())
+    assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-7).all())
+    assert torch.equal(got, ell_matvec(pcsr, w))                  # deterministic
+    with pytest.raises(ValueError, match="float32"):
+        ell_matvec(pcsr, w[:-1])
 
 
 def test_two_level_draw_kernel_matches_plain(problem):
@@ -108,7 +123,8 @@ def test_coord_update_kernel_matches_plain(problem, loss, private):
 @pytest.mark.parametrize("loss", LOSSES)
 def test_card_solve_matches_cpu_solve(problem, loss, private):
     X, y, pair = problem
-    cfg = FWConfig(lam=8.0, steps=40, loss=loss, queue="two_level" if private else None)
+    cfg = FWConfig(backend="torch_sparse", lam=8.0, steps=40, loss=loss,
+                   queue="two_level" if private else None)
     reset_launch_counts()
     card = solve(pair, y, cfg)
     counts = launch_counts()
@@ -123,3 +139,40 @@ def test_card_solve_matches_cpu_solve(problem, loss, private):
     assert torch.equal(again.w, card.w) and torch.equal(again.coords, card.coords)
     tiered = solve((pair[0], tiered_from_padded(pair[1], 8)), y, cfg)
     assert torch.equal(tiered.coords, card.coords)
+
+
+@pytest.mark.parametrize("selection", ["argmax", "noisy_max", "gumbel"])
+def test_dense_card_solve_matches_cpu_solve(problem, selection):
+    X, y, pair = problem
+    cfg = FWConfig(backend="dense", lam=8.0, steps=40, selection=selection, epsilon=20.0)
+    reset_launch_counts()
+    card = solve(pair, y, cfg)
+    assert launch_counts() == {"ell_matvec": 40, "ell_rmatvec": 41, "two_level_draw": 0,
+                               "coord_update": 0}
+    cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
+    assert torch.equal(card.coords.cpu(), cpu.coords)
+    for name in ("w", "gaps", "losses"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,
+                                   atol=1e-4)
+    again = solve(pair, y, cfg)
+    assert torch.equal(again.w, card.w) and torch.equal(again.coords, card.coords)
+    if selection == "argmax":
+        dense = solve(X, y, cfg)               # HostCSR → dense (N, D) on the card
+        assert torch.equal(dense.coords, card.coords)
+        torch.testing.assert_close(dense.w, card.w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("backend,queue", [("dense", None), ("torch_sparse", "group_argmax"),
+                                           ("torch_sparse", "two_level")])
+def test_masked_card_run_is_prefix_of_fixed_run(problem, backend, queue):
+    X, y, pair = problem
+    cfg = FWConfig(backend=backend, lam=8.0, steps=60, queue=queue, chunk_steps=16)
+    full = solve(pair, y, cfg)
+    # the first positive gap from T/2 on (a private trace may dip below zero)
+    k = next(i for i in range(30, 60) if float(full.gaps[i]) > 0)
+    stopped = solve(pair, y, dataclasses.replace(cfg, gap_tol=float(full.gaps[k])))
+    stop = stopped.stop_step_or()
+    assert stopped.stop_reason == "gap_tol" and 0 < stop <= k + 1
+    assert torch.equal(stopped.coords[:stop], full.coords[:stop])
+    assert torch.equal(stopped.gaps[:stop], full.gaps[:stop])
+    assert bool((stopped.coords[stop:] == -1).all())

@@ -114,6 +114,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "sys.path.insert(0, 'src')\n"
         "mods = ['repro_torch', 'repro_torch.interop', 'repro_torch.prng',\n"
         "        'repro_torch.core.solvers.torch_sparse', 'repro_torch.core.solvers.backends',\n"
+        "        'repro_torch.core.solvers.stopping', 'repro_torch.core.fw_dense',\n"
         "        'repro_torch.kernels', 'repro_torch.data.synthetic', 'chip_smoke']\n"
         "for m in mods: importlib.import_module(m)\n"
         "import repro_torch\n"

@@ -2,11 +2,17 @@
 (Pallas in interpret mode, as the JAX tests run them on the CPU).
 
 * ``ell_rmatvec``: allclose at rtol/atol 1e-6.
+* ``ell_matvec``: against ``ell_matvec_pallas`` (interpret mode, row tiles
+  that do not divide N) and JAX's ``PaddedCSR.matvec``, with empty rows, at
+  rtol 1e-5 / atol 1e-6 (sums of a row's lanes in another order).
 * ``coord_update``: one whole step (lines 16-29) against the JAX scan's step
   body — scalars, the Pallas ``coord_update`` and the queue refresh — for
   every loss, private and non-private: state vectors allclose at 1e-6, the
   g̃ (which carries Δg̃) at 1e-5, priorities and bounds at 1e-6.
 * Wrappers route CPU tensors to the plain version and count no launch.
+* Masked steps: with ``done`` set, ``coord_update`` writes only the
+  sentinels and leaves the state bitwise as it was, the draw returns -1,
+  and the step that crosses ``gap_tol`` sets ``done``/``stop_at``.
 """
 import jax
 import jax.numpy as jnp
@@ -19,13 +25,16 @@ from repro.core.samplers import bsls_jax as jtl
 from repro.core.samplers import group_argmax as jga
 from repro.core.sparse import formats as jf
 from repro.kernels.coord_update.ops import coord_update as j_coord_update
+from repro.kernels.spmv.kernel import ell_matvec_pallas
 from repro.kernels.spmv.ops import ell_rmatvec as j_ell_rmatvec
 from repro_torch.core.samplers import group_argmax as tga
 from repro_torch.core.samplers import two_level as ttl
 from repro_torch.core.sparse import formats as tf
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.coord_update import coord_update
-from repro_torch.kernels.spmv import ell_rmatvec
+from repro_torch import prng
+from repro_torch.kernels.bsls_draw import two_level_draw
+from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec
 
 LOSSES = ["logistic", "squared", "lad", "huber", "smoothed_hinge"]
 
@@ -55,6 +64,33 @@ def test_ell_rmatvec_plain_matches_jax(problem):
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(got, x.T.astype(np.float32) @ q, rtol=1e-4, atol=1e-5)
     assert launch_counts()["ell_rmatvec"] == before
+
+
+@pytest.mark.parametrize("tile_rows", [8, 32, 256])
+def test_ell_matvec_plain_matches_pallas_and_jax(problem, tile_rows):
+    x, (jr, _), (tr, _), _ = problem
+    assert x.shape[0] % tile_rows or tile_rows > x.shape[0]   # a ragged last tile
+    assert int((tr.nnz == 0).sum()) >= 1                         # an empty row
+    before = launch_counts()["ell_matvec"]
+    for seed in range(3):
+        w = np.random.default_rng(seed).normal(size=x.shape[1]).astype(np.float32)
+        w[::3] = 0.0                                   # a sparse iterate, as FW's
+        got = ell_matvec(tr, torch.from_numpy(w)).numpy()
+        pallas = np.asarray(ell_matvec_pallas(jr.indices, jr.values, jnp.asarray(w),
+                                              tile_rows=tile_rows, interpret=True))
+        np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, np.asarray(jr.matvec(jnp.asarray(w))), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got, tr.matvec(torch.from_numpy(w)).numpy())
+        assert got[7] == 0.0
+    assert launch_counts()["ell_matvec"] == before
+
+
+def test_padded_csr_rmatvec_matches_jax(problem):
+    x, (jr, _), (tr, _), _ = problem
+    q = np.random.default_rng(4).normal(size=x.shape[0]).astype(np.float32)
+    np.testing.assert_allclose(tr.rmatvec(torch.from_numpy(q)).numpy(),
+                               np.asarray(jr.rmatvec(jnp.asarray(q))), rtol=1e-6, atol=1e-6)
 
 
 def _state(x, seed, loss):
@@ -155,3 +191,38 @@ def test_coord_update_on_tiered_layout_equals_flat(problem):
         outs.append(st)
     for name in outs[0]:
         assert torch.equal(outs[0][name], outs[1][name]), name
+
+
+@pytest.mark.parametrize("private", [False, True])
+def test_masked_step_freezes_and_sets_the_flags(problem, private):
+    _, _, (tr, tc), y = problem
+    st = {k: torch.tensor(v) for k, v in _state(np.zeros(tr.shape), 5, "logistic").items()}
+    queue = ttl.tl_init(st["alpha"].abs() * 7.5) if private else tga.ga_init(st["alpha"].abs())
+    gaps, coords = torch.full((3,), 9.0), torch.full((3,), 9, dtype=torch.int32)
+    done, stop_at = torch.tensor(False), torch.tensor(0, dtype=torch.int32)
+    kw = dict(lam=8.0, inv_n=1.0 / tr.shape[0], em_scale=7.5, loss="logistic", gaps=gaps,
+              coords=coords, done=done, stop_at=stop_at)
+    j = torch.tensor([4], dtype=torch.int32)
+    args = lambda: (j, tr, tc, None, st["w"], st["w_m"], st["g_tilde"], st["vbar"],
+                    st["qbar"], st["alpha"], queue)
+    coord_update(*args(), t=3.0, slot=0, gap_tol=-1e30, **kw)
+    assert not bool(done) and int(coords[0]) == 4          # gap_tol <= 0 never stops
+    coord_update(*args(), t=4.0, slot=1, gap_tol=1e30, **kw)
+    assert bool(done) and int(stop_at) == 4 and int(coords[1]) == 4   # applied, then set
+    frozen = {k: v.clone() for k, v in st.items()}
+    prio = (queue.v if private else queue.p).clone()
+    if private:
+        ttl.tl_rebuild_(queue)
+        c_before = queue.c.clone()
+    coord_update(*args(), t=5.0, slot=2, gap_tol=1e30, **kw)
+    assert float(gaps[2]) == 0.0 and int(coords[2]) == -1 and int(stop_at) == 4
+    for name in st:
+        assert torch.equal(st[name], frozen[name]), name
+    assert torch.equal(queue.v if private else queue.p, prio)
+    if private:
+        ttl.tl_rebuild_(queue)                             # no group touched: c unchanged
+        assert torch.equal(queue.c, c_before)
+        key = prng.PRNGKey(3)
+        assert int(two_level_draw(queue.c, queue.v, key, done=done)) == -1
+        assert int(two_level_draw(queue.c, queue.v, key, done=torch.tensor(False))) == \
+            int(two_level_draw(queue.c, queue.v, key))

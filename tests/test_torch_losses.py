@@ -46,6 +46,23 @@ def test_loss_maps_match_jax(loss):
         np.testing.assert_array_equal(to.split_grad_np(m64), jo.split_grad_np(m64))
 
 
+@pytest.mark.parametrize("loss", LOSSES)
+def test_loss_values_match_jax(loss):
+    m, y = _inputs(seed=2)
+    jo, to = jl.get_loss(loss), tl.get_loss(loss)
+    tm, ty = torch.from_numpy(m), torch.from_numpy(y)
+    ref = np.asarray(jo.value(jnp.asarray(m), jnp.asarray(y)))
+    np.testing.assert_allclose(to.value(tm, ty).numpy(), ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(float(to.mean_value(tm, ty)),
+                               float(jo.mean_value(jnp.asarray(m), jnp.asarray(y))),
+                               rtol=1e-6)
+    m64, y64 = m.astype(np.float64), y.astype(np.float64)
+    np.testing.assert_allclose(to.value_np(m64, y64), ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(to.value_np(m64, y64),
+                               to.value(torch.from_numpy(m64), torch.from_numpy(y64)).numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
 def test_loss_kernel_ids_are_distinct():
     assert sorted(o.kernel_id for o in tl.OBJECTIVES.values()) == list(range(5))
     with pytest.raises(KeyError):
@@ -78,9 +95,7 @@ def test_privacy_accountant_equal():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("gap_tol", 1e-3, "A5"), ("max_seconds", 5.0, "A5"), ("chunk_steps", 8, "A5"),
     ("screen_every", 2, "A8"), ("lambdas", (3.0, 2.0), "A8"), ("mesh", (2, 2), "A12"),
-    ("selection", "gumbel", "A9"),
 ])
 def test_unported_config_fields_refused(field, value, item):
     cfg = dataclasses.replace(tc.FWConfig(device="cpu"), **{field: value})
@@ -88,13 +103,23 @@ def test_unported_config_fields_refused(field, value, item):
         tc.check_supported(cfg)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("gap_tol", 1e-3), ("max_seconds", 5.0), ("chunk_steps", 8), ("selection", "gumbel"),
+])
+def test_ported_config_fields_accepted(field, value):
+    cfg = dataclasses.replace(tc.FWConfig(device="cpu"), **{field: value})
+    tc.check_supported(cfg)
+    from repro.core.solvers.config import FWConfig as JC
+    assert cfg.early_stopping == dataclasses.replace(JC(), **{field: value}).early_stopping
+
+
 def test_config_defaults_follow_the_jax_package():
     from repro.core.solvers.config import FWConfig as JC
     ours, theirs = tc.FWConfig(), JC()
     for f in dataclasses.fields(theirs):
-        if f.name in ("backend", "interpret"):
+        if f.name == "interpret":
             continue
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
-    assert ours.device == "cuda" and ours.backend == "torch_sparse"
+    assert ours.device == "cuda" and ours.backend == "dense"
     assert not hasattr(ours, "interpret")
     assert tc.STOP_MAX_STEPS == "max_steps"

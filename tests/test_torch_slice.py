@@ -55,7 +55,7 @@ def test_torch_sparse_accepts_dense_and_padded_inputs(sweep_problem):
     from repro_torch.core.sparse.formats import host_to_padded
     X, y = sweep_problem
     host = HostCSR(X.indptr, X.indices, X.data, X.shape)
-    cfg = FWConfig(lam=8.0, steps=20, device="cpu", queue="two_level")
+    cfg = FWConfig(backend="torch_sparse", lam=8.0, steps=20, device="cpu", queue="two_level")
     a = solve(host, y, cfg)
     b = solve(host.to_dense(), y, cfg)
     c = solve(host_to_padded(host, device="cpu"), torch.from_numpy(y), cfg)
@@ -76,12 +76,15 @@ def test_solve_refuses_missing_card_and_unported_backends(sweep_problem):
     X, y = sweep_problem
     host = HostCSR(X.indptr, X.indices, X.data, X.shape)
     with pytest.raises(NotImplementedError, match="A9"):
-        solve(host, y, FWConfig(backend="jax_sparse", device="cpu", steps=5))
-    with pytest.raises(NotImplementedError, match="A5"):
-        solve(host, y, FWConfig(device="cpu", steps=5, gap_tol=0.1))
+        solve(host, y, FWConfig(backend="jax_dense", device="cpu", steps=5))
+    with pytest.raises(NotImplementedError, match="A8"):
+        solve(host, y, FWConfig(backend="torch_sparse", device="cpu", steps=5,
+                                screen_every=2))
     with pytest.raises(ValueError, match="queue"):
-        solve(host, y, FWConfig(device="cpu", steps=5, queue="noisy_max"))
+        solve(host, y, FWConfig(backend="torch_sparse", device="cpu", steps=5,
+                                queue="noisy_max"))
     if torch.cuda.is_available():
         return   # the card is there: the default device is legitimately usable
-    with pytest.raises(RuntimeError, match="CUDA"):
-        solve(host, y, FWConfig(steps=5))   # default device is cuda: never a CPU run
+    for backend in ("dense", "torch_sparse"):
+        with pytest.raises(RuntimeError, match="CUDA"):   # default device is cuda: never a CPU run
+            solve(host, y, FWConfig(backend=backend, steps=5))

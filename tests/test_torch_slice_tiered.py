@@ -43,7 +43,7 @@ def test_torch_sparse_tiered_matches_jax_sparse_tiered(tiered_problem, loss, pri
               queue="two_level" if private else "group_argmax")
     ref = jax_sparse_fw(jr, jt, jnp.asarray(y, jnp.float32),
                         JaxConfig(backend="jax_sparse", **kw))
-    cfg = FWConfig(device="cpu", **kw)
+    cfg = FWConfig(backend="torch_sparse", device="cpu", **kw)
     got = solve((tr, tt), y, cfg)
     msg = f"{loss} private={private}"
     np.testing.assert_array_equal(got.coords.numpy(), np.asarray(ref.coords), err_msg=msg)
