@@ -5,7 +5,7 @@
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version on the card, and drives
-the port's two paths through ``repro_torch.solve`` at the full size of
+the port's solver paths through ``repro_torch.solve`` at the full size of
 LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
 ~74 nnz per row, made from seed 0 by the port's synthetic generator):
 
@@ -15,10 +15,21 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
 * both with ``gap_tol`` early stopping (the chunk loop ``drive_chunks``).
 
 It holds the card's runs against CPU runs of the plain versions and the
-stopped runs against the fixed-T runs.  Phases print one JSON line each and
-raise on any failure (non-zero exit).  The last three lines are the card's
-name and power limit as ``nvidia-smi`` reports them, the
-``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
+stopped runs against the fixed-T runs.  Then it drives the LM at the full
+published width of ``tinyllama-1.1b`` (22 layers, d_model 2048, 32 heads,
+4 KV heads, random weights from a seed):
+
+* ``forward`` (``last_only``) at B = 4 × S = 2,048 through the flash-attention
+  kernel, held in float32 against the same forward with the plain attention,
+  and timed in bfloat16;
+* the serving engine (4 slots, 8 requests, greedy), and decode ≡ forward;
+* ``examples/dp_lasso_probe.py``'s pipeline: backbone features, a random-ReLU
+  expansion and a private ``torch_sparse`` solve on them.
+
+Phases print one JSON line each and raise on any failure (non-zero exit).
+The last three lines are the card's name and power limit as ``nvidia-smi``
+reports them, the ``{"kernels": [...]}`` record and
+``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package ``repro``.
 """
@@ -42,24 +53,38 @@ from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa:
 from repro_torch.core.samplers.two_level import tl_init, tl_rebuild_  # noqa: E402
 from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init,  # noqa: E402
                                                    fw_scan_chunk, fw_setup)
-from repro_torch.core.sparse.formats import host_to_padded, tiered_from_padded  # noqa: E402
-from repro_torch.data.synthetic import make_sparse_classification  # noqa: E402
+from repro_torch.core.sparse.formats import (dense_to_host, host_to_padded,  # noqa: E402
+                                             tiered_from_padded)
+from repro_torch.data.synthetic import lm_batches, make_sparse_classification  # noqa: E402
 from repro_torch.kernels import _lib, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.bsls_draw import two_level_draw  # noqa: E402
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref  # noqa: E402
 from repro_torch.kernels.coord_update import coord_update  # noqa: E402
 from repro_torch.kernels.coord_update.ref import coord_update_ref  # noqa: E402
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 
 # rcv1.binary training set (LIBSVM): rows, features, nnz per row
 N, D, NNZ_PER_ROW, INFORMATIVE, SEED = 20242, 47236, 74, 64, 0
 LAM, T_MAIN, T_PARITY, WARMUP = 50.0, 500, 200, 50
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
-# H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores,
+# bf16 on the tensor cores (dense)
+HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 DEVICE = "cuda"
+# the LM: tinyllama-1.1b at full width, prefill batch B x S, the probe's rows
+LM_ARCH, LM_B, LM_S, LM_SEED = "tinyllama-1.1b", 4, 2048, 0
+PROBE_ROWS, PROBE_SEQ, PROBE_FEATURES, PROBE_T = 512, 32, 4096, 400
+# bounds set before the first run: kernel against plain (tests/test_kernels.py's),
+# and the float32 logits of the kernel forward against the plain forward
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.06}
+LOGITS_ATOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,9 +121,9 @@ def device_ms(launches, sleep_cycles: int = 200_000_000) -> float:
     return start.elapsed_time(end) / len(launches)
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(bound ms, what bounds it) at the card's published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -281,7 +306,7 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"coord_update": T_MAIN, "two_level_draw": T_MAIN if private else 0,
-                "ell_rmatvec": 2, "ell_matvec": 0}
+                "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0}
         require(counts == want, f"launch counts {counts}, expected {want}")
         gaps = res.gaps.cpu().numpy()
         require(bool(np.isfinite(gaps).all()) and bool(torch.isfinite(res.w).all()),
@@ -363,7 +388,8 @@ def profile_steps(run: str, steps: int, window) -> dict:
          device_idle_share=(1.0 - busy_ms / wall_ms) if by_kernel else None,
          top_device=[{"name": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:8]],
          note=None if by_kernel else "the profiler recorded no device time")
-    return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel}}
+    return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
+            "calls": {k: c for k, _, c in by_kernel}}
 
 
 def _alg1_config(selection: str, steps: int) -> FWConfig:
@@ -384,7 +410,7 @@ def phase_alg1(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"ell_matvec": T_MAIN, "ell_rmatvec": T_MAIN + 1, "coord_update": 0,
-                "two_level_draw": 0}
+                "two_level_draw": 0, "flash_attention": 0}
         require(counts == want, f"Alg 1 {sel}: launch counts {counts}, expected {want}")
         gaps, losses = res.gaps.cpu().numpy(), res.losses.cpu().numpy()
         require(bool(np.isfinite(gaps).all() and np.isfinite(losses).all()
@@ -683,6 +709,249 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs) -> li
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# the LM: flash attention, forward, serving, the DP-LASSO probe
+# ---------------------------------------------------------------------------
+
+
+def _qkv(b, s, h, kv, hd, dtype, seed):
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                 for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+
+def attention_ops(b, sq, sk, h, hd, causal, window) -> float:
+    """Flops of the scores and P·V over the keys each query sees (2 per MAC)."""
+    qpos = np.arange(sq)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    return 4.0 * b * h * hd * float(np.maximum(hi - lo, 0).sum())
+
+
+def phase_flash_vs_plain() -> float:
+    """The kernel against the plain blockwise version (models/flash.py) on the
+    card; returns the error at the LM forward's shape and dtype."""
+    cfg = get_model(LM_ARCH).cfg
+    lm = (LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    cases = [(lm, torch.bfloat16, True, 0), (lm, torch.float32, True, 0),
+             ((2, LM_S, 32, 4, 64), torch.float32, True, 300),       # local window
+             ((2, 1024, 32, 4, 64), torch.bfloat16, False, 0),       # non-causal
+             ((2, 1024, 16, 4, 128), torch.float32, True, 0),        # the other dense configs' hd
+             ((1, 2048, 10, 1, 256), torch.bfloat16, True, 512)]     # recurrentgemma's hd, local
+    err_lm = None
+    for shape, dtype, causal, window in cases:
+        q, k, v = _qkv(*shape, dtype, seed=sum(shape))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        ok = bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+        require(ok and bool(torch.isfinite(got).all()),
+                f"flash_attention {shape} {dtype} causal={causal} window={window}: "
+                f"max |d| {err} over tolerance {tol}")
+        require(torch.equal(got, flash_attention(q, k, v, causal=causal, window=window)),
+                "flash_attention is not deterministic")
+        if err_lm is None:
+            err_lm = err
+        emit("flash_vs_plain", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+             causal=causal, window=window, max_abs_err=err, tolerance=tol,
+             tolerance_rule="|d| <= tol + tol * |plain|", deterministic=True)
+    return err_lm
+
+
+class plain_attention:
+    """Within the block, the model's attention runs the plain version on the
+    card (the reference forward of the parity check)."""
+
+    def __enter__(self):
+        model_common.flash_attention = flash_attention_plain
+
+    def __exit__(self, *exc):
+        model_common.flash_attention = flash_attention
+
+
+def phase_lm_forward():
+    """Full-width tinyllama forward(last_only) at B x S: float32 parity of the
+    kernel path against the plain path on the card, then bfloat16 timing."""
+    stream = lm_batches(get_model(LM_ARCH).cfg.vocab, LM_B, LM_S, seed=1)
+    tokens = torch.from_numpy(next(stream)["tokens"]).long().to(DEVICE)
+    # ---- float32 parity ----------------------------------------------------
+    api32 = get_model(LM_ARCH, overrides={"dtype": "float32"})
+    t0 = time.perf_counter()
+    p32 = api32.init(LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launch_counts()
+    got = api32.forward(p32, tokens, last_only=True)
+    require(launch_counts()["flash_attention"] == api32.cfg.n_layers, "f32 forward launches")
+    reset_launch_counts()
+    with plain_attention():
+        want = api32.forward(p32, tokens, last_only=True)
+    require(launch_counts()["flash_attention"] == 0, "the plain forward launched the kernel")
+    require(got.shape == (LM_B, 1, api32.cfg.padded_vocab) and bool(torch.isfinite(got).all()),
+            f"f32 logits {tuple(got.shape)} not finite or misshapen")
+    d = float((got - want).abs().max())
+    top_equal = bool((got.argmax(-1) == want.argmax(-1)).all())
+    require(d <= LOGITS_ATOL and top_equal,
+            f"f32 forward: kernel vs plain logits max |d| {d} (bound {LOGITS_ATOL}), "
+            f"top-1 equal {top_equal}")
+    emit("lm_forward", run="parity_float32", arch=LM_ARCH, batch=LM_B, seq=LM_S,
+         params=sum(t.numel() for t in _leaves(p32)), init_s=init_s, max_abs_logit_err=d,
+         bound=LOGITS_ATOL, top1_equal=True, logit_std=float(want.std()))
+    # ---- bfloat16 timing -----------------------------------------------------
+    api = get_model(LM_ARCH)
+    params = api.init(LM_SEED)
+    fwd = lambda: api.forward(params, tokens, last_only=True)
+    out = fwd()                                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first_ms = sync_ms(fwd)
+    counts = launch_counts()
+    want_counts = {name: 0 for name in counts}
+    want_counts["flash_attention"] = api.cfg.n_layers
+    require(counts == want_counts, f"bf16 forward launches {counts}, expected {want_counts}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = sync_ms(fwd, reps=3)
+    require(bool(torch.isfinite(out.float()).all()), "bf16 logits not finite")
+    prof = profile_steps("lm_forward_bf16", 1, fwd)
+    flash_dev = sum(v for k, v in prof["by_kernel"].items() if "flash_fwd_kernel" in k)
+    emit("lm_forward", run="timing_bfloat16", arch=LM_ARCH, batch=LM_B, seq=LM_S,
+         forward_ms=ms, first_forward_ms=first_ms, launches=counts,
+         tokens_per_s=LM_B * LM_S / ms * 1e3, max_memory_allocated=peak,
+         flash_device_ms=flash_dev, flash_share_of_forward=flash_dev / prof["wall_ms"])
+    return api, params, api32, p32, counts["flash_attention"]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_lm_serve(api, params, api32, p32) -> None:
+    """The serving engine at full width (bf16), and decode == forward (f32)."""
+    engine = ServingEngine(api, params, ServeConfig(slots=4, max_len=2048, prefill_bucket=64))
+    times = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)          # each ends in a host read of the logits
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    engine._prefill_into_slot = timed(engine._prefill_into_slot, "prefill")
+    engine._step = timed(engine._step, "decode")
+    rng = np.random.default_rng(7)
+    for i in range(8):
+        engine.submit(Request(uid=i, prompt=rng.integers(1, api.cfg.vocab, int(
+            rng.integers(32, 65))).astype(np.int32), max_new_tokens=32))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = engine.run()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require(len(finished) == 8 and all(len(r.generated) == 32 for r in finished),
+            "serving: not every request got its 32 tokens")
+    require(all(0 <= t < api.cfg.padded_vocab for r in finished for t in r.generated),
+            "serving: a token out of the vocabulary")
+    gen = sum(len(r.generated) for r in finished)
+    # where a batched decode step's time goes: 8 steps under the profiler
+    toks = torch.ones(4, 1, dtype=torch.int64, device=DEVICE)
+    pos = torch.full((4,), 100, dtype=torch.int64, device=DEVICE)
+    prof = profile_steps("lm_decode_bf16", 8, lambda: [
+        api.decode_step(params, engine.cache, toks, pos) for _ in range(8)])
+    kernels_per_step = sum(prof["calls"].values()) / 8
+    # decode == forward at full width in float32: the kernel forward's last
+    # logits against decode steps over the same prompt
+    toks = torch.from_numpy(rng.integers(1, api32.cfg.vocab, (2, 64))).to(DEVICE)
+    full = api32.forward(p32, toks, last_only=True)
+    cache = api32.init_cache(2, 128)
+    for t in range(toks.shape[1]):
+        logits, cache = api32.decode_step(p32, cache, toks[:, t:t + 1], t)
+    d = float((logits - full).abs().max())
+    require(d <= LOGITS_ATOL, f"decode vs forward (f32) max |d| {d} over {LOGITS_ATOL}")
+    emit("lm_serve", arch=LM_ARCH, slots=4, max_len=2048, requests=8, new_tokens=32,
+         prefill_bucket=64, wall_s=wall, generated_tokens=gen, tokens_per_s=gen / wall,
+         decode_steps=engine.steps, decode_step_ms=float(np.mean(times["decode"])) * 1e3,
+         prefills=engine.prefills, prefill_ms=float(np.mean(times["prefill"])) * 1e3,
+         launches=counts, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         device_kernels_per_decode_step=kernels_per_step,
+         decode_vs_forward_f32_max_abs=d, bound=LOGITS_ATOL)
+
+
+def phase_lm_probe(api, params) -> None:
+    """examples/dp_lasso_probe.py's pipeline on the full-width bf16 backbone."""
+    t = {}
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(next(lm_batches(api.cfg.vocab, PROBE_ROWS, PROBE_SEQ,
+                                              seed=1))["tokens"]).long().to(DEVICE)
+    t["tokens_s"] = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hidden = api.forward(params, tokens, last_only=True)[:, 0, :256].float()
+    torch.cuda.synchronize()
+    t["backbone_s"] = time.perf_counter() - t0
+    require(launch_counts()["flash_attention"] == api.cfg.n_layers, "probe backbone launches")
+    t0 = time.perf_counter()
+    gen = torch.Generator(DEVICE).manual_seed(2)
+    proj = torch.randn(hidden.shape[1], PROBE_FEATURES, generator=gen, device=DEVICE) / 16.0
+    expanded = torch.relu(hidden @ proj)
+    thresh = torch.quantile(expanded, 0.95)                # keep ~5% of entries
+    X = dense_to_host(torch.where(expanded > thresh, expanded, 0.0).cpu().numpy())
+    t["expansion_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    w_star = np.zeros(PROBE_FEATURES)
+    w_star[rng.choice(PROBE_FEATURES, 32, replace=False)] = rng.normal(0, 2, 32)
+    dense = X.to_dense()
+    margins = dense @ w_star
+    y = (margins > np.median(margins)).astype(np.float64)
+    cfg = FWConfig(backend="torch_sparse", queue="two_level", lam=20.0, steps=PROBE_T,
+                   epsilon=1.0, delta=1.0 / PROBE_ROWS ** 2, device=DEVICE)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(X, y, cfg)
+    torch.cuda.synchronize()
+    t["solve_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts["coord_update"] == PROBE_T and counts["two_level_draw"] == PROBE_T,
+            f"probe solve launches {counts}")
+    w = res.w.cpu().numpy().astype(np.float64)
+    acc = float(((dense @ w > 0) == (y > 0.5)).mean())
+    require(acc > 0.55, f"probe accuracy {acc} <= 0.55")
+    emit("lm_probe", arch=LM_ARCH, rows=PROBE_ROWS, seq=PROBE_SEQ, features=PROBE_FEATURES,
+         design_nnz=int(X.nnz), density=X.nnz / (PROBE_ROWS * PROBE_FEATURES), steps=PROBE_T,
+         lam=20.0, epsilon=1.0, accuracy=acc, nnz_w=int((w != 0).sum()), launches=counts,
+         **t)
+
+
+def flash_kernel_times(lm_launches: int, err: float) -> dict:
+    """The kernel at the LM forward's shape against its bound, plain and SDPA."""
+    cfg = get_model(LM_ARCH).cfg
+    b, s, h, kv, hd = LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = _qkv(b, s, h, kv, hd, torch.bfloat16, seed=11)
+    ms = device_ms([lambda: flash_attention(q, k, v, causal=True)] * 10)
+    plain = device_ms([lambda: flash_attention_plain(q, k, v, causal=True)] * 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                     enable_gqa=True)
+    lib_out = sdpa().transpose(1, 2)
+    require(bool(((lib_out.float() - flash_attention(q, k, v).float()).abs() <= 0.06).all()),
+            "scaled_dot_product_attention disagrees with flash_attention")
+    lib = device_ms([sdpa] * 10)
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bd, by = bound(nbytes, attention_ops(b, s, s, h, hd, True, 0), BF16_OPS_PER_S)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:106",
+                launches=lm_launches, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd,
+                bound_by=by, library_ms=lib)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -709,6 +978,14 @@ def main() -> int:
     phase_parity(X, y, pcsr, pcsc, col_nnz)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
     kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs)
+    del X, csc, pcsr, pcsc, runs, alg1
+    torch.cuda.empty_cache()
+    flash_err = phase_flash_vs_plain()
+    api, params, api32, p32, lm_launches = phase_lm_forward()
+    phase_lm_serve(api, params, api32, p32)
+    del p32
+    phase_lm_probe(api, params)
+    kernels.append(flash_kernel_times(lm_launches, flash_err))
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

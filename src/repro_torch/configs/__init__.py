@@ -1,0 +1,47 @@
+"""Published model configs the port serves (copies of ``repro.configs``).
+
+``ARCH_IDS`` lists every arch of the JAX package; the port has the dense
+family (``tinyllama-1.1b``, ``llama3.2-1b``).  ``get_config`` and
+``smoke_config`` raise ``NotImplementedError`` for the others, naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = [
+    "seamless-m4t-medium",
+    "falcon-mamba-7b",
+    "llama3.2-1b",
+    "minicpm-2b",
+    "tinyllama-1.1b",
+    "nemotron-4-15b",
+    "chameleon-34b",
+    "deepseek-v2-236b",
+    "kimi-k2-1t-a32b",
+    "recurrentgemma-2b",
+]
+PORTED = ("tinyllama-1.1b", "llama3.2-1b")
+
+
+def _modname(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
+    if arch_id not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md A13: MLA/MoE, mamba, "
+            f"rglru and encdec families); the port has {list(PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).CONFIG
+
+
+def smoke_config(arch_id: str):
+    """Reduced config of the same family for CPU smoke tests."""
+    return _module(arch_id).SMOKE

@@ -147,11 +147,11 @@ def resolve_queue(backend: Backend, config: FWConfig) -> FWConfig:
 
 
 def check_device(device: str) -> torch.device:
-    """The solve's device; a CUDA device must exist (no quiet CPU fallback)."""
+    """The run's device; a CUDA device must exist (no quiet CPU fallback)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"FWConfig.device={device!r} but no CUDA device is available; "
+            f"device={device!r} but no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch versions")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")

@@ -1,14 +1,16 @@
-"""Synthetic sparse classification data (numpy copy of ``repro.data.synthetic``).
+"""Synthetic data (numpy copy of ``repro.data.synthetic``).
 
 ``make_sparse_classification`` draws sparse design matrices statistically
 matched to the paper's Table-2 datasets (N, D, nnz/row, an informative
 subset, and optionally a URL-style dense informative block).  Labels come
-from a planted sparse logistic model.  The same seed gives the same
-matrix and labels as the JAX package's generator.
+from a planted sparse logistic model.  ``lm_batches`` streams token batches
+from a sparse random bigram chain (``make_markov_chain``) for the LM.  The
+same seed gives the same matrix, labels and tokens as the JAX package's
+generators.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -85,3 +87,33 @@ def make_sparse_classification(
     flip = rng.random(n) < label_noise
     y[flip] = 1.0 - y[flip]
     return X, y, true_w
+
+
+def make_markov_chain(vocab: int, seed: int, branching: int = 8):
+    """Sparse random bigram transition table: token -> `branching` successors."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab, size=(vocab, branching))
+    logits = rng.normal(0, 1, size=(vocab, branching))
+    probs = np.exp(logits)
+    probs /= probs.sum(axis=1, keepdims=True)
+    return succ, probs
+
+
+def lm_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+               frames_dim: Optional[int] = None,
+               enc_frac: float = 0.5) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite stream of {"tokens": (B,S) int32} (+ "frames" for enc-dec)."""
+    succ, probs = make_markov_chain(vocab, seed)
+    rng = np.random.default_rng(seed + 1)
+    while True:
+        toks = np.empty((batch, seq), dtype=np.int32)
+        cur = rng.integers(0, vocab, size=batch)
+        for t in range(seq):
+            toks[:, t] = cur
+            choice = np.array([rng.choice(succ.shape[1], p=probs[c]) for c in cur])
+            cur = succ[cur, choice]
+        out = {"tokens": toks}
+        if frames_dim is not None:
+            s_enc = int(seq * enc_frac)
+            out["frames"] = rng.normal(0, 1, size=(batch, s_enc, frames_dim)).astype(np.float32)
+        yield out

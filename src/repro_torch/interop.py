@@ -1,16 +1,18 @@
 """Carry the JAX package's state into the port, and the port's state out.
 
-The system has no model weights; its "parameters" are the padded design
-matrix, the ``fw_setup`` state and the loop carry.  These functions take the
-JAX package's objects as dicts of numpy arrays, keyed by the JAX dataclass
-field names (``{f: np.asarray(getattr(obj, f)) for f in ...}``), and return
-the port's objects on ``device`` — so a run started in JAX can be continued
-by the port.  The port never imports the JAX package; the caller does the
-conversion to numpy.  ``carry_to_numpy`` is the way back.
+The solver's "parameters" are the padded design matrix, the ``fw_setup``
+state and the loop carry; the LM's are its weights.  These functions take
+the JAX package's objects as dicts of numpy arrays, keyed by the JAX
+dataclass field names (``{f: np.asarray(getattr(obj, f)) for f in ...}``) or,
+for the LM, as the ``lm_init`` pytree with numpy leaves, and return the
+port's objects on ``device`` — so a run started in JAX can be continued by
+the port, and both packages can run the same weights.  The port never
+imports the JAX package; the caller does the conversion to numpy.
+``carry_to_numpy`` is the way back.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -97,4 +99,43 @@ def carry_to_numpy(carry: FWCarry) -> Dict[str, object]:
            ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha", "done", "stop_at")}
     out["sampler"] = {k: v.cpu().numpy() for k, v in sampler.items()}
     out["key"] = carry.key.numpy().astype(np.uint32)
+    return out
+
+
+def _weight(x, device) -> torch.Tensor:
+    a = np.array(x, copy=True)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: move the raw bits
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def lm_params(params_np: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any]:
+    """The port's LM parameters from the JAX package's ``lm_init`` pytree.
+
+    ``params_np``: the pytree with numpy leaves (``jax.tree.map(np.asarray,
+    params)``).  The scanned ``blocks`` leaves, stacked along axis 0, are
+    unstacked into one dict per layer; weights keep their ``(d_in, d_out)``
+    orientation, which is the port's too.  Dtypes are kept.
+    """
+    if "lead_blocks" in params_np:
+        raise NotImplementedError("leading dense blocks (MoE configs) are not ported yet "
+                                  "(ROADMAP.md A13)")
+
+    def convert(tree, layer=None):
+        if isinstance(tree, Mapping):
+            return {k: convert(v, layer) for k, v in tree.items()}
+        return _weight(tree if layer is None else np.asarray(tree)[layer], device)
+
+    stacked = {np.shape(a)[0] for a in _leaves(params_np["blocks"])}
+    if stacked != {cfg.n_layers}:
+        raise ValueError(f"lm_params: blocks stack {sorted(stacked)} layers, the config "
+                         f"has {cfg.n_layers}")
+    out = {k: convert(v) for k, v in params_np.items() if k != "blocks"}
+    out["blocks"] = [convert(params_np["blocks"], i) for i in range(cfg.n_layers)]
     return out

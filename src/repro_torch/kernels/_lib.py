@@ -32,6 +32,7 @@ SOURCES = (
     _PKG / "spmv" / "csrc" / "ell_rmatvec.cu",
     _PKG / "bsls_draw" / "csrc" / "two_level_draw.cu",
     _PKG / "coord_update" / "csrc" / "coord_update.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 )
 INCLUDE = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[2] / "build" / "torch_kernels"
@@ -48,6 +49,7 @@ SIGNATURES = {
     "port_coord_update": ([_I, _P] + _COLS + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _F,
                           _P]),
+    "port_flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
 }
 
 

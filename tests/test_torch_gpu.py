@@ -10,6 +10,11 @@ neither.  Tolerances: kernel against plain version allclose at rtol 1e-5 /
 atol 1e-6 (the plain versions add with atomics, in another order); draws
 equal index for index; the card's solve against the CPU's (plain versions)
 by the cross-engine contract — coordinates exactly, w and gaps within 1e-4.
+Flash attention against the materialised oracle on the card: 2e-5 in float32
+and 0.06 in bfloat16 (``tests/test_kernels.py``'s bounds); the smoke LM's
+forward on the card against the CPU's within 1e-4, decode against forward
+within 5e-4 (``tests/test_models_smoke.py``'s bound), and the serving
+engine's greedy tokens equal to the CPU engine's.
 """
 import dataclasses
 
@@ -28,6 +33,11 @@ from repro_torch.kernels.bsls_draw import two_level_draw
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
 from repro_torch.kernels.coord_update import coord_update
 from repro_torch.kernels.coord_update.ref import coord_update_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.flash import flash_attention as flash_attention_plain
+from repro_torch.models.registry import get_model
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec
 from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref
 
@@ -148,7 +158,7 @@ def test_dense_card_solve_matches_cpu_solve(problem, selection):
     reset_launch_counts()
     card = solve(pair, y, cfg)
     assert launch_counts() == {"ell_matvec": 40, "ell_rmatvec": 41, "two_level_draw": 0,
-                               "coord_update": 0}
+                               "coord_update": 0, "flash_attention": 0}
     cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
     assert torch.equal(card.coords.cpu(), cpu.coords)
     for name in ("w", "gaps", "losses"):
@@ -176,3 +186,87 @@ def test_masked_card_run_is_prefix_of_fixed_run(problem, backend, queue):
     assert torch.equal(stopped.coords[:stop], full.coords[:stop])
     assert torch.equal(stopped.gaps[:stop], full.gaps[:stop])
     assert bool((stopped.coords[stop:] == -1).all())
+
+
+FLASH_CASES = [                          # b, s, h, kv, hd, causal, window
+    (2, 128, 4, 2, 32, True, 0),
+    (1, 256, 8, 8, 16, True, 0),
+    (2, 128, 4, 1, 64, False, 0),
+    (1, 256, 6, 2, 32, True, 64),
+    (1, 200, 4, 2, 64, True, 0),         # a ragged last tile
+    (2, 96, 4, 2, 128, True, 0),
+    (1, 160, 2, 1, 256, True, 0),
+    (1, 300, 4, 4, 64, True, 100),
+    (3, 32, 8, 2, 64, True, 0),          # fewer rows than one tile (the probe's shape)
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, window, dtype):
+    gen = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 0.06
+    for want in (attention_ref(q, k, v, causal=causal, window=window),
+                 flash_attention_plain(q, k, v, causal=causal, window=window)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 4, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros(1, 64, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q, q[:, :, :2].contiguous().half(), q[:, :, :2].contiguous().half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q[:, :, :2].contiguous(),
+                        q[:, :, :2].contiguous())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3.2-1b"])
+def test_card_forward_and_decode_match_cpu(cuda, arch):
+    cpu_api = get_model(arch, smoke=True, device="cpu")
+    api = get_model(arch, smoke=True, device="cuda")
+    params_cpu = cpu_api.init(0)
+    params = _to(params_cpu, cuda)
+    toks = torch.randint(1, 200, (2, 64), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    got = api.forward(params, toks.to(cuda))
+    assert launch_counts()["flash_attention"] == api.cfg.n_layers
+    want = cpu_api.forward(params_cpu, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    cache = api.init_cache(2, 80)
+    for t in range(64):
+        logits, cache = api.decode_step(params, cache, toks[:, t:t + 1].to(cuda), t)
+    assert float((logits[:, 0] - got[:, -1]).abs().max()) < 5e-4
+
+
+def test_card_engine_matches_cpu_engine(cuda):
+    cpu_api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
+    api = get_model("tinyllama-1.1b", smoke=True, device="cuda")
+    params_cpu = cpu_api.init(0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 100, int(rng.integers(3, 9))).astype(np.int32)
+               for _ in range(5)]
+    out = []
+    for a, p in ((cpu_api, params_cpu), (api, _to(params_cpu, cuda))):
+        engine = ServingEngine(a, p, ServeConfig(slots=2, max_len=64, prefill_bucket=16))
+        for i, prompt in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=6))
+        out.append({r.uid: r.generated for r in engine.run()})
+    assert out[0] == out[1]

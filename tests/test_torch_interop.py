@@ -115,10 +115,20 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "mods = ['repro_torch', 'repro_torch.interop', 'repro_torch.prng',\n"
         "        'repro_torch.core.solvers.torch_sparse', 'repro_torch.core.solvers.backends',\n"
         "        'repro_torch.core.solvers.stopping', 'repro_torch.core.fw_dense',\n"
-        "        'repro_torch.kernels', 'repro_torch.data.synthetic', 'chip_smoke']\n"
+        "        'repro_torch.kernels', 'repro_torch.data.synthetic',\n"
+        "        'repro_torch.configs', 'repro_torch.configs.tinyllama_1_1b',\n"
+        "        'repro_torch.configs.llama3_2_1b', 'repro_torch.models.config',\n"
+        "        'repro_torch.models.flash', 'repro_torch.models.common',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.registry',\n"
+        "        'repro_torch.kernels.flash_attention.ref', 'repro_torch.serve.engine',\n"
+        "        'repro_torch.launch.serve', 'chip_smoke']\n"
         "for m in mods: importlib.import_module(m)\n"
         "import repro_torch\n"
         "repro_torch.available_backends()\n"
+        "import torch\n"
+        "from repro_torch.models.registry import get_model\n"
+        "api = get_model('tinyllama-1.1b', smoke=True, device='cpu')\n"
+        "api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")

@@ -1,0 +1,199 @@
+"""The port's dense LM against the JAX package's, on the CPU, at smoke size.
+
+Both packages run the same weights (the JAX ``lm_init`` pytree carried over
+by ``interop.lm_params``) and the same tokens, in float32:
+
+* the configs are field-for-field copies (``param_count`` included), and
+  every arch the port does not have yet is refused;
+* ``rmsnorm``, ``rope``, ``ffn_apply`` and ``attn_apply`` within 1e-5;
+* ``forward`` logits (and ``last_only``) within 1e-4, ``decode_step``
+  logits within 1e-4, for ``tinyllama-1.1b`` and ``llama3.2-1b`` (its tied
+  embeddings take ``_logits``' tied branch), and ``forward`` with the config
+  branches neither arch takes (qk-norm, embedding scale, logit softcap,
+  GeGLU, squared ReLU, a local window);
+* the port's own decode ≡ forward within 5e-4 (``tests/test_models_smoke.py``'s
+  bound), and one batched decode with a position per row equals per-row
+  decodes (the serving engine's step);
+* ``lm_batches`` gives the JAX package's tokens; ``init`` is seeded.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import smoke_config as j_smoke_config
+from repro.data.synthetic import lm_batches as j_lm_batches
+from repro.models import common as jcm
+from repro.models.registry import get_model as j_get_model
+from repro_torch import interop
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke_config
+from repro_torch.data.synthetic import lm_batches
+from repro_torch.models import common as cm
+from repro_torch.models.registry import get_model
+
+ARCHS = ["tinyllama-1.1b", "llama3.2-1b"]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(JAX api, JAX params, port api, port params) on the same weights."""
+    japi = j_get_model(request.param, smoke=True)
+    jp = japi.init(jax.random.PRNGKey(0))
+    api = get_model(request.param, smoke=True, device="cpu")
+    return japi, jp, api, interop.lm_params(jax.tree.map(np.asarray, jp), api.cfg, "cpu")
+
+
+def _tokens(seed, b=2, s=20):
+    return np.random.default_rng(seed).integers(1, 200, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_copies(arch):
+    for ours, theirs in ((get_config(arch), j_get_config(arch)),
+                         (smoke_config(arch), j_smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.param_count() == theirs.param_count()
+        assert (ours.padded_vocab, ours.hd, ours.pattern()) == \
+            (theirs.padded_vocab, theirs.hd, theirs.pattern())
+
+
+def test_unported_archs_are_refused():
+    assert set(PORTED) == set(ARCHS)
+    for arch in ARCH_IDS:
+        if arch in PORTED:
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(arch, smoke=True, device="cpu")
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
+    api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.loss(api.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides={"n_experts": 4}).init(0)
+
+
+def test_norm_rope_ffn_attn_match_jax(pair):
+    japi, jp, api, tp = pair
+    cfg, jcfg = api.cfg, japi.cfg
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 12, cfg.d_model)).astype(np.float32)
+    scale = rng.normal(size=cfg.d_model).astype(np.float32)
+    np.testing.assert_allclose(cm.rmsnorm(_t(x), _t(scale), cfg.norm_eps).numpy(),
+                               _np(jcm.rmsnorm(jnp.asarray(x), jnp.asarray(scale),
+                                               jcfg.norm_eps)), rtol=1e-5, atol=1e-5)
+    heads = rng.normal(size=(2, 12, cfg.n_heads, cfg.hd)).astype(np.float32)
+    pos = np.stack([np.arange(12), np.arange(12) + 40]).astype(np.int32)
+    np.testing.assert_allclose(
+        cm.rope(_t(heads), torch.from_numpy(pos).long(), cfg.rope_theta).numpy(),
+        _np(jcm.rope(jnp.asarray(heads), jnp.asarray(pos), jcfg.rope_theta)),
+        rtol=1e-5, atol=1e-5)
+    layer = jax.tree.map(lambda a: a[0], jp["blocks"])
+    np.testing.assert_allclose(cm.ffn_apply(tp["blocks"][0]["ffn"], _t(x), cfg).numpy(),
+                               _np(jcm.ffn_apply(layer["ffn"], jnp.asarray(x), jcfg)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(cm.attn_apply(tp["blocks"][0]["attn"], _t(x), cfg).numpy(),
+                               _np(jcm.attn_apply(layer["attn"], jnp.asarray(x), jcfg)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_forward_matches_jax(pair):
+    japi, jp, api, tp = pair
+    toks = _tokens(2)
+    want = _np(japi.forward(jp, jnp.asarray(toks)))
+    got = api.forward(tp, torch.from_numpy(toks).long())
+    assert got.shape == want.shape == (2, 20, api.cfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    last = api.forward(tp, torch.from_numpy(toks).long(), last_only=True)
+    np.testing.assert_allclose(last.numpy(), want[:, -1:], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"qk_norm": True, "emb_scale": True, "logit_softcap": 30.0},
+    {"act": "geglu", "window": 8},
+    {"act": "relu2", "tie_embeddings": True},
+])
+def test_config_variants_match_jax(overrides):
+    """The config branches the two ported archs leave off, on the same weights."""
+    japi = j_get_model("tinyllama-1.1b", smoke=True, overrides=overrides)
+    jp = japi.init(jax.random.PRNGKey(1))
+    api = get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides=overrides)
+    tp = interop.lm_params(jax.tree.map(np.asarray, jp), api.cfg, "cpu")
+    toks = _tokens(6)
+    np.testing.assert_allclose(api.forward(tp, torch.from_numpy(toks).long()).numpy(),
+                               _np(japi.forward(jp, jnp.asarray(toks))), rtol=0, atol=1e-4)
+
+
+def test_decode_step_matches_jax_and_forward(pair):
+    japi, jp, api, tp = pair
+    toks = _tokens(3, s=10)
+    jcache, cache = japi.init_cache(2, 16), api.init_cache(2, 16)
+    for t in range(10):
+        jl, jcache = japi.decode_step(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                      jnp.asarray(t, jnp.int32))
+        tl, cache = api.decode_step(tp, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(cache["main"]["k"].numpy(), _np(jcache["main"]["k"]),
+                               rtol=0, atol=1e-5)
+    full = api.forward(tp, torch.from_numpy(toks).long())
+    assert float((full[:, -1] - tl[:, 0]).abs().max()) < 5e-4
+
+
+def test_batched_decode_with_row_positions_equals_row_decodes(pair):
+    _, _, api, tp = pair
+    toks = torch.from_numpy(_tokens(4, b=3, s=12)).long()
+    starts = [0, 3, 7]          # row b has seen toks[b, :starts[b]] before the batched step
+    cache = api.init_cache(3, 16)
+    rows = []
+    for b, n in enumerate(starts):
+        row_cache = {"main": {k: v[:, b:b + 1] for k, v in cache["main"].items()}}
+        for t in range(n):
+            api.decode_step(tp, row_cache, toks[b:b + 1, t:t + 1], t)
+        single = {"main": {k: v.clone() for k, v in row_cache["main"].items()}}
+        rows.append(api.decode_step(tp, single, toks[b:b + 1, n:n + 1], n)[0])
+    pos = torch.tensor(starts)
+    got, _ = api.decode_step(tp, cache, toks[torch.arange(3), pos][:, None], pos)
+    torch.testing.assert_close(got, torch.cat(rows), rtol=0, atol=1e-5)
+
+
+def test_lm_batches_and_init_follow_the_seed():
+    ours, theirs = lm_batches(256, 3, 9, seed=5), j_lm_batches(256, 3, 9, seed=5)
+    for _ in range(2):
+        np.testing.assert_array_equal(next(ours)["tokens"], next(theirs)["tokens"])
+    api = get_model("llama3.2-1b", smoke=True, device="cpu")
+    a, b, c = api.init(0), api.init(0), api.init(1)
+    assert torch.equal(a["embed"], b["embed"]) and not torch.equal(a["embed"], c["embed"])
+    assert "head" not in a and len(a["blocks"]) == api.cfg.n_layers
+    jshapes = jax.tree.map(lambda s: s.shape[1:],
+                           jax.eval_shape(j_get_model("llama3.2-1b", smoke=True).init,
+                                          jax.random.PRNGKey(0))["blocks"])
+    assert jax.tree.map(lambda t: tuple(t.shape), a["blocks"][0]) == jshapes
+    wq = a["blocks"][0]["attn"]["wq"]
+    assert float(wq.abs().max()) <= 2.0 / api.cfg.d_model ** 0.5     # truncated at 2σ
+    assert abs(float(wq.std()) * api.cfg.d_model ** 0.5 - 0.88) < 0.05
+
+
+def test_lm_params_carries_bfloat16_bits():
+    cfg = dataclasses.replace(j_smoke_config("tinyllama-1.1b"), dtype="bfloat16")
+    from repro.models.transformer import lm_init
+    jp = lm_init(jax.random.PRNGKey(0), cfg)
+    tp = interop.lm_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    assert tp["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tp["blocks"][1]["ffn"]["w2"].float().numpy(),
+                                  np.asarray(jp["blocks"]["ffn"]["w2"][1], np.float32))
+    with pytest.raises(ValueError, match="layers"):
+        interop.lm_params(jax.tree.map(np.asarray, jp), get_config("tinyllama-1.1b"), "cpu")
