@@ -15,13 +15,14 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
 * both with ``gap_tol`` early stopping (the chunk loop ``drive_chunks``).
 
 It holds the card's runs against CPU runs of the plain versions and the
-stopped runs against the fixed-T runs.  Then it drives the LM at the full
-published width of ``tinyllama-1.1b`` (22 layers, d_model 2048, 32 heads,
-4 KV heads, random weights from a seed):
+stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
+version run on the CPU bit for bit (both add in the segmented row order).
+Then it drives the LM at the full published width of ``tinyllama-1.1b``
+(22 layers, d_model 2048, 32 heads, 4 KV heads, random weights from a seed):
 
 * ``forward`` (``last_only``) at B = 4 × S = 2,048 through the flash-attention
-  kernel, held in float32 against the same forward with the plain attention,
-  and timed in bfloat16;
+  kernel, held in float32 (its CUDA-core route) against the same forward
+  with the plain attention, and timed in bfloat16 (its tensor-core route);
 * the serving engine (4 slots, 8 requests, greedy), and decode ≡ forward;
 * ``examples/dp_lasso_probe.py``'s pipeline: backbone features, a random-ReLU
   expansion and a private ``torch_sparse`` solve on them.
@@ -63,7 +64,7 @@ from repro_torch.kernels.coord_update import coord_update  # noqa: E402
 from repro_torch.kernels.coord_update.ref import coord_update_ref  # noqa: E402
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref  # noqa: E402
+from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -84,6 +85,11 @@ PROBE_ROWS, PROBE_SEQ, PROBE_FEATURES, PROBE_T = 512, 32, 4096, 400
 # bounds set before the first run: kernel against plain (tests/test_kernels.py's),
 # and the float32 logits of the kernel forward against the plain forward
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.06}
+# bf16 is held also to the output's own scale: |d| <= 4 eps max(|plain|, the
+# row's RMS over hd), eps = 2^-7 the bf16 spacing at 1 (set before its first
+# run: rounding the output costs at most 1 and rounding P a fraction of 1,
+# while a row off by a relative r reads about r / eps + 1)
+FLASH_BF16_ULPS = 4.0
 LOGITS_ATOL = 1e-3
 
 
@@ -207,15 +213,30 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
     q = torch.from_numpy(np.random.default_rng(1).normal(size=N).astype(np.float32)).to(DEVICE)
     got = ell_rmatvec(pcsr, q, pcsc)
     again = ell_rmatvec(pcsr, q, pcsc)
-    ref = ell_rmatvec_ref(pcsr.indices, pcsr.values, q, D)
-    # float32 sums of up to 20,242 terms in two orders: |Δ| within 1e-5 of Σ|terms|
-    scale = ell_rmatvec_ref(pcsr.indices, pcsr.values.abs(), q.abs(), D)
+    order = segments(pcsr)
+    ref = ell_rmatvec_ref(pcsr.indices, pcsr.values, q, order)
+    # the plain version on the card adds with atomics, in no fixed order:
+    # |Δ| within 1e-5 of Σ|terms|
+    scale = ell_rmatvec_ref(pcsr.indices, pcsr.values.abs(), q.abs(), order)
     err = (got - ref).abs()
     require(bool((err <= 1e-5 * scale + 1e-7).all()), "ell_rmatvec disagrees with plain")
     require(torch.equal(got, again), "ell_rmatvec is not deterministic")
+    # on the CPU the plain version adds in the segmented row order: the same bits
+    cpu = pcsr.to("cpu")
+    t0 = time.perf_counter()
+    cpu_order = segments(cpu)
+    order_s = time.perf_counter() - t0
+    require(torch.equal(got.cpu(), ell_rmatvec_ref(cpu.indices, cpu.values, q.cpu(), cpu_order)),
+            "ell_rmatvec differs from its plain version on the CPU")
+    tiered = tiered_from_padded(pcsc, int(np.percentile(col_nnz, 99)))
+    require(torch.equal(got, ell_rmatvec(pcsr, q, tiered)), "ell_rmatvec: tiered != flat")
     errs["ell_rmatvec"] = float(err.max())
     emit("kernel_vs_plain", kernel="ell_rmatvec", max_abs_err=errs["ell_rmatvec"],
-         tolerance="|d| <= 1e-5 * sum|terms| + 1e-7 per column", deterministic=True)
+         tolerance="|d| <= 1e-5 * sum|terms| + 1e-7 per column (plain on the card); "
+         "bitwise (plain on the CPU)", deterministic=True, equal_to_cpu_plain=True,
+         tiered_equal_flat=True, segment=SEGMENT, long_columns=int(order.long_cols.numel()),
+         segment_tasks=int(order.tasks.shape[0]), cpu_segment_order_s=order_s)
+    del tiered
 
     # ---- ell_matvec: Xw at 20,242 × 111 → 20,242, a dense and a sparse w -----
     worst = 0.0
@@ -287,7 +308,7 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
 def duality_gap(pcsr, y, w) -> float:
     """FW duality gap of the logistic objective at w: ⟨w, ∇f⟩ + λ‖∇f‖∞ (plain ops)."""
     r = torch.sigmoid(pcsr.matvec(w)) - torch.from_numpy(y.astype(np.float32)).to(w.device)
-    grad = ell_rmatvec_ref(pcsr.indices, pcsr.values, r, D) / N
+    grad = ell_rmatvec_ref(pcsr.indices, pcsr.values, r, segments(pcsr)) / N
     return float(torch.dot(w, grad) + LAM * grad.abs().max())
 
 
@@ -461,6 +482,8 @@ def phase_alg1_step_times(pcsr, pcsc, y_t) -> tuple:
                              "of_step": ms / 100 / per_step[sel]}
                       for name in ("ell_rmatvec", "ell_matvec")
                       for ms in [sum(v for k, v in prof["by_kernel"].items() if name in k)]}
+        for name, row in share[sel].items():   # a renamed kernel must not read as 0
+            require(row["device_ms_per_step"] > 0, f"alg1_{sel}: no device time for {name}")
     emit("alg1_kernel_share", steps=100, share=share)
     return per_step, share
 
@@ -592,15 +615,18 @@ def _coord_update_bytes(X, csc, coords, group_size: int) -> tuple:
     return nbytes / n, ops / n
 
 
-def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs) -> list:
+def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share) -> list:
     """Times of each kernel at the main paths' shapes, against its bound.
     ``launches``: the Alg 1 argmax solve's count for the spmv kernels, the
-    private Alg 2 solve's for the others (each phase line has every run's)."""
+    private Alg 2 solve's for the others (each phase line has every run's).
+    The spmv kernels' ``in_loop_ms`` is their profiled device ms per Alg 1
+    ``argmax`` step, beside ``ms`` timed back to back."""
     kernels = []
     # ---- ell_rmatvec --------------------------------------------------------
     q = torch.from_numpy(np.random.default_rng(2).normal(size=N).astype(np.float32)).to(DEVICE)
     ms = device_ms([lambda: ell_rmatvec(pcsr, q, pcsc)] * 20)
-    plain = device_ms([lambda: ell_rmatvec_ref(pcsr.indices, pcsr.values, q, D)] * 20)
+    plain = device_ms([lambda: ell_rmatvec_ref(pcsr.indices, pcsr.values, q,
+                                               segments(pcsr))] * 20)
     crow = torch.from_numpy(csc.indptr).to(DEVICE)
     xt = torch.sparse_csr_tensor(crow, torch.from_numpy(csc.indices).to(DEVICE),
                                  torch.from_numpy(csc.data.astype(np.float32)).to(DEVICE),
@@ -615,7 +641,8 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs) -> li
                         replaces="src/repro/kernels/spmv/kernel.py:96",
                         launches=alg1["argmax"]["counts"]["ell_rmatvec"],
                         max_abs_err=errs["ell_rmatvec"], ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=by, library_ms=lib))
+                        bound_by=by, library_ms=lib,
+                        in_loop_ms=share["argmax"]["ell_rmatvec"]["device_ms_per_step"]))
     # ---- ell_matvec: the Alg 1 margins, at the argmax run's final w ------------
     w = alg1["argmax"]["res"].w
     ms = device_ms([lambda: ell_matvec(pcsr, w)] * 50)
@@ -634,7 +661,8 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs) -> li
                         replaces="src/repro/kernels/spmv/kernel.py:55",
                         launches=alg1["argmax"]["counts"]["ell_matvec"],
                         max_abs_err=errs["ell_matvec"], ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=by, library_ms=lib))
+                        bound_by=by, library_ms=lib,
+                        in_loop_ms=share["argmax"]["ell_matvec"]["device_ms_per_step"]))
     # ---- two_level_draw -------------------------------------------------------
     setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
     em = em_scale_for(FWConfig(backend="torch_sparse", queue="two_level", steps=T_MAIN), N)
@@ -728,9 +756,16 @@ def attention_ops(b, sq, sk, h, hd, causal, window) -> float:
     return 4.0 * b * h * hd * float(np.maximum(hi - lo, 0).sum())
 
 
-def phase_flash_vs_plain() -> float:
-    """The kernel against the plain blockwise version (models/flash.py) on the
-    card; returns the error at the LM forward's shape and dtype."""
+def bf16_ulps(diff: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|d| in units of the bf16 spacing at max(|plain|, the row's RMS over hd)."""
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    return diff / (torch.finfo(torch.bfloat16).eps * torch.maximum(ref.abs(), rms))
+
+
+def phase_flash_vs_plain() -> dict:
+    """Each route of the kernel (bf16: tensor cores, float32: CUDA cores)
+    against the plain blockwise version (models/flash.py) on the card;
+    returns the error at the LM forward's shape by dtype."""
     cfg = get_model(LM_ARCH).cfg
     lm = (LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     cases = [(lm, torch.bfloat16, True, 0), (lm, torch.float32, True, 0),
@@ -738,24 +773,33 @@ def phase_flash_vs_plain() -> float:
              ((2, 1024, 32, 4, 64), torch.bfloat16, False, 0),       # non-causal
              ((2, 1024, 16, 4, 128), torch.float32, True, 0),        # the other dense configs' hd
              ((1, 2048, 10, 1, 256), torch.bfloat16, True, 512)]     # recurrentgemma's hd, local
-    err_lm = None
+    err_lm = {}
     for shape, dtype, causal, window in cases:
         q, k, v = _qkv(*shape, dtype, seed=sum(shape))
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
-        err = float((got.float() - want.float()).abs().max())
+        diff, ref = (got.float() - want.float()).abs(), want.float()
+        err = float(diff.max())
         tol = FLASH_TOL[dtype]
-        ok = bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+        ok = bool((diff <= tol + tol * ref.abs()).all())
+        ulps = None
+        if dtype == torch.bfloat16:
+            ulps = float(bf16_ulps(diff, ref).max())
+            ok = ok and ulps <= FLASH_BF16_ULPS
         require(ok and bool(torch.isfinite(got).all()),
                 f"flash_attention {shape} {dtype} causal={causal} window={window}: "
-                f"max |d| {err} over tolerance {tol}")
+                f"max |d| {err} over tolerance {tol}, or {ulps} bf16 ulps of scale "
+                f"over {FLASH_BF16_ULPS}")
         require(torch.equal(got, flash_attention(q, k, v, causal=causal, window=window)),
                 "flash_attention is not deterministic")
-        if err_lm is None:
-            err_lm = err
+        if shape == lm:
+            err_lm[dtype] = err
         emit("flash_vs_plain", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
              causal=causal, window=window, max_abs_err=err, tolerance=tol,
-             tolerance_rule="|d| <= tol + tol * |plain|", deterministic=True)
+             tolerance_rule="|d| <= tol + tol * |plain|", deterministic=True,
+             **({} if ulps is None else dict(
+                 max_bf16_ulps_of_scale=ulps, bf16_ulps_bound=FLASH_BF16_ULPS,
+                 scaled_rule="|d| <= 4 * 2^-7 * max(|plain|, RMS of the row over hd)")))
     return err_lm
 
 
@@ -784,6 +828,9 @@ def phase_lm_forward():
     reset_launch_counts()
     got = api32.forward(p32, tokens, last_only=True)
     require(launch_counts()["flash_attention"] == api32.cfg.n_layers, "f32 forward launches")
+    f32_routes = dict(flash_attention.routes)
+    require(f32_routes == {"bf16_tensor_cores": 0, "f32_cuda_cores": api32.cfg.n_layers},
+            f"f32 forward routes {f32_routes}")
     reset_launch_counts()
     with plain_attention():
         want = api32.forward(p32, tokens, last_only=True)
@@ -810,16 +857,26 @@ def phase_lm_forward():
     want_counts = {name: 0 for name in counts}
     want_counts["flash_attention"] = api.cfg.n_layers
     require(counts == want_counts, f"bf16 forward launches {counts}, expected {want_counts}")
+    routes = dict(flash_attention.routes)
+    require(routes == {"bf16_tensor_cores": api.cfg.n_layers, "f32_cuda_cores": 0},
+            f"bf16 forward routes {routes}")
     peak = torch.cuda.max_memory_allocated()
     ms = sync_ms(fwd, reps=3)
     require(bool(torch.isfinite(out.float()).all()), "bf16 logits not finite")
     prof = profile_steps("lm_forward_bf16", 1, fwd)
-    flash_dev = sum(v for k, v in prof["by_kernel"].items() if "flash_fwd_kernel" in k)
+    # both routes' kernels are named flash_fwd_*; the bf16 forward runs the mma one
+    flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
+    flash_dev = sum(flash.values())
+    require(flash_dev > 0 and all("mma" in k for k in flash),
+            f"bf16 forward: flash kernels in the profile {list(flash)}")
+    flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
+    require(flash_calls == api.cfg.n_layers, f"profiled flash launches {flash_calls}")
     emit("lm_forward", run="timing_bfloat16", arch=LM_ARCH, batch=LM_B, seq=LM_S,
-         forward_ms=ms, first_forward_ms=first_ms, launches=counts,
+         forward_ms=ms, first_forward_ms=first_ms, launches=counts, routes=routes,
          tokens_per_s=LM_B * LM_S / ms * 1e3, max_memory_allocated=peak,
-         flash_device_ms=flash_dev, flash_share_of_forward=flash_dev / prof["wall_ms"])
-    return api, params, api32, p32, counts["flash_attention"]
+         flash_device_ms=flash_dev, flash_profiled_calls=flash_calls,
+         flash_share_of_forward=flash_dev / prof["wall_ms"])
+    return api, params, api32, p32, routes, f32_routes
 
 
 def _leaves(tree):
@@ -929,27 +986,40 @@ def phase_lm_probe(api, params) -> None:
          **t)
 
 
-def flash_kernel_times(lm_launches: int, err: float) -> dict:
-    """The kernel at the LM forward's shape against its bound, plain and SDPA."""
+def flash_kernel_times(routes: dict, f32_routes: dict, errs: dict) -> list:
+    """Each route of the kernel at the LM forward's shape, in its dtype,
+    against its bound, the plain version and SDPA; ``launches`` is the
+    route's count in the forward of that dtype."""
     cfg = get_model(LM_ARCH).cfg
     b, s, h, kv, hd = LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = _qkv(b, s, h, kv, hd, torch.bfloat16, seed=11)
-    ms = device_ms([lambda: flash_attention(q, k, v, causal=True)] * 10)
-    plain = device_ms([lambda: flash_attention_plain(q, k, v, causal=True)] * 3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                     enable_gqa=True)
-    lib_out = sdpa().transpose(1, 2)
-    require(bool(((lib_out.float() - flash_attention(q, k, v).float()).abs() <= 0.06).all()),
-            "scaled_dot_product_attention disagrees with flash_attention")
-    lib = device_ms([sdpa] * 10)
-    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
-    bd, by = bound(nbytes, attention_ops(b, s, s, h, hd, True, 0), BF16_OPS_PER_S)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:106",
-                launches=lm_launches, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd,
-                bound_by=by, library_ms=lib)
+    ops = attention_ops(b, s, s, h, hd, True, 0)
+    rows = []
+    for dtype, name, source, launches, peak in (
+            (torch.bfloat16, "flash_attention", "flash_attention_mma.cu",
+             routes["bf16_tensor_cores"], BF16_OPS_PER_S),
+            (torch.float32, "flash_attention_f32", "flash_attention.cu",
+             f32_routes["f32_cuda_cores"], F32_OPS_PER_S)):
+        q, k, v = _qkv(b, s, h, kv, hd, dtype, seed=11)
+        ms = device_ms([lambda: flash_attention(q, k, v, causal=True)] * 10)
+        plain = device_ms([lambda: flash_attention_plain(q, k, v, causal=True)] * 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_out = sdpa().transpose(1, 2)
+        # a sanity check of the yardstick, which sums in its own order
+        tol = 0.06 if dtype == torch.bfloat16 else 1e-4
+        require(bool(((lib_out.float() - flash_attention(q, k, v).float()).abs() <= tol).all()),
+                f"scaled_dot_product_attention disagrees with {name}")
+        lib = device_ms([sdpa] * 10)
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + q.numel())
+        bd, by = bound(nbytes, ops, peak)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"src/repro_torch/kernels/flash_attention/csrc/{source}",
+                         replaces="src/repro/kernels/flash_attention/kernel.py:106",
+                         launches=launches, max_abs_err=errs[dtype], ms=ms, plain_ms=plain,
+                         bound_ms=bd, bound_by=by, library_ms=lib, tflop_per_s=ops / ms / 1e9))
+        del q, k, v, qt, kt, vt, lib_out
+    return rows
 
 
 def main() -> int:
@@ -977,15 +1047,15 @@ def main() -> int:
         alg1_argmax_share_of_step=share)
     phase_parity(X, y, pcsr, pcsc, col_nnz)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
-    kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs)
+    kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share)
     del X, csc, pcsr, pcsc, runs, alg1
     torch.cuda.empty_cache()
-    flash_err = phase_flash_vs_plain()
-    api, params, api32, p32, lm_launches = phase_lm_forward()
+    flash_errs = phase_flash_vs_plain()
+    api, params, api32, p32, routes, f32_routes = phase_lm_forward()
     phase_lm_serve(api, params, api32, p32)
     del p32
     phase_lm_probe(api, params)
-    kernels.append(flash_kernel_times(lm_launches, flash_err))
+    kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

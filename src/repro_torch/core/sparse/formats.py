@@ -156,10 +156,10 @@ class PaddedCSR:
         return ell_matvec_ref(self.indices, self.values, w)
 
     def rmatvec(self, q: torch.Tensor) -> torch.Tensor:
-        """Xᵀ · q, a scatter-add over the padded lanes in row order (the plain
-        version of ``ell_rmatvec``)."""
-        from repro_torch.kernels.spmv.ref import ell_rmatvec_ref
-        return ell_rmatvec_ref(self.indices, self.values, q, self.shape[1])
+        """Xᵀ · q, summed in the segmented row order (the plain version of
+        ``ell_rmatvec``)."""
+        from repro_torch.kernels.spmv.ref import ell_rmatvec_ref, segments
+        return ell_rmatvec_ref(self.indices, self.values, q, segments(self))
 
 
 @dataclasses.dataclass

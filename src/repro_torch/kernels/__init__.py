@@ -4,7 +4,8 @@
 ``coord_update.coord_update`` and ``flash_attention.flash_attention`` launch
 their kernel for CUDA tensors and run the plain version for CPU tensors.
 Each wrapper counts its launches in a plain integer attribute,
-``<wrapper>.launches``.
+``<wrapper>.launches``; ``flash_attention``, which has a kernel per dtype,
+also counts each route in ``flash_attention.routes``.
 """
 from __future__ import annotations
 
@@ -27,3 +28,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    flash_attention.routes = dict.fromkeys(flash_attention.routes, 0)

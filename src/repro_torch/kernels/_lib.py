@@ -33,6 +33,7 @@ SOURCES = (
     _PKG / "bsls_draw" / "csrc" / "two_level_draw.cu",
     _PKG / "coord_update" / "csrc" / "coord_update.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_attention_mma.cu",
 )
 INCLUDE = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[2] / "build" / "torch_kernels"
@@ -44,12 +45,13 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _COLS = [_P, _P, _P, _P, _P, _P, _I, _I]
 SIGNATURES = {
     "port_ell_matvec": [_P, _P, _P, _I, _P, _P, _I, _P],
-    "port_ell_rmatvec": _COLS + [_P, _P, _I, _P],
+    "port_ell_rmatvec": _COLS + [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
     "port_two_level_draw": [_P, _P, _I, _I, _U, _U, _P, _P, _P],
     "port_coord_update": ([_I, _P] + _COLS + [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _F,
                           _P]),
-    "port_flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "port_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "port_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 8 + [_P],
 }
 
 

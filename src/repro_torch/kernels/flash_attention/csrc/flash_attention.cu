@@ -1,5 +1,8 @@
-// flash_attention: the online-softmax attention forward of every attention
-// layer of the LM's token-parallel forward (models/common.py attn_apply).
+// flash_attention, float32 route: the online-softmax attention forward of
+// every attention layer of the LM's token-parallel forward (models/common.py
+// attn_apply) in float32.  bf16 inputs go to flash_attention_mma.cu (tensor
+// cores); float32 stays on the CUDA cores, as the JAX kernel computes in
+// float32 and TF32 would break the float32 tolerance.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // (kernel.py:88, pl.pallas_call at :106; body _flash_fwd_kernel at :39).  The
@@ -38,8 +41,6 @@
 // peak), with two shared-memory loads per four to eight fused multiply-adds,
 // so it is expected to run one to two orders above the bound.  Tensor cores
 // (mma.sync or wgmma) are the lever of a later change.
-#include <cuda_bf16.h>
-
 #include "port_common.cuh"
 
 namespace {
@@ -47,20 +48,6 @@ namespace {
 constexpr int FA_THREADS = 128;
 constexpr int FA_BK = 64;
 constexpr float FA_NEG = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int HD, int RM>
 struct FaShape {
@@ -97,7 +84,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 
   for (int e = tid; e < BQ * HD; e += FA_THREADS) {
     const int r = e / HD, d = e % HD;
-    qt[d * QS + r] = q_lo + r < sq ? to_f32(qb[(q_lo + r) * q_stride + d]) : 0.0f;
+    qt[d * QS + r] = q_lo + r < sq ? qb[(q_lo + r) * q_stride + d] : 0.0f;
   }
 
   float m[RM], l[RM], acc[RM][DM];
@@ -119,8 +106,8 @@ __global__ void __launch_bounds__(FA_THREADS)
       const int r = e / HD, d = e % HD;
       const bool live = k_lo + r < sk;
       const long long off = (k_lo + r) * k_stride + d;
-      kt[d * KS + r] = live ? to_f32(kb[off]) : 0.0f;
-      vs[r * HD + d] = live ? to_f32(vb[off]) : 0.0f;
+      kt[d * KS + r] = live ? kb[off] : 0.0f;
+      vs[r * HD + d] = live ? vb[off] : 0.0f;
     }
     __syncthreads();
 
@@ -198,7 +185,7 @@ __global__ void __launch_bounds__(FA_THREADS)
     const float den = fmaxf(l[i], 1e-30f);
     T* o = out + (static_cast<long long>(bi) * sq + row) * q_stride + head * HD;
 #pragma unroll
-    for (int d = 0; d < DM; ++d) o[tx + 8 * d] = from_f32<T>(acc[i][d] / den);
+    for (int d = 0; d < DM; ++d) o[tx + 8 * d] = acc[i][d] / den;
   }
 }
 
@@ -233,14 +220,8 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v, void* out, 
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike).
 extern "C" int port_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     int b, int sq, int sk, int h, int kvh, int hd, int causal,
-                                    int window, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return by_head_dim<float>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-  if (dtype == 1)
-    return by_head_dim<__nv_bfloat16>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window,
-                                      stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                    int window, cudaStream_t stream) {
+  return by_head_dim<float>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
 }

@@ -3,9 +3,9 @@
 ``ell_matvec`` gives the margins of every Alg 1 step; ``ell_rmatvec`` the
 Frank-Wolfe setup sweep and every Alg 1 step's gradient.  On a CUDA tensor
 each launches its kernel: ``csrc/ell_matvec.cu`` (a warp per ``PaddedCSR``
-row) and ``csrc/ell_rmatvec.cu`` (a warp per ``PaddedCSC`` column); on a CPU
-tensor each runs its plain version over the ``PaddedCSR``.  There is no
-fallback from one to the other.
+row) and ``csrc/ell_rmatvec.cu`` (a warp per segment of ``SEGMENT`` entries
+of a ``PaddedCSC`` column); on a CPU tensor each runs its plain version over
+the ``PaddedCSR``.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.sparse.formats import PaddedCSR
 from repro_torch.kernels import _lib
-from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref
+from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments
 
 
 def ell_matvec(X: PaddedCSR, w: torch.Tensor) -> torch.Tensor:
@@ -43,16 +43,22 @@ def ell_rmatvec(X: PaddedCSR, q: torch.Tensor, pcsc=None) -> torch.Tensor:
     """Xᵀ·q; ``pcsc`` (a PaddedCSC or TieredCSC of the same X) is required on CUDA."""
     d = X.shape[1]
     if q.device.type == "cpu":
-        return ell_rmatvec_ref(X.indices, X.values, q, d)
+        return ell_rmatvec_ref(X.indices, X.values, q, segments(X))
     if pcsc is None:
         raise ValueError("ell_rmatvec on CUDA gathers over the padded CSC; pass pcsc")
     if q.dtype != torch.float32 or q.shape != (X.shape[0],):
         raise ValueError(f"ell_rmatvec: q must be float32 of shape ({X.shape[0]},)")
     _lib.require_cuda("ell_rmatvec", q)
     cols = _lib.col_table(pcsc)
+    segs = segments(X)
+    _lib.require_cuda("ell_rmatvec: the padded CSR's segment table", segs.tasks,
+                      segs.long_cols, segs.first)
     out = torch.empty(d, dtype=torch.float32, device=q.device)
-    code = _lib.library().port_ell_rmatvec(*cols, _lib.ptr(q), _lib.ptr(out), d,
-                                           _lib.stream())
+    partials = torch.empty(segs.tasks.shape[0], dtype=torch.float32, device=q.device)
+    code = _lib.library().port_ell_rmatvec(
+        *cols, _lib.ptr(q), _lib.ptr(out), d, SEGMENT, _lib.ptr(segs.tasks),
+        segs.tasks.shape[0], _lib.ptr(segs.long_cols), _lib.ptr(segs.first),
+        segs.long_cols.shape[0], _lib.ptr(partials), _lib.stream())
     _lib.check(code, "ell_rmatvec")
     ell_rmatvec.launches += 1
     return out

@@ -9,7 +9,9 @@
   neighbouring bf16 values).
 * With the default blocks (512 × 1024) against the JAX package's
   ``models/flash.py`` over several q blocks, within 2e-5.
-* The kernel op on CPU tensors runs the plain version and counts no launch.
+* The kernel op on CPU tensors runs the plain version and counts no launch
+  on either route (bf16: tensor cores, float32: CUDA cores), and
+  ``reset_launch_counts`` clears both route counts.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.flash import flash_attention as j_flash_attention
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention as flash_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.flash import flash_attention
@@ -74,8 +76,17 @@ def test_default_blocks_match_jax_flash():
 
 def test_kernel_op_on_cpu_runs_the_plain_version():
     (jq, jk, jv), (tq, tk, tv) = _inputs(2, 128, 4, 2, 32, jnp.float32, torch.float32, 2)
-    before = launch_counts()["flash_attention"]
+    before, routes = launch_counts()["flash_attention"], dict(flash_op.routes)
     got = flash_op(tq, tk, tv, causal=True, window=0)
     assert launch_counts()["flash_attention"] == before
+    assert flash_op.routes == routes
     assert torch.equal(got, flash_attention(tq, tk, tv, causal=True))
     _close(got, flash_attention_pallas(jq, jk, jv, causal=True, block_q=64, block_k=64), 2e-5)
+
+
+def test_reset_launch_counts_clears_the_routes():
+    flash_op.launches = 3
+    flash_op.routes = {"bf16_tensor_cores": 2, "f32_cuda_cores": 1}
+    reset_launch_counts()
+    assert launch_counts()["flash_attention"] == 0
+    assert flash_op.routes == {"bf16_tensor_cores": 0, "f32_cuda_cores": 0}

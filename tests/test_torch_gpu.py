@@ -10,8 +10,11 @@ neither.  Tolerances: kernel against plain version allclose at rtol 1e-5 /
 atol 1e-6 (the plain versions add with atomics, in another order); draws
 equal index for index; the card's solve against the CPU's (plain versions)
 by the cross-engine contract — coordinates exactly, w and gaps within 1e-4.
-Flash attention against the materialised oracle on the card: 2e-5 in float32
-and 0.06 in bfloat16 (``tests/test_kernels.py``'s bounds); the smoke LM's
+``ell_rmatvec`` also equals its plain version run on the CPU bit for bit
+(both add in the segmented row order, ``spmv/ref.py``).  Flash attention
+against the materialised oracle on the card: 2e-5 in float32 (the CUDA-core
+route) and 0.06 in bfloat16 (the tensor-core route; ``tests/test_kernels.py``'s
+bounds); the smoke LM's
 forward on the card against the CPU's within 1e-4, decode against forward
 within 5e-4 (``tests/test_models_smoke.py``'s bound), and the serving
 engine's greedy tokens equal to the CPU engine's.
@@ -39,7 +42,7 @@ from repro_torch.models.flash import flash_attention as flash_attention_plain
 from repro_torch.models.registry import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec
-from repro_torch.kernels.spmv.ref import ell_matvec_ref, ell_rmatvec_ref
+from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments
 
 pytestmark = pytest.mark.gpu
 LOSSES = ["logistic", "squared", "lad", "huber", "smoothed_hinge"]
@@ -61,12 +64,16 @@ def problem(cuda):
 
 def test_ell_rmatvec_kernel_matches_plain(problem):
     X, _, (pcsr, pcsc) = problem
+    assert int(pcsc.nnz.max()) > SEGMENT                          # a column of segments
     q = torch.randn(X.shape[0], generator=torch.Generator().manual_seed(0)).cuda()
     before = launch_counts()["ell_rmatvec"]
     got = ell_rmatvec(pcsr, q, pcsc)
     assert launch_counts()["ell_rmatvec"] == before + 1
-    ref = ell_rmatvec_ref(pcsr.indices, pcsr.values, q, X.shape[1])
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    ref = ell_rmatvec_ref(pcsr.indices, pcsr.values, q, segments(pcsr))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)   # card plain: atomics
+    cpu = pcsr.to("cpu")                                          # CPU plain: the same order
+    assert torch.equal(got.cpu(), ell_rmatvec_ref(cpu.indices, cpu.values, q.cpu(),
+                                                  segments(cpu)))
     assert torch.equal(got, ell_rmatvec(pcsr, q, pcsc))          # deterministic
     tiered = tiered_from_padded(pcsc, 8)
     assert torch.equal(got, ell_rmatvec(pcsr, q, tiered))        # same sums, same order
@@ -198,6 +205,11 @@ FLASH_CASES = [                          # b, s, h, kv, hd, causal, window
     (1, 160, 2, 1, 256, True, 0),
     (1, 300, 4, 4, 64, True, 100),
     (3, 32, 8, 2, 64, True, 0),          # fewer rows than one tile (the probe's shape)
+    (2, 50, 16, 2, 16, True, 0),         # hd 16, G = 8, fewer rows than one tile
+    (1, 70, 8, 1, 32, False, 0),         # hd 32, G = 8, non-causal, ragged
+    (2, 200, 8, 1, 64, False, 0),        # G = 8, non-causal, ragged
+    (1, 130, 16, 2, 128, False, 0),      # hd 128, G = 8, non-causal, ragged
+    (1, 20, 4, 1, 256, True, 0),         # hd 256, fewer rows than one tile
 ]
 
 
@@ -215,7 +227,25 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, win
     for want in (attention_ref(q, k, v, causal=causal, window=window),
                  flash_attention_plain(q, k, v, causal=causal, window=window)):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if dtype == torch.bfloat16:
+            # and within 4 bf16 spacings of max(|want|, the row's RMS over hd)
+            ref = want.float()
+            scale = torch.maximum(ref.abs(), ref.pow(2).mean(-1, keepdim=True).sqrt())
+            diff = (got.float() - ref).abs()
+            assert (diff <= 4 * torch.finfo(torch.bfloat16).eps * scale).all()
     assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_tensor_cores"),
+                                         (torch.float32, "f32_cuda_cores")])
+def test_flash_attention_routes_by_dtype(cuda, dtype, route):
+    q = torch.randn(1, 128, 4, 64, device=cuda).to(dtype)
+    k = torch.randn(1, 128, 2, 64, device=cuda).to(dtype)
+    reset_launch_counts()
+    flash_attention(q, k, k)
+    assert launch_counts()["flash_attention"] == 1
+    assert flash_attention.routes == {name: int(name == route)
+                                      for name in ("bf16_tensor_cores", "f32_cuda_cores")}
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
