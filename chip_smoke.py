@@ -16,7 +16,9 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
 
 It holds the card's runs against CPU runs of the plain versions and the
 stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
-version run on the CPU bit for bit (both add in the segmented row order).
+version run on the CPU bit for bit (both add in the segmented row order), and
+``coord_update`` must meet its bitwise rule against the CPU on both of its
+routes (``coord_update/ref.py``), which it times by column length.
 Then it drives the LM at the full published width of ``tinyllama-1.1b``
 (22 layers, d_model 2048, 32 heads, 4 KV heads, random weights from a seed):
 
@@ -61,7 +63,10 @@ from repro_torch.kernels import _lib, launch_counts, reset_launch_counts  # noqa
 from repro_torch.kernels.bsls_draw import two_level_draw  # noqa: E402
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref  # noqa: E402
 from repro_torch.kernels.coord_update import coord_update  # noqa: E402
-from repro_torch.kernels.coord_update.ref import coord_update_ref  # noqa: E402
+from repro_torch.kernels.coord_update.ops import (coord_update_scratch,  # noqa: E402
+                                                  short_route_max_rows)
+from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # noqa: E402
+                                                  coord_update_ref, same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
@@ -195,6 +200,8 @@ def _state_copy(carry):
 
 
 def _step_kwargs(st, loss, em, gaps, coords, slot, t):
+    if gaps is None:     # coord_update_ref's keywords for bitwise_rule_mismatches
+        return dict(t=t, lam=LAM, inv_n=1.0 / N, em_scale=em, loss=loss)
     return dict(t=t, lam=LAM, inv_n=1.0 / N, em_scale=em, loss=loss, gaps=gaps,
                 coords=coords, slot=slot)
 
@@ -284,9 +291,16 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
                     require(ok, f"coord_update {loss} private={private} {name}: {key}")
                     worst = max(worst, float((a - b).abs().max()))
     errs["coord_update"] = worst
+    routes = coord_update_bitwise(y_t, pcsr, pcsc, buckets)
     emit("kernel_vs_plain", kernel="coord_update", max_abs_err=worst, columns=buckets,
          col_nnz={k: int(col_nnz[v]) for k, v in buckets.items()},
-         tolerance="allclose rtol 1e-5 atol 1e-6, every output, 5 losses x 2 queues x 3 columns")
+         tolerance="allclose rtol 1e-5 atol 1e-6, every output, 5 losses x 2 queues x 3 "
+         "columns (plain on the card, atomics); bitwise rule against the CPU (ref.py "
+         "bitwise_rule_mismatches): alpha = line 61 fed the card's gamma, vbar/w/w_m/gap "
+         "= coord_update_ref, queue = line-29 refresh of the card's alpha; qbar, g_tilde "
+         "allclose", bitwise_rule_cases=len(LOSSES) * 2 * len(buckets),
+         route_by_bucket=routes, short_route_max_rows=short_route_max_rows(),
+         routes_bitwise_equal=True, rerun_bitwise_equal=True)
 
     # ---- two_level_draw: 1,000 keys -------------------------------------------
     setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
@@ -303,6 +317,80 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
     emit("kernel_vs_plain", kernel="two_level_draw", keys=len(keys), equal=same,
          distinct_indices=int(torch.unique(out).numel()), tolerance="indices equal")
     return errs
+
+
+class _ColumnsOnCPU:
+    """``col_live`` of a card's padded CSC, moved to the CPU (the flat CSC of
+    the rcv1.binary shape is 7.6 GB; ``coord_update_ref`` reads one column)."""
+
+    def __init__(self, pcsc):
+        self.pcsc = pcsc
+
+    def col_live(self, j):
+        return tuple(t.cpu() for t in self.pcsc.col_live(j))
+
+
+def _card_step(j, pcsr, pcsc, y_t, base, loss, em, scratch, route, t=7.0):
+    """One kernel step from a copy of ``base`` (no rebuild); returns the state."""
+    st = {k: v.clone() for k, v in base.items()}
+    gaps = torch.zeros(2, device=DEVICE)
+    coords = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    coord_update(torch.tensor([j], dtype=torch.int32, device=DEVICE), pcsr, pcsc, y_t,
+                 st["w"], st["w_m"], st["g_tilde"], st["vbar"], st["qbar"], st["alpha"],
+                 st["queue"], **_step_kwargs(st, loss, em, gaps, coords, 1, t),
+                 scratch=scratch, route=route)
+    st.update(gaps=gaps[1:], coords=coords[1:])
+    return st
+
+
+def _flat_state(st) -> list:
+    q = st["queue"]
+    extra = [q.v, q.touched] if hasattr(q, "c") else [q.p, q.bound]
+    return [st[k] for k in ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha", "gaps",
+                            "coords")] + extra
+
+
+def coord_update_bitwise(y_t, pcsr, pcsc, buckets) -> dict:
+    """The kernel's bitwise rule against the CPU on each bucket's column, every
+    loss, both queues; the short and the long route forced on the same column
+    give the same bits, and so does a rerun.  Returns the route each bucket
+    took (from the kernel's own route counters)."""
+    cpu_csr, cpu_cols, y_cpu = pcsr.to("cpu"), _ColumnsOnCPU(pcsc), y_t.cpu()
+    n = pcsr.shape[0]
+    scratch = coord_update_scratch(n, D, DEVICE)
+    taken = {}
+    for loss in LOSSES:
+        setup = fw_setup(pcsr, y_t, loss=loss, pcsc=pcsc)
+        for private in (False, True):
+            em = 30.0 if private else 1.0
+            carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0),
+                                  private=private)
+            base = _state_copy(carry)
+            before = {k: (v.to("cpu"))
+                      for k, v in base.items()}
+            for name, j in buckets.items():
+                routes0 = scratch.routes.clone()
+                card = _card_step(j, pcsr, pcsc, y_t, base, loss, em, scratch, "auto")
+                k = int(pcsc.nnz[j])
+                gs = scratch.gs[:k].cpu()
+                step_route = ("short", "long")[int((scratch.routes - routes0).argmax())]
+                taken.setdefault(name, step_route)
+                require(taken[name] == step_route, f"coord_update {name}: route changed")
+                after = {key: (v.to("cpu"))
+                         for key, v in card.items()}
+                bad = bitwise_rule_mismatches(j, cpu_csr, cpu_cols, y_cpu, before, after, gs,
+                                              **_step_kwargs(None, loss, em, None, None, 0,
+                                                             7.0))
+                require(not bad, f"coord_update {loss} private={private} {name}: "
+                        f"the card breaks the bitwise rule on {bad}")
+                flat = _flat_state(card)
+                for route in ("short", "long", "auto"):
+                    other = _flat_state(_card_step(j, pcsr, pcsc, y_t, base, loss, em,
+                                                   scratch, route))
+                    require(all(map(same_bits, flat, other)),
+                            f"coord_update {loss} private={private} {name}: route {route} "
+                            "gives other bits")
+    return taken
 
 
 def duality_gap(pcsr, y, w) -> float:
@@ -679,10 +767,21 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share
                         launches=runs["private"]["counts"]["two_level_draw"],
                         max_abs_err=errs["two_level_draw"], ms=ms, plain_ms=plain,
                         bound_ms=b, bound_by=by, library_ms=None))
-    # ---- coord_update: replay the private main path's columns -----------------
+    kernels.append(coord_update_times(X, csc, y_t, pcsr, pcsc, runs, buckets, errs))
+    return kernels
+
+
+def coord_update_times(X, csc, y_t, pcsr, pcsc, runs, buckets, errs) -> dict:
+    """``coord_update``'s device ms per launch over both main paths' columns
+    (replayed in order), on each bucket's column and on a sweep of column
+    lengths with each route forced (the threshold), against their bounds;
+    returns its ``kernels`` entry."""
+    setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
+    em = em_scale_for(FWConfig(backend="torch_sparse", queue="two_level", steps=T_MAIN), N)
+    group_size = tl_init(setup[2].abs() * em).group_size
     gaps = torch.zeros(T_MAIN, device=DEVICE)
     cds = torch.zeros(T_MAIN, dtype=torch.int32, device=DEVICE)
-    scratch = torch.empty(N, device=DEVICE)
+    scratch = coord_update_scratch(N, D, DEVICE)
 
     def replay(fn, coords, private):
         """(device or host) ms per launch of ``fn`` over a run's columns, in order."""
@@ -704,37 +803,55 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share
     coords = runs["private"]["res"].coords.cpu().numpy()
     ms = replay(coord_update, coords, True)
     plain = replay(coord_update_ref, coords, True)
-    nbytes, ops = _coord_update_bytes(X, csc, coords, state.group_size)
+    nbytes, ops = _coord_update_bytes(X, csc, coords, group_size)
     b, by = bound(nbytes, ops)
     carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0), private=True)
-    by_bucket = {}
-    for name, j in buckets.items():
-        st = _state_copy(carry)
-        jt = torch.tensor([j], dtype=torch.int32, device=DEVICE)
-        launch = lambda: coord_update(jt, pcsr, pcsc, None, st["w"], st["w_m"], st["g_tilde"],
-                                      st["vbar"], st["qbar"], st["alpha"], st["queue"],
-                                      **_step_kwargs(st, "logistic", em, gaps, cds, 0, 9.0),
-                                      scratch=scratch)
-        bb, _ = bound(*_coord_update_bytes(X, csc, [j], state.group_size))
-        by_bucket[name] = dict(column=j, col_nnz=int(csc.indptr[j + 1] - csc.indptr[j]),
-                               ms=device_ms([launch] * 10), bound_ms=bb)
-    kernels.append(dict(name="coord_update", route="cuda",
-                        source="src/repro_torch/kernels/coord_update/csrc/coord_update.cu",
-                        replaces="src/repro/kernels/coord_update/kernel.py:156",
-                        launches=runs["private"]["counts"]["coord_update"],
-                        max_abs_err=errs["coord_update"], ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=by, library_ms=None))
+    nnz_all = np.diff(csc.indptr)
+    short_max = short_route_max_rows()
+
+    def bucket_times(j) -> dict:
+        """Device ms per launch on column j, each route forced and the kernel's pick."""
+        out = dict(column=int(j), col_nnz=int(nnz_all[j]),
+                   route_auto="short" if nnz_all[j] <= short_max else "long",
+                   bound_ms=bound(*_coord_update_bytes(X, csc, [j], group_size))[0])
+        for route in ("auto", "short", "long"):
+            st = _state_copy(carry)
+            jt = torch.tensor([j], dtype=torch.int32, device=DEVICE)
+            launch = lambda: coord_update(
+                jt, pcsr, pcsc, None, st["w"], st["w_m"], st["g_tilde"], st["vbar"],
+                st["qbar"], st["alpha"], st["queue"],
+                **_step_kwargs(st, "logistic", em, gaps, cds, 0, 9.0), scratch=scratch,
+                route=route)
+            out[f"ms_{route}"] = device_ms([launch] * 10)
+        return out
+
+    by_bucket = {name: bucket_times(j) for name, j in buckets.items()}
+    # the threshold: both routes on columns of growing length
+    live = np.flatnonzero(nnz_all > 0)
+    sweep = [bucket_times(int(live[np.argmin(np.abs(nnz_all[live] - target))]))
+             for target in (2, 4, 8, 10, 12, 14, 16, 20, 24, 32, 64, 128, 256, 1024, 4096)]
     per_run = {}
     for name in ("private", "non_private"):
         cs = runs[name]["res"].coords.cpu().numpy()
-        sel_nnz = np.diff(csc.indptr)[cs]
+        sel_nnz = nnz_all[cs]
         per_run[name] = dict(
             col_nnz_mean=float(sel_nnz.mean()), col_nnz_median=float(np.median(sel_nnz)),
-            col_nnz_max=int(sel_nnz.max()),
+            col_nnz_max=int(sel_nnz.max()), long_route_steps=int((sel_nnz > short_max).sum()),
             coord_update_ms=ms if name == "private" else replay(coord_update, cs, False),
-            coord_update_bound_ms=bound(*_coord_update_bytes(X, csc, cs, state.group_size))[0])
-    emit("kernel_times", coord_update_by_bucket=by_bucket, coord_update_main_path=per_run)
-    return kernels
+            coord_update_bound_ms=bound(*_coord_update_bytes(X, csc, cs, group_size))[0])
+    entry = dict(name="coord_update", route="cuda",
+                 source="src/repro_torch/kernels/coord_update/csrc/coord_update.cu",
+                 replaces="src/repro/kernels/coord_update/kernel.py:156",
+                 launches=runs["private"]["counts"]["coord_update"],
+                 max_abs_err=errs["coord_update"], ms=ms, plain_ms=plain, bound_ms=b,
+                 bound_by=by, library_ms=None,
+                 non_private_ms=per_run["non_private"]["coord_update_ms"],
+                 non_private_launches=runs["non_private"]["counts"]["coord_update"],
+                 non_private_bound_ms=per_run["non_private"]["coord_update_bound_ms"],
+                 head_ms=by_bucket["head"]["ms_auto"])
+    emit("kernel_times", coord_update_by_bucket=by_bucket, coord_update_sweep=sweep,
+         coord_update_short_route_max_rows=short_max, coord_update_main_path=per_run)
+    return entry
 
 
 # ---------------------------------------------------------------------------

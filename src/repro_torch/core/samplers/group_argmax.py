@@ -42,6 +42,9 @@ class GroupArgmaxState:
     def clone(self) -> "GroupArgmaxState":
         return GroupArgmaxState(self.p.clone(), self.bound.clone(), self.d, self.pops)
 
+    def to(self, device) -> "GroupArgmaxState":
+        return GroupArgmaxState(self.p.to(device), self.bound.to(device), self.d, self.pops)
+
 
 def ga_init(priorities: torch.Tensor) -> GroupArgmaxState:
     d = priorities.shape[0]

@@ -42,6 +42,10 @@ class TwoLevelSamplerState:
         return TwoLevelSamplerState(self.v.clone(), self.c.clone(), self.d,
                                     self.touched.clone())
 
+    def to(self, device) -> "TwoLevelSamplerState":
+        return TwoLevelSamplerState(self.v.to(device), self.c.to(device), self.d,
+                                    self.touched.to(device))
+
 
 def _group_shape(d: int) -> Tuple[int, int]:
     g = max(1, math.isqrt(max(d - 1, 0)) + 1)  # ⌈√D⌉ groups

@@ -48,7 +48,7 @@ from repro_torch.core.solvers.config import STOP_MAX_STEPS, FWConfig, FWResult
 from repro_torch.core.solvers.stopping import assemble_outputs, drive_chunks, resolve_chunk
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
 from repro_torch.kernels.bsls_draw.ops import two_level_draw
-from repro_torch.kernels.coord_update.ops import coord_update
+from repro_torch.kernels.coord_update.ops import coord_update, coord_update_scratch
 from repro_torch.kernels.spmv.ops import ell_rmatvec
 
 ColumnLayout = Union[PaddedCSC, TieredCSC]
@@ -141,7 +141,7 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
     gaps = torch.zeros(steps, dtype=torch.float32, device=dev)
     coords = torch.zeros(steps, dtype=torch.int32, device=dev)
     j = torch.zeros(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(n, dtype=torch.float32, device=dev)
+    scratch = coord_update_scratch(n, pcsr.shape[1], dev) if dev.type == "cuda" else None
     key_next, sel_keys = prng.key_chain(carry.key, steps)
     mask = dict(done=carry.done, stop_at=carry.stop_at, gap_tol=float(gap_tol)) \
         if early_stop else {}

@@ -67,3 +67,123 @@ def coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue
         ga_scatter_(queue, cols, fresh)
     w_m.copy_(wm)
     g_tilde.copy_(gt + wm * (gs * dots).sum())
+
+
+# ---- line 26's order, stated two ways ------------------------------------------
+#
+# The kernel's α is bitwise equal to ``coord_update_ref``'s: every α[c] is
+# ((α_old[c] + t₁) + t₂) + … with tₖ = γᵢ/N · x_ic over the rows i of column j
+# that hold c, in ascending row order.  ``scatter_alpha_rows`` is line 61 above
+# (``index_add_`` adds in index order on the CPU, and the rows' live lanes are
+# row-major); ``scatter_alpha_owners`` is the same sums as the kernel's long
+# route makes them, each touched column walking its own rows.
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit as floats: ``torch.equal`` and the same signs of zero."""
+    return torch.equal(a, b) and torch.equal(torch.signbit(a.float()), torch.signbit(b.float()))
+
+
+def lane_terms(rows: torch.Tensor, gs: torch.Tensor, pcsr):
+    """Column ids and terms γᵢ/N·x_ic of column j's rows' live lanes, row-major."""
+    ridx = pcsr.indices[rows.long()].long()
+    rval = pcsr.values[rows.long()]
+    live = torch.arange(ridx.shape[1], device=ridx.device)[None, :] < \
+        pcsr.nnz[rows.long()][:, None]
+    return ridx[live], (gs[:, None] * rval)[live]
+
+
+def scatter_alpha_rows(alpha: torch.Tensor, rows: torch.Tensor, gs: torch.Tensor,
+                       pcsr) -> torch.Tensor:
+    """α after line 26 from ``alpha`` (α_old) and γᵢ/N of column j's lanes, as
+    ``coord_update_ref`` adds it: a row at a time, in lane order."""
+    cols, terms = lane_terms(rows, gs, pcsr)
+    return alpha.clone().index_add_(0, cols, terms)
+
+
+def scatter_alpha_owners(alpha: torch.Tensor, rows: torch.Tensor, gs: torch.Tensor,
+                         pcsr, pcsc) -> torch.Tensor:
+    """α after line 26 in the column-owner order: each touched column c walks
+    its CSC rows in ascending order, skips the rows that are not column j's
+    (never adding them as +0, which would turn -0.0 into +0.0), and chains the
+    members' products onto α_old[c]."""
+    n = pcsr.shape[0]
+    out = alpha.clone()
+    g_row = torch.zeros(n, dtype=gs.dtype, device=gs.device)
+    member = torch.zeros(n, dtype=torch.bool, device=gs.device)
+    g_row[rows.long()] = gs
+    member[rows.long()] = True
+    touched = torch.unique(lane_terms(rows, gs, pcsr)[0])
+    if touched.numel() == 0:
+        return out
+    walks = [pcsc.col_live(int(c)) for c in touched]
+    width = max(int(r.numel()) for r, _ in walks)
+    crow = torch.zeros((len(walks), width), dtype=torch.long, device=gs.device)
+    cval = torch.zeros((len(walks), width), dtype=gs.dtype, device=gs.device)
+    valid = torch.zeros((len(walks), width), dtype=torch.bool, device=gs.device)
+    for k, (r, v) in enumerate(walks):
+        crow[k, :r.numel()], cval[k, :r.numel()], valid[k, :r.numel()] = r.long(), v, True
+    keep = valid & member[crow]
+    terms = g_row[crow] * cval
+    acc = out[touched]
+    for lane in range(width):
+        acc = torch.where(keep[:, lane], acc + terms[:, lane], acc)
+    out[touched] = acc
+    return out
+
+
+def refresh_queue_(queue, cols: torch.Tensor, alpha: torch.Tensor, em_scale: float) -> None:
+    """Line 29 at the touched columns ``cols`` from ``alpha`` (in place)."""
+    fresh = alpha[cols.long()].abs()
+    if isinstance(queue, TwoLevelSamplerState):
+        tl_scatter_(queue, cols, fresh * em_scale)
+    else:
+        ga_scatter_(queue, cols, fresh)
+
+
+def bitwise_rule_mismatches(j: int, pcsr, pcsc, y, before: dict, after: dict,
+                            gs: torch.Tensor, **step) -> list:
+    """The outputs of one card step that break the kernel's bitwise rule.
+
+    ``before``: the state the step started from, on the CPU (``w``, ``w_m``,
+    ``g_tilde``, ``vbar``, ``qbar``, ``alpha``, ``queue``); ``after``: the
+    card's state after the step, moved to the CPU (the same keys, and
+    ``gaps``/``coords``: the step's slot, shape (1,)); ``gs``: the card's γᵢ/N in lane order;
+    ``step``: ``coord_update_ref``'s keywords but ``gaps``/``coords``/``slot``.
+    ``pcsr``/``pcsc`` on the CPU (``pcsc`` needs only ``col_live``).
+
+    α must equal line 61 fed the card's γ; v̄, w, w_m, the gap and the
+    coordinate ``coord_update_ref``; the queue the line-29 refresh of the
+    card's own α.  q̄ and g̃ are held allclose (rtol 1e-5, atol 1e-6): the
+    logistic map's ``expf`` and ``torch.sigmoid`` may round an ulp apart,
+    and Δg̃ sums in another order.
+    """
+    ref = {k: v.clone() for k, v in before.items()}
+    gaps, coords = torch.zeros(1), torch.zeros(1, dtype=torch.int32)
+    coord_update_ref(torch.tensor([j], dtype=torch.int32), pcsr, pcsc, y, ref["w"],
+                     ref["w_m"], ref["g_tilde"], ref["vbar"], ref["qbar"], ref["alpha"],
+                     ref["queue"], gaps=gaps, coords=coords, slot=0, **step)
+    rows, _ = pcsc.col_live(min(j, before["alpha"].shape[0] - 1))
+    bad = []
+    if gs.shape != rows.shape:
+        return ["gs"]
+    alpha = scatter_alpha_rows(before["alpha"], rows, gs, pcsr)
+    exact = dict(alpha=(after["alpha"], alpha), vbar=(after["vbar"], ref["vbar"]),
+                 w=(after["w"], ref["w"]), w_m=(after["w_m"], ref["w_m"]),
+                 gap=(after["gaps"], gaps), coord=(after["coords"], coords))
+    queue = before["queue"].clone()
+    refresh_queue_(queue, lane_terms(rows, gs, pcsr)[0], after["alpha"],
+                   step.get("em_scale", 1.0))
+    if isinstance(queue, TwoLevelSamplerState):
+        exact.update(prio=(after["queue"].v, queue.v), touched=(after["queue"].touched,
+                                                                 queue.touched))
+    else:
+        exact.update(prio=(after["queue"].p, queue.p), bound=(after["queue"].bound,
+                                                               queue.bound))
+    for name, (got, want) in exact.items():
+        if not same_bits(got.reshape(-1), want.reshape(-1).to(got.dtype)):
+            bad.append(name)
+    for name in ("qbar", "g_tilde"):
+        if not torch.allclose(after[name], ref[name], rtol=1e-5, atol=1e-6):
+            bad.append(name)
+    return bad

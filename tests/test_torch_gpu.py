@@ -11,7 +11,9 @@ atol 1e-6 (the plain versions add with atomics, in another order); draws
 equal index for index; the card's solve against the CPU's (plain versions)
 by the cross-engine contract — coordinates exactly, w and gaps within 1e-4.
 ``ell_rmatvec`` also equals its plain version run on the CPU bit for bit
-(both add in the segmented row order, ``spmv/ref.py``).  Flash attention
+(both add in the segmented row order, ``spmv/ref.py``), and ``coord_update``
+meets its bitwise rule against the CPU (``coord_update/ref.py``), on both
+of its routes.  Flash attention
 against the materialised oracle on the card: 2e-5 in float32 (the CUDA-core
 route) and 0.06 in bfloat16 (the tensor-core route; ``tests/test_kernels.py``'s
 bounds); the smoke LM's
@@ -35,7 +37,10 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.bsls_draw import two_level_draw
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
 from repro_torch.kernels.coord_update import coord_update
-from repro_torch.kernels.coord_update.ref import coord_update_ref
+from repro_torch.kernels.coord_update import ops as cu_ops
+from repro_torch.kernels.coord_update.ops import coord_update_scratch, short_route_max_rows
+from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches, coord_update_ref,
+                                                  same_bits)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.flash import flash_attention as flash_attention_plain
@@ -134,6 +139,93 @@ def test_coord_update_kernel_matches_plain(problem, loss, private):
                         ([queue.v, queue.c] if private else [queue.p, queue.bound]))
         for a, b in zip(*outs):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def long_problem(cuda):
+    """Columns of a few thousand rows (the longest 2,828 of 3,000), so the
+    long route runs on them."""
+    X, y, _ = make_sparse_classification(n=3000, d=2500, nnz_per_row=16, informative=20,
+                                         seed=5)
+    return X, y, host_to_padded(X, device=cuda)
+
+
+def _card_step(j, pcsr, pcsc, y_t, base, step, scratch, route):
+    st = {k: v.clone() for k, v in base.items()}
+    gaps = torch.zeros(2, device="cuda")
+    coords = torch.zeros(2, dtype=torch.int32, device="cuda")
+    coord_update(torch.tensor([j], dtype=torch.int32, device="cuda"), pcsr, pcsc, y_t,
+                 st["w"], st["w_m"], st["g_tilde"], st["vbar"], st["qbar"], st["alpha"],
+                 st["queue"], gaps=gaps, coords=coords, slot=1, scratch=scratch, route=route,
+                 **step)
+    st.update(gaps=gaps[1:], coords=coords[1:])
+    return st
+
+
+def _bits(st) -> list:
+    q = st["queue"]
+    out = [st[k] for k in ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha", "gaps", "coords")]
+    return out + ([q.v, q.c, q.touched] if hasattr(q, "c") else [q.p, q.bound])
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return all(map(same_bits, a, b))
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiered"])
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_coord_update_kernel_bitwise_rule(problem, long_problem, loss, private, layout,
+                                          monkeypatch):
+    """The card's step against the CPU by the kernel's bitwise rule
+    (``ref.bitwise_rule_mismatches``) on the heaviest, a p99 and a light
+    column of both problems; the short and the long route forced on the same
+    column and a second launch give the same bits; flat = tiered, and the
+    long route without lane-term slots = with them."""
+    for X, y, (pcsr, flat) in (problem, long_problem):
+        n, d = X.shape
+        pcsc = flat if layout == "flat" else tiered_from_padded(flat, 8)
+        y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+        vbar, qbar, alpha = fw_setup(pcsr, y_t, loss=loss, pcsc=flat)
+        gen = torch.Generator().manual_seed(7)
+        w = (torch.randn(d, generator=gen) * (torch.rand(d, generator=gen) < 0.2)).cuda()
+        alpha[::7] = -0.0
+        em = 30.0 if private else 1.0
+        base = dict(w=w, w_m=torch.tensor(0.8, device="cuda"),
+                    g_tilde=torch.tensor(0.5, device="cuda"), vbar=vbar, qbar=qbar,
+                    alpha=alpha, queue=tl_init(alpha.abs() * em) if private
+                    else ga_init(alpha.abs()))
+        before = {k: (v.to("cpu"))
+                  for k, v in base.items()}
+        step = dict(t=4.0, lam=8.0, inv_n=1.0 / n, em_scale=em, loss=loss)
+        cpu_csr, cpu_csc, y_cpu = pcsr.to("cpu"), pcsc.to("cpu"), y_t.cpu()
+        col_nnz = flat.nnz.cpu().numpy()
+        live = np.flatnonzero(col_nnz > 0)
+        scratch = coord_update_scratch(n, d, "cuda")
+        for j in (int(np.argmax(col_nnz)), int(live[np.argmin(col_nnz[live])]),
+                  int(np.argsort(col_nnz)[-max(1, d // 100)])):
+            card = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, "auto")
+            k = int(col_nnz[j])
+            after = {key: (v.to("cpu"))
+                     for key, v in card.items()}
+            bad = bitwise_rule_mismatches(j, cpu_csr, cpu_csc, y_cpu, before, after,
+                                          scratch.gs[:k].cpu(), **step)
+            assert bad == [], (n, j, k, bad)
+            for route in ("short", "long", "auto"):
+                again = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, route)
+                assert _same_bits(_bits(card), _bits(again)), (n, j, route)
+            other = flat if layout == "tiered" else tiered_from_padded(flat, 8)
+            assert _same_bits(_bits(card), _bits(_card_step(j, pcsr, other, y_t, base, step,
+                                                            scratch, "auto")))
+            # no lane-term slots: every heavy owner walks its own rows
+            monkeypatch.setattr(cu_ops, "LANE_TERMS_MAX", 0)
+            bare = pcsc.to("cuda")
+            assert cu_ops.owner_table(bare).slots == 0
+            assert _same_bits(_bits(card), _bits(_card_step(j, pcsr, bare, y_t, base, step,
+                                                            scratch, "long")))
+            monkeypatch.undo()
+    assert int(long_problem[2][1].nnz.max()) >= 2000 > short_route_max_rows()
+    assert int(scratch.routes[1]) > 0 and int(scratch.routes[0]) > 0
 
 
 @pytest.mark.parametrize("private", [False, True])
