@@ -18,7 +18,12 @@ It holds the card's runs against CPU runs of the plain versions and the
 stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
 version run on the CPU bit for bit (both add in the segmented row order), and
 ``coord_update`` must meet its bitwise rule against the CPU on both of its
-routes (``coord_update/ref.py``), which it times by column length.
+routes (``coord_update/ref.py``), which it times by column length, also on a
+copy of the matrix with repeated entries (``duplicates``).  The private step
+must run only the rows, owners and draw kernels (``private_window``); the
+draw, which rebuilds the touched groups, is held against the plain rebuild
+and draw over 1,000 steps of real touched sets; ``ell_matvec`` is swept over
+its lane counts and grids, back to back and in the Alg 1 loop.
 Then it drives the LM at the full published width of ``tinyllama-1.1b``
 (22 layers, d_model 2048, 32 heads, 4 KV heads, random weights from a seed):
 
@@ -53,18 +58,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import FWConfig, prng, solve  # noqa: E402
 from repro_torch.core.fw_dense import _carry0, _dense_chunk, _dense_step  # noqa: E402
 from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa: E402
-from repro_torch.core.samplers.two_level import tl_init, tl_rebuild_  # noqa: E402
+from repro_torch.core import fw_dense  # noqa: E402
+from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init,  # noqa: E402
+                                                 tl_rebuild_, tl_scatter_)
 from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init,  # noqa: E402
                                                    fw_scan_chunk, fw_setup)
-from repro_torch.core.sparse.formats import (dense_to_host, host_to_padded,  # noqa: E402
-                                             tiered_from_padded)
-from repro_torch.data.synthetic import lm_batches, make_sparse_classification  # noqa: E402
+from repro_torch.core.sparse.formats import (PaddedCSR, dense_to_host,  # noqa: E402
+                                             host_to_padded, tiered_from_padded)
+from repro_torch.data.synthetic import (lm_batches, make_sparse_classification,  # noqa: E402
+                                        with_repeated_entries)
 from repro_torch.kernels import _lib, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.bsls_draw import two_level_draw  # noqa: E402
+from repro_torch.kernels.bsls_draw.ops import arrival_counter, launch_floor  # noqa: E402
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref  # noqa: E402
 from repro_torch.kernels.coord_update import coord_update  # noqa: E402
 from repro_torch.kernels.coord_update.ops import (coord_update_scratch,  # noqa: E402
-                                                  short_route_max_rows)
+                                                  owner_table, short_route_max_rows)
 from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # noqa: E402
                                                   coord_update_ref, same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
@@ -78,6 +87,7 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa
 # rcv1.binary training set (LIBSVM): rows, features, nnz per row
 N, D, NNZ_PER_ROW, INFORMATIVE, SEED = 20242, 47236, 74, 64, 0
 LAM, T_MAIN, T_PARITY, WARMUP = 50.0, 500, 200, 50
+T_DUP, DRAW_STEPS = 50, 1000    # the repeated-entries runs; the rebuilding draw's replay
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
 # H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores,
@@ -207,10 +217,14 @@ def _step_kwargs(st, loss, em, gaps, coords, slot, t):
 
 
 def _run_update(fn, j, pcsr, pcsc, y, st, loss, em, gaps, coords, slot, t=7.0):
+    """One step of ``fn`` (the kernel or its plain version), then the queue's
+    rebuild by the same side (the draw kernel's rebuild-only launch, or the
+    plain ops)."""
     fn(j, pcsr, pcsc, y, st["w"], st["w_m"], st["g_tilde"], st["vbar"], st["qbar"],
        st["alpha"], st["queue"], **_step_kwargs(st, loss, em, gaps, coords, slot, t))
-    if hasattr(st["queue"], "c"):
-        tl_rebuild_(st["queue"])
+    q = st["queue"]
+    if hasattr(q, "c"):
+        tl_rebuild_(q) if fn is coord_update else rebuild_groups_(q.c, q.v, q.touched)
 
 
 def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
@@ -258,9 +272,11 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
         require(bool((err <= 1e-5 * scale + 1e-7).all()), "ell_matvec disagrees with plain")
         require(torch.equal(got, again), "ell_matvec is not deterministic")
         worst = max(worst, float(err.max()))
-    errs["ell_matvec"] = worst
-    emit("kernel_vs_plain", kernel="ell_matvec", max_abs_err=worst,
-         tolerance="|d| <= 1e-5 * sum|terms| + 1e-7 per row", deterministic=True)
+    lengths = ell_matvec_row_lengths(pcsr.indices.shape[1])
+    errs["ell_matvec"] = max(worst, lengths["max_abs_err"])
+    emit("kernel_vs_plain", kernel="ell_matvec", max_abs_err=errs["ell_matvec"],
+         tolerance="|d| <= 1e-5 * sum|terms| + 1e-7 per row", deterministic=True,
+         row_lengths=lengths)
 
     # ---- coord_update: every loss, light / p99 / head column, both queues -----
     worst = 0.0
@@ -317,6 +333,35 @@ def phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz) -> dict:
     emit("kernel_vs_plain", kernel="two_level_draw", keys=len(keys), equal=same,
          distinct_indices=int(torch.unique(out).numel()), tolerance="indices equal")
     return errs
+
+
+def ell_matvec_row_lengths(k_pad: int) -> dict:
+    """Each of the kernel's lane counts L (and the default) on rows of 0, 1,
+    L-1, L, L+1 and K live entries, at the main path's row width K, against
+    the plain version; every grid gives the same bits."""
+    lens = sorted({0, 1, k_pad} | {n for lanes in (4, 8, 16, 32)
+                                   for n in (lanes - 1, lanes, lanes + 1)})
+    gen = torch.Generator().manual_seed(12)
+    idx = torch.randint(0, D, (len(lens), k_pad), generator=gen, dtype=torch.int32)
+    val = torch.randn(len(lens), k_pad, generator=gen)
+    nnz = torch.tensor(lens, dtype=torch.int32)
+    live = torch.arange(k_pad)[None, :] < nnz[:, None]
+    rows = PaddedCSR(torch.where(live, idx, 0).to(DEVICE), torch.where(live, val, 0.0)
+                     .to(DEVICE), nnz.to(DEVICE), (len(lens), D))
+    w = torch.randn(D, generator=gen).to(DEVICE)
+    ref = ell_matvec_ref(rows.indices, rows.values, w)
+    scale = ell_matvec_ref(rows.indices, rows.values.abs(), w.abs())
+    worst = 0.0
+    for lanes in (0, 4, 8, 16, 32):
+        got = ell_matvec(rows, w, lanes=lanes)
+        err = (got - ref).abs()
+        require(bool((err <= 1e-5 * scale + 1e-7).all()) and float(got[0]) == 0.0,
+                f"ell_matvec lanes={lanes} disagrees with plain on rows of {lens} entries")
+        for blocks in (1, 2):
+            require(torch.equal(got, ell_matvec(rows, w, lanes=lanes, blocks=blocks)),
+                    f"ell_matvec lanes={lanes}: the grid changes the bits")
+        worst = max(worst, float(err.max()))
+    return {"lengths": lens, "max_abs_err": worst, "lanes": [0, 4, 8, 16, 32]}
 
 
 class _ColumnsOnCPU:
@@ -417,6 +462,8 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
         want = {"coord_update": T_MAIN, "two_level_draw": T_MAIN if private else 0,
                 "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0}
         require(counts == want, f"launch counts {counts}, expected {want}")
+        require(two_level_draw.rebuilds == int(private),
+                f"rebuild-only launches {two_level_draw.rebuilds}, expected {int(private)}")
         gaps = res.gaps.cpu().numpy()
         require(bool(np.isfinite(gaps).all()) and bool(torch.isfinite(res.w).all()),
                 "non-finite output")
@@ -433,7 +480,8 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
             require(torch.equal(again.w, res.w) and torch.equal(again.coords, res.coords),
                     "two private runs differ")
         emit("main_path", run=name, queue=cfg.queue, steps=T_MAIN, lam=LAM,
-             solve_s=wall, launches=counts, gap_first=float(gaps[0]),
+             solve_s=wall, launches=counts, rebuild_only_launches=int(private),
+             gap_first=float(gaps[0]),
              gap_last=float(gaps[-1]), duality_gap_w0=duality_gap(pcsr, y, torch.zeros_like(res.w)),
              duality_gap_wT=duality_gap(pcsr, y, res.w), nnz_w=int((res.w != 0).sum()),
              distinct_coords=int(torch.unique(res.coords).numel()),
@@ -471,14 +519,44 @@ def phase_step_times(pcsr, pcsc, y_t) -> dict:
     carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0), private=True)
     kw = dict(loss="logistic", private=True)
     fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0, 0, None, steps=WARMUP, **kw)
-    profile_steps("private", 100, lambda: fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0,
-                                                         WARMUP, None, steps=100, **kw))
-    return per_step
+    prof = profile_steps("private", 100, lambda: fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0,
+                                                                WARMUP, None, steps=100, **kw))
+    return per_step, private_window(prof, 100)
 
 
-def profile_steps(run: str, steps: int, window) -> dict:
+# the kernels of a private step: coord_update's two and the rebuilding draw
+PRIVATE_STEP_KERNELS = ("rows_kernel", "owners_kernel", "two_level_draw_kernel<true>")
+
+
+def _device_ms_of(prof: dict, name: str) -> tuple:
+    """(device ms, calls) of the profiled kernels whose name holds ``name``."""
+    return (sum(ms for k, ms in prof["by_kernel"].items() if name in k),
+            sum(c for k, c in prof["calls"].items() if name in k))
+
+
+def private_window(prof: dict, steps: int) -> dict:
+    """The private step runs the rows, owners and draw kernels once each and
+    no other device kernel once a step or more (the rebuild's torch ops are
+    gone: the draw launch rebuilds)."""
+    calls = {name: _device_ms_of(prof, name)[1] for name in PRIVATE_STEP_KERNELS}
+    require(all(c == steps for c in calls.values()),
+            f"private window: {calls}, expected {steps} calls of each")
+    others = {k[:80]: c for k, c in prof["calls"].items()
+              if c >= steps and not any(name in k for name in PRIVATE_STEP_KERNELS)}
+    require(not others, f"private window: other kernels launched every step: {others}")
+    fields = dict(steps=steps, calls=calls, kernels_per_step=sum(prof["calls"].values()) / steps,
+                  device_ms_per_step={name: _device_ms_of(prof, name)[0] / steps
+                                      for name in PRIVATE_STEP_KERNELS},
+                  other_kernels={k[:80]: c for k, c in prof["calls"].items()
+                                 if not any(name in k for name in PRIVATE_STEP_KERNELS)})
+    emit("private_window", **fields)
+    return fields
+
+
+def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
     """Device time by kernel over ``window()``, a run of ``steps`` steps
-    (torch.profiler); returns the device ms by kernel name."""
+    (torch.profiler); returns the device ms by kernel name (``quiet``: no
+    phase line)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -492,6 +570,9 @@ def profile_steps(run: str, steps: int, window) -> dict:
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
+    if quiet:
+        return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
+                "calls": {k: c for k, _, c in by_kernel}}
     emit("profile", run=run, steps=steps, wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms if by_kernel else None,
          device_idle_share=(1.0 - busy_ms / wall_ms) if by_kernel else None,
@@ -649,6 +730,74 @@ def phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair) -> None:
     del dense
 
 
+def _alg2_scan(pair, y, private: bool, route: str) -> tuple:
+    """A T_DUP-step Alg 2 run on ``pair``'s device with ``coord_update``'s
+    route forced; returns (w, gaps, coords) on the CPU."""
+    pcsr, pcsc = pair
+    cfg = FWConfig(backend="torch_sparse", lam=LAM, steps=T_DUP, epsilon=1.0, delta=1e-6,
+                   queue="two_level" if private else "group_argmax")
+    em = em_scale_for(cfg, N)
+    y_dev = torch.from_numpy(y.astype(np.float32)).to(pcsr.device)
+    setup = fw_setup(pcsr, y_dev, loss="logistic", pcsc=pcsc)
+    carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0), private=private)
+    carry, (gaps, coords) = fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0, 0, None,
+                                          steps=T_DUP, loss="logistic", private=private,
+                                          route=route)
+    return (carry.w * carry.w_m).cpu(), gaps.cpu(), coords.cpu()
+
+
+def phase_duplicates(X, csc, y, y_t, buckets) -> None:
+    """Repeated entries (a row that lists a column twice), at the rcv1.binary
+    shape: the head, p99 and light columns each get repeated entries (3, 3
+    and 1 of their rows' entries listed again in the HostCSR, not summed),
+    and 5,000 entries anywhere (so the private runs draw such columns too).  The card must meet the kernel's bitwise rule
+    against the CPU on those columns (every loss, both queues, both routes
+    and a rerun the same bits), and T_DUP-step runs with each route forced
+    must take the CPU's coordinates and w bit for bit, the gaps within 1e-4
+    (g̃'s sum is held allclose by the rule)."""
+    rng = np.random.default_rng(21)
+    rows, cols = [], []
+    for name, k in (("head", 3), ("p99", 3), ("light", 1)):
+        c = buckets[name]
+        rows += list(rng.choice(csc.indices[csc.indptr[c]:csc.indptr[c + 1]], k, replace=False))
+        cols += [c] * k
+    for i in rng.choice(N, 5000, replace=False):
+        rows.append(int(i))
+        cols.append(int(rng.choice(X.row(int(i))[0])))
+    Xd = with_repeated_entries(X, rows, cols, seed=22)
+    pcsr, pcsc = host_to_padded(Xd, device=DEVICE)
+    owners = owner_table(pcsc)
+    require(all(int(owners.col_repeats[c]) == 1 for c in buckets.values()),
+            "duplicates: a bucket column lists no row twice")
+    t0 = time.perf_counter()
+    routes = coord_update_bitwise(y_t, pcsr, pcsc, buckets)
+    rule_s = time.perf_counter() - t0
+    cpu_pair = host_to_padded(Xd, device="cpu")
+    runs = {}
+    for private in (True, False):
+        w_cpu, gaps_cpu, coords_cpu = _alg2_scan(cpu_pair, y, private, "auto")
+        picked = int(owners.col_repeats.cpu()[coords_cpu.long()].sum())
+        for route in ("short", "long"):
+            w, gaps, coords = _alg2_scan((pcsr, pcsc), y, private, route)
+            name = f"{'private' if private else 'non_private'}_{route}"
+            differ = (coords != coords_cpu).nonzero().flatten().tolist()
+            require(not differ, f"duplicates {name}: card/CPU coords differ at {differ[:5]}")
+            require(torch.equal(w, w_cpu), f"duplicates {name}: card/CPU w differ")
+            dg = float((gaps - gaps_cpu).abs().max())
+            require(dg <= 1e-4, f"duplicates {name}: card/CPU gaps differ by {dg}")
+            runs[name] = dict(coords_equal=True, w_bitwise_equal=True, max_abs_gaps=dg,
+                              steps_on_repeated_columns=picked)
+    emit("duplicates", repeated_entries=len(rows), nnz=int(Xd.nnz),
+         columns=buckets, col_nnz={k: int(pcsc.nnz[v]) for k, v in buckets.items()},
+         columns_listing_a_row_twice=int(owners.col_repeats.sum()),
+         rows_listing_a_column_twice=int(owners.row_repeats.sum()),
+         lane_term_slots=owners.slots, bitwise_rule_cases=len(LOSSES) * 2 * len(buckets),
+         route_by_bucket=routes, routes_bitwise_equal=True, bitwise_rule_s=rule_s,
+         steps=T_DUP, runs=runs)
+    del pcsr, pcsc, cpu_pair
+    torch.cuda.empty_cache()
+
+
 def phase_gap_tol(pcsr, pcsc, y, runs, alg1) -> None:
     """gap_tol runs through the chunk loop: each stops before T and is a
     bitwise prefix of its fixed-T run, with sentinels after the stop."""
@@ -703,13 +852,18 @@ def _coord_update_bytes(X, csc, coords, group_size: int) -> tuple:
     return nbytes / n, ops / n
 
 
-def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share) -> list:
+def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share,
+                       window) -> list:
     """Times of each kernel at the main paths' shapes, against its bound.
     ``launches``: the Alg 1 argmax solve's count for the spmv kernels, the
     private Alg 2 solve's for the others (each phase line has every run's).
     The spmv kernels' ``in_loop_ms`` is their profiled device ms per Alg 1
-    ``argmax`` step, beside ``ms`` timed back to back."""
+    ``argmax`` step, beside ``ms`` timed back to back; the draw's is its
+    device ms per step of the profiled private window.  ``launch_floor_ms``:
+    an empty kernel's device ms, timed the same way (the practical floor of
+    the latency-bound rows)."""
     kernels = []
+    floor = device_ms([launch_floor] * 1000)
     # ---- ell_rmatvec --------------------------------------------------------
     q = torch.from_numpy(np.random.default_rng(2).normal(size=N).astype(np.float32)).to(DEVICE)
     ms = device_ms([lambda: ell_rmatvec(pcsr, q, pcsc)] * 20)
@@ -743,6 +897,7 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share
     require(torch.allclose(lib_out, ell_matvec(pcsr, w), rtol=1e-4, atol=1e-5),
             "torch.sparse.mm disagrees with ell_matvec")
     lib = device_ms([lambda: torch.sparse.mm(xr, w[:, None])] * 50)
+    sweep = ell_matvec_sweep(pcsr, pcsc, y_t, w)
     b, by = bound(8.0 * X.nnz + 8.0 * N + 4.0 * D, 2.0 * X.nnz)
     kernels.append(dict(name="ell_matvec", route="cuda",
                         source="src/repro_torch/kernels/spmv/csrc/ell_matvec.cu",
@@ -750,25 +905,147 @@ def phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share
                         launches=alg1["argmax"]["counts"]["ell_matvec"],
                         max_abs_err=errs["ell_matvec"], ms=ms, plain_ms=plain, bound_ms=b,
                         bound_by=by, library_ms=lib,
-                        in_loop_ms=share["argmax"]["ell_matvec"]["device_ms_per_step"]))
-    # ---- two_level_draw -------------------------------------------------------
-    setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
-    em = em_scale_for(FWConfig(backend="torch_sparse", queue="two_level", steps=T_MAIN), N)
-    state = tl_init(setup[2].abs() * em)
-    _, keys = prng.key_chain(prng.PRNGKey(5), 1000)
-    out = torch.empty(1, dtype=torch.int32, device=DEVICE)
-    ms = device_ms([lambda k=k: two_level_draw(state.c, state.v, k, out=out) for k in keys])
-    plain = sync_ms(lambda: [two_level_draw_ref(state.c, state.v, k) for k in keys[:200]]) / 200
-    g, m = state.v.shape
-    b, by = bound(4.0 * (g + m) + 4.0, 125.0 * (g + m) + 230.0)
+                        in_loop_ms=share["argmax"]["ell_matvec"]["device_ms_per_step"],
+                        lanes_grid_sweep=sweep, launch_floor_ms=floor))
+    # ---- two_level_draw: the rebuilding draw over real touched sets -----------
+    draw = draw_rebuild_check(pcsr, pcsc, y_t, runs["private"]["res"].coords.cpu().numpy())
     kernels.append(dict(name="two_level_draw", route="cuda",
                         source="src/repro_torch/kernels/bsls_draw/csrc/two_level_draw.cu",
                         replaces="src/repro/kernels/bsls_draw/kernel.py:62",
                         launches=runs["private"]["counts"]["two_level_draw"],
-                        max_abs_err=errs["two_level_draw"], ms=ms, plain_ms=plain,
-                        bound_ms=b, bound_by=by, library_ms=None))
+                        max_abs_err=draw["max_abs_c_err"], ms=draw["ms"],
+                        plain_ms=draw["plain_ms"], bound_ms=draw["bound_ms"],
+                        bound_by=draw["bound_by"], library_ms=None,
+                        in_loop_ms=window["device_ms_per_step"]["two_level_draw_kernel<true>"],
+                        draw_only_ms=draw["draw_only_ms"], launch_floor_ms=floor))
     kernels.append(coord_update_times(X, csc, y_t, pcsr, pcsc, runs, buckets, errs))
+    kernels[-1]["launch_floor_ms"] = floor
     return kernels
+
+
+class _matvec_shape:
+    """Within the block, Alg 1's margins launch ``ell_matvec`` with the given
+    lane count and grid."""
+
+    def __init__(self, lanes: int, blocks: int):
+        self.lanes, self.blocks = lanes, blocks
+
+    def __enter__(self):
+        fw_dense.ell_matvec = lambda X, w: ell_matvec(X, w, lanes=self.lanes,
+                                                      blocks=self.blocks)
+
+    def __exit__(self, *exc):
+        fw_dense.ell_matvec = ell_matvec
+
+
+def ell_matvec_sweep(pcsr, pcsc, y_t, w) -> list:
+    """``ell_matvec`` with L = 4, 8, 16, 32 lanes a row, each on a grid that
+    covers the rows once and on smaller grids that stride (1,056 = 8 resident
+    blocks on each of 132 SMs, the default, 528, 264): device ms back to
+    back, and in the Alg 1 argmax loop (profiled device ms per step over 100
+    steps).  For one L, every grid gives the same bits."""
+    cfg = _alg1_config("argmax", T_MAIN)
+    step = _dense_step((pcsr, pcsc), y_t, cfg, masked=False)
+    carry, _ = _dense_chunk(step, _carry0((pcsr, pcsc), D, cfg), 0, WARMUP, masked=False)
+    rows = []
+    for lanes in (4, 8, 16, 32):
+        cover = -(-N // (256 // lanes))
+        want = ell_matvec(pcsr, w, lanes=lanes)
+        for blocks in [b for b in dict.fromkeys((cover, 1056, 528, 264)) if b <= cover]:
+            require(torch.equal(ell_matvec(pcsr, w, lanes=lanes, blocks=blocks), want),
+                    f"ell_matvec lanes={lanes}: the grid changes the bits")
+            ms = device_ms([lambda: ell_matvec(pcsr, w, lanes=lanes, blocks=blocks)] * 50)
+            with _matvec_shape(lanes, blocks):
+                prof = profile_steps("alg1_matvec_sweep", 100, lambda: _dense_chunk(
+                    step, carry, WARMUP, 100, masked=False), quiet=True)
+            # the profiler may drop an event of a window: ms per recorded launch
+            in_loop, calls = _device_ms_of(prof, "ell_matvec_kernel")
+            require(90 <= calls <= 100, f"ell_matvec sweep: {calls} profiled launches")
+            rows.append(dict(lanes=lanes, blocks=blocks, grid="covers" if blocks == cover
+                             else "strides", ms=ms, in_loop_ms=in_loop / calls,
+                             profiled_launches=calls))
+    emit("ell_matvec_sweep", rows=rows, default_lanes=32, default_blocks=1056)
+    return rows
+
+
+def draw_rebuild_check(pcsr, pcsc, y_t, coords) -> dict:
+    """The rebuilding draw over DRAW_STEPS steps, each a ``tl_scatter_`` of a
+    real touched set (the coordinates of the rows of a column the private
+    main-path run selected, in its order, over again), new log-weights near
+    the old ones, then the launch: ``c`` within rtol/atol 1e-6 of the plain
+    rebuild, the draw equal to the plain draw on the kernel's ``c``, no group
+    left touched and the arrival counter at 0 after each launch.  A masked
+    launch rebuilds and writes -1.  The launch's device ms at these sets
+    (profiled replay), the plain version's host ms, and the bound at the
+    mean touched groups."""
+    setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
+    em = em_scale_for(FWConfig(backend="torch_sparse", queue="two_level", steps=T_MAIN), N)
+    state = tl_init(setup[2].abs() * em)
+    plain = state.clone()
+    counter = arrival_counter(DEVICE)
+    _, keys = prng.key_chain(prng.PRNGKey(9), DRAW_STEPS)
+    gen = torch.Generator(DEVICE).manual_seed(4)
+    sets = []
+    for i in range(DRAW_STEPS):
+        rows = pcsc.col_live(int(coords[i % len(coords)]))[0].long()
+        live = torch.arange(pcsr.indices.shape[1], device=DEVICE)[None, :] < \
+            pcsr.nnz[rows][:, None]
+        idx = torch.unique(pcsr.indices[rows][live].long())   # one value per coordinate
+        vals = state.v.view(-1)[idx] * (1.0 + 0.05 * torch.randn(idx.numel(), generator=gen,
+                                                                  device=DEVICE))
+        sets.append((idx, vals))
+    worst, touched_groups = 0.0, 0
+    for (idx, vals), k in zip(sets, keys):
+        for st in (state, plain):
+            tl_scatter_(st, idx, vals)
+        touched_groups += int(state.touched.sum())
+        got = two_level_draw(state.c, state.v, k, touched=state.touched)
+        rebuild_groups_(plain.c, plain.v, plain.touched)
+        require(torch.allclose(state.c, plain.c, rtol=1e-6, atol=1e-6),
+                "rebuilding draw: c differs from the plain rebuild")
+        worst = max(worst, float((state.c - plain.c).abs().max()))
+        require(int(got) == int(two_level_draw_ref(state.c, state.v, k)),
+                "rebuilding draw: the draw differs from the plain draw on its c")
+        require(int(state.touched.sum()) == 0 and int(counter) == 0,
+                "rebuilding draw: a group left touched or the counter not at 0")
+        plain.c.copy_(state.c)
+    idx, vals = sets[0]
+    for st in (state, plain):
+        tl_scatter_(st, idx, vals * 1.1)
+    rebuild_groups_(plain.c, plain.v, plain.touched)
+    out = two_level_draw(state.c, state.v, keys[0], touched=state.touched,
+                         done=torch.tensor(True, device=DEVICE))
+    require(int(out) == -1 and int(state.touched.sum()) == 0 and int(counter) == 0
+            and torch.allclose(state.c, plain.c, rtol=1e-6, atol=1e-6),
+            "masked rebuilding draw: no sentinel, or the touched groups not rebuilt")
+    # timing: the launches alone over the same sets (profiled), the plain version
+    def replay(fn):
+        for (idx, vals), k in zip(sets, keys):
+            tl_scatter_(state, idx, vals)
+            fn(k)
+    prof = profile_steps("draw_replay", DRAW_STEPS, lambda: replay(
+        lambda k: two_level_draw(state.c, state.v, k, touched=state.touched)), quiet=True)
+    # the profiler may drop an event of a window: ms per recorded launch
+    ms, calls = _device_ms_of(prof, "two_level_draw_kernel<true>")
+    require(0.99 * DRAW_STEPS <= calls <= DRAW_STEPS,
+            f"rebuilding draw replay: {calls} profiled launches")
+    t0 = time.perf_counter()
+    replay(lambda k: two_level_draw_ref(state.c, state.v, k, touched=state.touched))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / DRAW_STEPS
+    out = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    draw_only = device_ms([lambda k=k: two_level_draw(state.c, state.v, k, out=out)
+                           for k in keys])
+    g, m = state.v.shape
+    tg = touched_groups / DRAW_STEPS
+    b, by = bound(4.0 * (2 * g + m + 1) + tg * (4.0 * m + 8.0),
+                  125.0 * (g + m) + 230.0 + tg * 4.0 * m)
+    fields = dict(steps=DRAW_STEPS, max_abs_c_err=worst, c_tolerance="rtol 1e-6, atol 1e-6",
+                  draws_equal=True, touched_after=0, counter_after=0, masked_sentinel=True,
+                  mean_touched_groups=tg, groups=g, group_size=m, ms=ms / calls,
+                  plain_ms=plain_ms, draw_only_ms=draw_only, bound_ms=b, bound_by=by)
+    emit("kernel_vs_plain", kernel="two_level_draw_rebuild", **fields)
+    return fields
 
 
 def coord_update_times(X, csc, y_t, pcsr, pcsc, runs, buckets, errs) -> dict:
@@ -1154,7 +1431,7 @@ def main() -> int:
     errs = phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz)
     runs = phase_main_path(pcsr, pcsc, y)
     alg1 = phase_alg1(pcsr, pcsc, y)
-    alg2_step = phase_step_times(pcsr, pcsc, y_t)
+    alg2_step, window = phase_step_times(pcsr, pcsc, y_t)
     alg1_step, share = phase_alg1_step_times(pcsr, pcsc, y_t)
     emit("alg1_vs_alg2", steps=T_MAIN, per_step_ms={
         **{f"dense_{k}": v for k, v in alg1_step.items()},
@@ -1163,8 +1440,10 @@ def main() -> int:
                  **{f"torch_sparse_{k}": v["wall"] for k, v in runs.items()}},
         alg1_argmax_share_of_step=share)
     phase_parity(X, y, pcsr, pcsc, col_nnz)
+    phase_duplicates(X, csc, y, y_t, buckets)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
-    kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share)
+    kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share,
+                                 window)
     del X, csc, pcsr, pcsc, runs, alg1
     torch.cuda.empty_cache()
     flash_errs = phase_flash_vs_plain()

@@ -7,12 +7,13 @@ the ``two_level_draw`` kernel (``kernels/bsls_draw``); this module holds the
 state and its updates.
 
 Updates after a Frank-Wolfe step scatter the touched coordinates' new
-log-weights and rebuild the touched groups' log-sum-exps exactly: all G
-sums are recomputed, as the JAX package does, and the touched ones kept.
-The solver splits an update in two: the coordinate-update kernel scatters
-``v`` and raises ``touched`` in place (``tl_scatter_`` is its plain form),
-then ``tl_rebuild_`` recomputes ``c``.  ``tl_update`` is the functional form
-of both, with the JAX package's signature.
+log-weights and rebuild the touched groups' log-sum-exps exactly (the JAX
+package recomputes all G sums and keeps the touched ones).  The solver
+splits an update in two: the coordinate-update kernel scatters ``v`` and
+raises ``touched`` in place (``tl_scatter_`` is its plain form), then the
+next step's draw launch rebuilds the touched groups' ``c`` before it draws;
+``tl_rebuild_`` rebuilds alone (after a chunk's last step).  ``tl_update``
+is the functional form of both, with the JAX package's signature.
 """
 from __future__ import annotations
 
@@ -88,10 +89,22 @@ def tl_scatter_(state: TwoLevelSamplerState, idx: torch.Tensor, vals: torch.Tens
     state.touched[idx // state.group_size] = 1
 
 
+def rebuild_groups_(c: torch.Tensor, v: torch.Tensor, touched: torch.Tensor) -> None:
+    """In place, plain ops: recompute every group's log-sum-exp, keep the
+    touched ones in ``c``, clear ``touched``."""
+    c.copy_(torch.where(touched.bool(), logsumexp_rows(v), c))
+    touched.zero_()
+
+
 def tl_rebuild_(state: TwoLevelSamplerState) -> None:
-    """In place: recompute every group's log-sum-exp, keep the touched ones."""
-    state.c = torch.where(state.touched.bool(), logsumexp_rows(state.v), state.c)
-    state.touched.zero_()
+    """In place: rebuild the touched groups' log-sum-exps and clear their
+    flags (a CUDA state launches the draw kernel's rebuild-only form)."""
+    if state.v.device.type == "cpu":
+        rebuild_groups_(state.c, state.v, state.touched)
+        return
+    # imported here: the kernels' modules import this one
+    from repro_torch.kernels.bsls_draw.ops import rebuild_touched
+    rebuild_touched(state.c, state.v, state.touched)
 
 
 def tl_update(state: TwoLevelSamplerState, idx: torch.Tensor,

@@ -4,12 +4,15 @@ Port of ``repro.core.solvers.jax_sparse`` (fixed-T path):
 
   * setup           — ``kernels/spmv`` ``ell_rmatvec`` builds ȳ and α₀ (one
                       sweep each; one for label-coupled objectives);
-  * line 15 select  — ``kernels/bsls_draw`` ``two_level_draw`` (private), or
-                      the lazy group argmax (``core/samplers/group_argmax``);
+  * line 15 select  — ``kernels/bsls_draw`` ``two_level_draw`` (private:
+                      one launch rebuilds the group log-sum-exps the last
+                      step touched, then draws), or the lazy group argmax
+                      (``core/samplers/group_argmax``);
   * lines 16-29     — ``kernels/coord_update`` ``coord_update``: scalars,
                       the fused coordinate update and the queue refresh in
-                      one launch; the private queue then rebuilds its group
-                      log-sum-exps (``tl_rebuild_``).
+                      one launch.  After a chunk's last step the private
+                      queue rebuilds once more (``tl_rebuild_``), so the
+                      carry leaves with ``c`` current and no group touched.
 
 The JAX ``lax.scan`` becomes a Python loop that launches kernels.  The state
 lives in a mutable ``FWCarry`` and is updated in place (the JAX carry is
@@ -122,7 +125,7 @@ def fw_carry_init(d: int, dtype, vbar0, qbar0, alpha0, em_scale, key,
 
 def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
                   lam, em_scale, gap_tol, t0: int, y=None, *, steps: int, loss: str,
-                  private: bool, early_stop: bool = False
+                  private: bool, early_stop: bool = False, route: str = "auto"
                   ) -> Tuple[FWCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Advance ``carry`` (in place) by ``steps`` iterations after global step
     ``t0``; returns (carry, (gaps, coords)) for this chunk.
@@ -131,7 +134,9 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
     ``early_stop`` the chunk is masked: the step that observes
     ``g_t <= gap_tol`` is still applied, after it the carry (PRNG key
     included) stays as it was and the outputs are (0.0, -1).  The key is
-    settled after the chunk, which reads ``done`` back once.
+    settled after the chunk, which reads ``done`` back once.  ``route``
+    forces ``coord_update``'s route on the card (its results do not depend
+    on it).
     """
     n, _ = pcsr.shape
     obj = get_loss(loss)
@@ -147,9 +152,9 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
         if early_stop else {}
     for i in range(steps):
         # ---- line 15: select coordinate --------------------------------------
-        if private:
+        if private:   # the previous step's touched groups are rebuilt first
             two_level_draw(carry.sampler.c, carry.sampler.v, sel_keys[i], out=j,
-                           done=mask.get("done"))
+                           done=mask.get("done"), touched=carry.sampler.touched)
         else:
             if early_stop and bool(carry.done):   # frozen: the queue stays as it is
                 coords[i:] = -1
@@ -160,9 +165,9 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
         coord_update(j, pcsr, pcsc, y, carry.w, carry.w_m, carry.g_tilde, carry.vbar,
                      carry.qbar, carry.alpha, carry.sampler, t=float(t0 + i + 1), lam=lam,
                      inv_n=1.0 / n, em_scale=em_scale, loss=loss, gaps=gaps,
-                     coords=coords, slot=i, scratch=scratch, **mask)
-        if private:
-            tl_rebuild_(carry.sampler)   # no group touched after done: c unchanged
+                     coords=coords, slot=i, scratch=scratch, route=route, **mask)
+    if private:
+        tl_rebuild_(carry.sampler)   # the last step's groups (none after done)
     if early_stop and bool(carry.done):
         ran = min(max(int(carry.stop_at) - t0, 0), steps)
         key_next = prng.key_chain(carry.key, ran)[0]

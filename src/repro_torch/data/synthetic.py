@@ -3,7 +3,9 @@
 ``make_sparse_classification`` draws sparse design matrices statistically
 matched to the paper's Table-2 datasets (N, D, nnz/row, an informative
 subset, and optionally a URL-style dense informative block).  Labels come
-from a planted sparse logistic model.  ``lm_batches`` streams token batches
+from a planted sparse logistic model.  ``with_repeated_entries`` lists some
+of a matrix's entries a second time (a row that holds a column twice, as a
+LIBSVM line may).  ``lm_batches`` streams token batches
 from a sparse random bigram chain (``make_markov_chain``) for the LM.  The
 same seed gives the same matrix, labels and tokens as the JAX package's
 generators.
@@ -87,6 +89,24 @@ def make_sparse_classification(
     flip = rng.random(n) < label_noise
     y[flip] = 1.0 - y[flip]
     return X, y, true_w
+
+
+def with_repeated_entries(X: HostCSR, rows, cols, seed: int) -> HostCSR:
+    """A copy of ``X`` in which each entry (rows[k], cols[k]) — one X holds —
+    is listed once more, at a random lane of its row, with a new value in
+    ±[0.5, 1.5) (X's own entries keep their order)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    for i, c in zip(rows, cols):
+        if c not in X.row(int(i))[0]:
+            raise ValueError(f"row {i} holds no entry in column {c}")
+    lens = np.diff(X.indptr)
+    at = X.indptr[rows] + rng.integers(0, lens[rows] + 1)
+    vals = rng.uniform(0.5, 1.5, rows.size) * rng.choice([-1.0, 1.0], rows.size)
+    added = np.bincount(rows, minlength=X.shape[0])
+    indptr = X.indptr + np.concatenate([[0], np.cumsum(added)])
+    return HostCSR(indptr, np.insert(X.indices, at, cols), np.insert(X.data, at, vals),
+                   X.shape)
 
 
 def make_markov_chain(vocab: int, seed: int, branching: int = 8):

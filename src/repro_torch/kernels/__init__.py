@@ -5,7 +5,9 @@
 their kernel for CUDA tensors and run the plain version for CPU tensors.
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``; ``flash_attention``, which has a kernel per dtype,
-also counts each route in ``flash_attention.routes``.
+also counts each route in ``flash_attention.routes``, and the draw kernel's
+rebuild-only launches (``bsls_draw.rebuild_touched``) count in
+``two_level_draw.rebuilds``.
 """
 from __future__ import annotations
 
@@ -29,3 +31,4 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     flash_attention.routes = dict.fromkeys(flash_attention.routes, 0)
+    two_level_draw.rebuilds = 0

@@ -44,12 +44,13 @@ LIB_NAME = "libreproport.so"
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _COLS = [_P, _P, _P, _P, _P, _P, _I, _I]
 SIGNATURES = {
-    "port_ell_matvec": [_P, _P, _P, _I, _P, _P, _I, _P],
+    "port_ell_matvec": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "port_ell_rmatvec": _COLS + [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
-    "port_two_level_draw": [_P, _P, _I, _I, _U, _U, _P, _P, _P],
+    "port_two_level_draw": [_P, _P, _I, _I, _P, _U, _U, _P, _P, _P, _I, _P],
+    "port_launch_floor": [_P],
     "port_coord_update": ([_I, _P] + _COLS + [_P, _P, _P, _I] + [_P] * 10
                           + [_I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _F] + [_P] * 6
-                          + [_I, _I, _P, _I, _I, _P, _P, _I, _P]),
+                          + [_I, _I, _P, _I, _I] + [_P] * 5 + [_I, _P]),
     "port_coord_update_short_route_max": [],
     "port_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "port_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 8 + [_P],

@@ -31,9 +31,25 @@
 // lanes (ref.py).  Two runs, and the card and the CPU fed the same γ, give
 // the same α bit for bit, so the selection cannot flip between them.  Rows
 // that do not hold c are skipped, never added as +0 (that would turn an α
-// of -0.0 into +0.0).  The rule needs each column's rows ascending, for
+// of -0.0 into +0.0).  The rule needs each column's rows not to fall, for
 // column j and for every column c; ops.owner_table checks that once per
 // matrix.
+//
+// Repeated entries (a row that lists one column twice; HostCSR keeps both,
+// and tocsc's stable sort keeps them in the row's lane order) follow the
+// JAX package's scatter-adds:
+//   * column j lists row i on lanes k..k+m-1: v̄[i] takes the m lanes'
+//     terms in lane order, every lane the same γ from it, q̄[i] adds that γ
+//     m times, and α adds row i's entries once per lane.  The first lane's
+//     warp does the whole run; the other lanes return.  When column j lists
+//     any row twice (ops.owner_table's col_repeats, read on the device),
+//     the owners walk their rows with each member row's run of entries
+//     repeated once per lane of j (repeat_walk), or j's lanes (lane terms,
+//     one per lane of the run);
+//   * column c lists row i twice: its owner chains both entries, in order,
+//     as members of one row; such a column gets no lane-term slot (a lane
+//     of j holds one term); the short route adds a row that lists a column
+//     twice (row_repeats) with one thread, in lane order.
 //
 // Two routes, picked on the device from nnz[j] (no host sync: on the
 // private path the draw kernel writes j and the host never sees it):
@@ -133,12 +149,13 @@ struct Plan {
   int j;
   int n;           // nnz[j]
   int stop;        // this step crosses gap_tol: set done / stop_at after it
-  float wm, gt, wj, pad;
+  float wm, gt, wj;
+  int repeated;    // column j lists a row twice
 };
 
 struct Args {
   const int* j;        // (1,) selected coordinate
-  port::Cols cols;     // padded CSC (flat or tiered), rows ascending per column
+  port::Cols cols;     // padded CSC (flat or tiered), rows not falling in a column
   const int* ridx;     // (N, kr) padded CSR
   const float* rval;
   const int* rnnz;
@@ -166,8 +183,8 @@ struct Args {
   int* stop_at;        // (1,) steps applied when done was set
   float gap_tol;
   // scratch (ops.CoordScratch)
-  float* gs;           // (N,) γᵢ/N of lane k of column j
-  float* parts;        // (N,) γᵢ/N·⟨X[i,:], w⟩ of lane k
+  float* gs;           // (lane_stride,) γᵢ/N of lane k of column j
+  float* parts;        // (lane_stride,) γᵢ/N·⟨X[i,:], w⟩ of lane k
   int2* rowinfo;       // (N,) by row: (γᵢ/N bits, epoch) — the long route's members
   int* colstamp;       // (D,) epoch of the last step that touched the (light) column
   Plan* plan;
@@ -180,8 +197,11 @@ struct Args {
   int light_blocks;
   const int2* col_info;  // (D,) (kind, nnz): kind = lane-term slot >= 0 or HEAVY of a
                          // column of more than warp_owner_max rows, LIGHT of another
-  int2* lane_terms;      // (S, N): (γᵢ/N·x_ic bits, epoch) by lane k of column j
-  int n_rows;            // N
+  int2* lane_terms;      // (S, lane_stride): (γᵢ/N·x_ic bits, epoch) by lane k of column j
+  const int* col_repeats;  // (D,) 1: the column lists a row twice (null: no repeats)
+  const int* row_repeats;  // (N,) 1: the row lists a column twice (null: no repeats)
+  int* rowmult;          // (N,) lanes of column j that list the row (steps whose j repeats)
+  int lane_stride;       // lanes of the longest column (N, or more when one lists a row twice)
 };
 
 struct Scalars {
@@ -190,9 +210,11 @@ struct Scalars {
   int j, n;
   float edt, wm, gt, wj, gap;
   bool stop;
+  bool repeated;  // column j lists a row twice
 };
 
 // Lines 16-21 (every block of the rows kernel computes the same bits).
+template <bool REPEATS>
 __device__ __forceinline__ Scalars step_scalars(const Args& a) {
   Scalars s;
   s.j = min(a.j[0], a.d - 1);
@@ -209,6 +231,7 @@ __device__ __forceinline__ Scalars step_scalars(const Args& a) {
   s.wj = __fadd_rn(a.w[s.j], __fdiv_rn(s.edt, s.wm));
   s.gt = __fadd_rn(__fmul_rn(gt, ome), __fmul_rn(s.edt, aj));
   s.n = a.cols.col(s.j, s.rows, s.xv);
+  s.repeated = REPEATS && a.col_repeats[s.j] != 0;
   return s;
 }
 
@@ -217,15 +240,22 @@ __device__ __forceinline__ Scalars step_scalars(const Args& a) {
 // written at the end of the step).  Lane l sums the row's entries l, l+32, …
 // in order, then an xor butterfly (every lane ends with the same bits).  A
 // row's loads are issued ROW_UNROLL chunks of 32 at a time, so a row costs
-// about two dependent round trips to memory, not one per chunk.
+// about two dependent round trips to memory, not one per chunk.  A row that
+// column j lists on lanes k..k+m-1 is done whole by lane k's warp.
 constexpr int ROW_UNROLL = 4;
 
-template <int LOSS>
+template <int LOSS, bool REPEATS>
 __device__ __forceinline__ void row_step(const Args& a, const Scalars& s, int k, int lane,
                                          bool stamp) {
   const int i = s.rows[k];
+  int m = 1;  // lanes of column j that list row i
+  if (REPEATS && s.repeated) {
+    if (k > 0 && s.rows[k - 1] == i) return;  // the run's first lane does it
+    while (k + m < s.n && s.rows[k + m] == i) ++m;
+  }
   // every lane computes γᵢ/N (the same bits; its loads overlap the row's)
-  const float vb = __fadd_rn(a.vbar[i], __fdiv_rn(__fmul_rn(s.edt, s.xv[k]), s.wm));
+  float vb = __fadd_rn(a.vbar[i], __fdiv_rn(__fmul_rn(s.edt, s.xv[k]), s.wm));
+  for (int r = 1; r < m; ++r) vb = __fadd_rn(vb, __fdiv_rn(__fmul_rn(s.edt, s.xv[k + r]), s.wm));
   const float hm = row_map<LOSS>(__fmul_rn(s.wm, vb), LOSS >= LAD ? a.y[i] : 0.0f);
   const float q = a.qbar[i];
   const float gamma = __fsub_rn(hm, q);
@@ -254,22 +284,33 @@ __device__ __forceinline__ void row_step(const Args& a, const Scalars& s, int k,
 #pragma unroll
     for (int u = 0; u < ROW_UNROLL; ++u) {
       if (c[u] >= 0) dot = __fadd_rn(dot, __fmul_rn(x[u], wc[u]));
-      // a light column is stamped (idempotent); a heavy one is not (every
-      // row would store to it), its owner finds its members itself
+      // a light column is stamped (idempotent: every row and lane that holds
+      // it stores the same epoch); a heavy one is not (every row would store
+      // to it), its owner finds its members itself
       if (ci[u].x == LIGHT && st[u] != a.epoch) a.colstamp[c[u]] = a.epoch;
-      if (ci[u].x >= 0 && s.n < ci[u].y)  // its owner walks j's lanes
-        a.lane_terms[static_cast<long long>(ci[u].x) * a.n_rows + k] =
-            make_int2(__float_as_int(__fmul_rn(g, x[u])), a.epoch);
+      if (ci[u].x >= 0 && s.n < ci[u].y)  // its owner walks j's lanes: a term per lane
+        for (int r = 0; r < m; ++r)
+          a.lane_terms[static_cast<long long>(ci[u].x) * a.lane_stride + k + r] =
+              make_int2(__float_as_int(__fmul_rn(g, x[u])), a.epoch);
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) dot = __fadd_rn(dot, __shfl_xor_sync(FULL, dot, off));
   if (lane == 0) {
     a.vbar[i] = vb;
-    a.qbar[i] = __fadd_rn(q, gamma);
+    float qn = __fadd_rn(q, gamma);
     a.gs[k] = g;
     a.parts[k] = __fmul_rn(g, dot);
-    if (stamp) a.rowinfo[i] = make_int2(__float_as_int(g), a.epoch);
+    for (int r = 1; r < m; ++r) {
+      qn = __fadd_rn(qn, gamma);
+      a.gs[k + r] = g;
+      a.parts[k + r] = __fmul_rn(g, dot);
+    }
+    a.qbar[i] = qn;
+    if (stamp) {
+      a.rowinfo[i] = make_int2(__float_as_int(g), a.epoch);
+      if (REPEATS && s.repeated) a.rowmult[i] = m;
+    }
   }
 }
 
@@ -356,19 +397,22 @@ __device__ __forceinline__ float chain32(float acc, const float* terms, unsigned
   return acc;
 }
 
-// Column and term of entry r of lane k's row (-1 past the row's end).
+// Column and term of entry r of lane k's row (-1 past the row's end), and
+// whether the row lists a column twice.
+template <bool REPEATS>
 __device__ __forceinline__ void fetch_entry(const Args& a, const Scalars& s, int k, int r,
-                                            int& c, float& term) {
+                                            int& c, float& term, bool& rep) {
   const int i = s.rows[k];
   const long long at = static_cast<long long>(i) * a.kr + r;
   const bool live = r < a.rnnz[i];
   c = live ? a.ridx[at] : -1;
   term = live ? __fmul_rn(a.gs[k], a.rval[at]) : 0.0f;
+  rep = REPEATS && a.row_repeats[i] != 0;
 }
 
 // ---- the rows kernel: lines 16-25 and the row dots; the short route whole --
 
-template <int LOSS>
+template <int LOSS, bool REPEATS>
 __global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args a) {
   __shared__ Scalars s_sc;
   __shared__ int s_state;  // 0 frozen, 1 short route, 2 long route
@@ -382,7 +426,7 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args a) {
         a.plan->long_route = 0;
       }
     } else {
-      const Scalars sc = step_scalars(a);
+      const Scalars sc = step_scalars<REPEATS>(a);
       const bool short_route = a.route == ROUTE_SHORT ||
                                (a.route == ROUTE_AUTO && sc.n <= SHORT_ROUTE_MAX_ROWS);
       s_sc = sc;
@@ -392,7 +436,7 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args a) {
         a.coords[a.slot] = sc.j;
         a.routes[short_route ? 0 : 1] += 1;
         *a.plan = Plan{short_route ? 0 : 1, sc.j, sc.n, sc.stop ? 1 : 0,
-                       sc.wm, sc.gt, sc.wj, 0.0f};
+                       sc.wm, sc.gt, sc.wj, sc.repeated ? 1 : 0};
       }
     }
   }
@@ -403,28 +447,39 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args a) {
   constexpr int WARPS = ROW_THREADS / 32;
   if (state == 2) {  // long route: a warp per row over the whole grid
     for (int k = blockIdx.x * WARPS + warp; k < sc.n; k += gridDim.x * WARPS)
-      row_step<LOSS>(a, sc, k, lane, true);
+      row_step<LOSS, REPEATS>(a, sc, k, lane, true);
     return;
   }
   if (blockIdx.x != 0) return;
   // ---- short route, in this block ------------------------------------------
-  for (int k = warp; k < sc.n; k += WARPS) row_step<LOSS>(a, sc, k, lane, false);
+  for (int k = warp; k < sc.n; k += WARPS) row_step<LOSS, REPEATS>(a, sc, k, lane, false);
   __syncthreads();
   // line 26: one row at a time, in lane order; thread r adds entry r of the
-  // row, whose column and term it fetched while the previous row was added
+  // row, whose column and term it fetched while the previous row was added.
+  // A row that lists a column twice is added by thread 0 alone, in order.
   int next_c = -1;
   float next_t = 0.0f;
-  if (sc.n > 0) fetch_entry(a, sc, 0, tid, next_c, next_t);
+  bool next_rep = false;
+  if (sc.n > 0) fetch_entry<REPEATS>(a, sc, 0, tid, next_c, next_t, next_rep);
   for (int k = 0; k < sc.n; ++k) {
     const int c = next_c;
     const float term = next_t;
-    if (k + 1 < sc.n) fetch_entry(a, sc, k + 1, tid, next_c, next_t);
-    if (c >= 0) a.alpha[c] = __fadd_rn(a.alpha[c], term);
-    if (a.kr > ROW_THREADS) {  // rows longer than the block
+    const bool rep = next_rep;
+    if (k + 1 < sc.n) fetch_entry<REPEATS>(a, sc, k + 1, tid, next_c, next_t, next_rep);
+    if (!rep) {
+      if (c >= 0) a.alpha[c] = __fadd_rn(a.alpha[c], term);
+      if (a.kr > ROW_THREADS) {  // rows longer than the block
+        const int i = sc.rows[k];
+        const int* ri = a.ridx + static_cast<long long>(i) * a.kr;
+        const float* rv = a.rval + static_cast<long long>(i) * a.kr;
+        for (int r = tid + ROW_THREADS, rn = a.rnnz[i]; r < rn; r += ROW_THREADS)
+          a.alpha[ri[r]] = __fadd_rn(a.alpha[ri[r]], __fmul_rn(a.gs[k], rv[r]));
+      }
+    } else if (REPEATS && tid == 0) {
       const int i = sc.rows[k];
       const int* ri = a.ridx + static_cast<long long>(i) * a.kr;
       const float* rv = a.rval + static_cast<long long>(i) * a.kr;
-      for (int r = tid + ROW_THREADS, rn = a.rnnz[i]; r < rn; r += ROW_THREADS)
+      for (int r = 0, rn = a.rnnz[i]; r < rn; ++r)
         a.alpha[ri[r]] = __fadd_rn(a.alpha[ri[r]], __fmul_rn(a.gs[k], rv[r]));
     }
     __syncthreads();
@@ -491,7 +546,59 @@ __device__ __forceinline__ void stage_pass(const Args& a, const int* ri, const f
   }
 }
 
-__device__ __forceinline__ void block_owner(const Args& a, int c, int n) {
+// acc ← acc + g·rv[q] for q in [from, to), `times` times over: the repeats
+// of a member row's run of entries (repeat_walk).
+__device__ __forceinline__ float replay(float acc, const float* rv, int from, int to,
+                                        int times, float g) {
+  for (int t = 0; t < times; ++t)
+    for (int q = from; q < to; ++q) acc = __fadd_rn(acc, __fmul_rn(g, rv[q]));
+  return acc;
+}
+
+// α[c]'s chain in a step whose column j lists a row on several lanes, by one
+// warp: c's m entries in order (rows ascending, a row's entries in lane
+// order), each member row's run of entries added once per lane of j that
+// lists the row, run after run — the reference adds lane k's whole row
+// before lane k+1's.  Loads go out 32 entries at a time; every lane walks
+// the same chain from shuffles.  Sets touched if c has a member.
+__device__ float repeat_walk(const Args& a, const int* ri, const float* rv, int m,
+                             float acc, bool& touched) {
+  const int lane = threadIdx.x & 31;
+  int run_from = 0, run_row = -1, run_mult = 0;
+  float run_g = 0.0f;
+  touched = false;
+  for (int base = 0; base < m; base += 32) {
+    const int r = base + lane;
+    const int row = r < m ? ri[r] : -1;
+    const float x = r < m ? rv[r] : 0.0f;
+    const int2 info = row < 0 ? make_int2(0, a.epoch - 1) : a.rowinfo[row];
+    const bool mem = info.y == a.epoch;
+    const int mult = mem ? a.rowmult[row] : 0;
+    const float term = mem ? __fmul_rn(__int_as_float(info.x), x) : 0.0f;
+    const int count = min(32, m - base);
+    for (int l = 0; l < count; ++l) {
+      const int row_l = __shfl_sync(FULL, row, l);
+      const int mult_l = __shfl_sync(FULL, mult, l);
+      const float term_l = __shfl_sync(FULL, term, l);
+      const int g_l = __shfl_sync(FULL, info.x, l);
+      if (row_l != run_row) {  // a new run: the last one's repeats first
+        acc = replay(acc, rv, run_from, base + l, run_mult - 1, run_g);
+        run_from = base + l;
+        run_row = row_l;
+        run_mult = mult_l;
+        run_g = __int_as_float(g_l);
+      }
+      if (mult_l > 0) {
+        acc = __fadd_rn(acc, term_l);
+        touched = true;
+      }
+    }
+  }
+  return replay(acc, rv, run_from, m, run_mult - 1, run_g);
+}
+
+template <bool REPEATS>
+__device__ __forceinline__ void block_owner(const Args& a, int c, int n, bool repeated) {
   __shared__ __align__(16) float s_prod[2][PASS];
   __shared__ unsigned s_mask[2][PASS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -501,7 +608,18 @@ __device__ __forceinline__ void block_owner(const Args& a, int c, int n) {
   // one of the longest columns against a shorter column j: walk j's n lanes
   const int slot = a.col_info[c].x;
   const bool by_lane = slot >= 0 && n < m;
-  const int2* lanes = a.lane_terms + static_cast<long long>(max(slot, 0)) * a.n_rows;
+  if (REPEATS && repeated && !by_lane) {  // column j lists a row twice: warp 0 walks c's rows
+    if (warp == 0) {
+      bool touched;
+      const float acc = repeat_walk(a, ri, rv, m, a.alpha[c], touched);
+      if (lane == 0 && touched) {
+        a.alpha[c] = acc;
+        refresh(a, c, acc);
+      }
+    }
+    return;
+  }
+  const int2* lanes = a.lane_terms + static_cast<long long>(max(slot, 0)) * a.lane_stride;
   if (by_lane) m = n;
   const int passes = (m + PASS - 1) / PASS;
   if (warp != 0) stage_pass(a, ri, rv, lanes, by_lane, m, 0, s_prod[0], s_mask[0]);
@@ -579,6 +697,7 @@ __device__ __forceinline__ void warp_owner(const Args& a, int c, int lane, float
 
 // Block 0: Δg̃ and the step's last writes; blocks 1..H: one heavy column
 // each (longest first); then warps over the other columns.
+template <bool REPEATS>
 __global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args a) {
   const Plan plan = *a.plan;
   if (!plan.long_route) return;
@@ -589,7 +708,7 @@ __global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args a) {
     return;
   }
   if (b <= a.n_heavy) {
-    block_owner(a, a.heavy[b - 1], plan.n);
+    block_owner<REPEATS>(a, a.heavy[b - 1], plan.n, plan.repeated != 0);
     return;
   }
   __shared__ __align__(16) float s_terms[OWNER_WARPS][32];
@@ -598,18 +717,38 @@ __global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args a) {
   for (int c = gw; c < a.d; c += a.light_blocks * OWNER_WARPS) {
     const int m = a.cols.nnz[c];
     if (m == 0 || m > a.warp_owner_max || a.colstamp[c] != a.epoch) continue;
-    warp_owner(a, c, lane, s_terms[warp]);
+    if (REPEATS && plan.repeated) {
+      const int* ri;
+      const float* rv;
+      a.cols.col(c, ri, rv);
+      bool touched;
+      const float acc = repeat_walk(a, ri, rv, m, a.alpha[c], touched);
+      if (lane == 0 && touched) {
+        a.alpha[c] = acc;
+        refresh(a, c, acc);
+      }
+    } else {
+      warp_owner(a, c, lane, s_terms[warp]);
+    }
   }
+}
+
+// REPEATS: the matrix holds a repeated entry (col_repeats/row_repeats not
+// null); a matrix without one runs kernels compiled without those paths.
+template <int LOSS, bool REPEATS>
+int launch_as(const Args& a, int max_col_nnz, cudaStream_t stream) {
+  const int row_blocks = max(1, min((max_col_nnz + 31) / 32, ROW_BLOCKS_MAX));
+  rows_kernel<LOSS, REPEATS><<<row_blocks, ROW_THREADS, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  owners_kernel<REPEATS><<<1 + a.n_heavy + a.light_blocks, OWNER_THREADS, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int LOSS>
 int launch(const Args& a, int max_col_nnz, cudaStream_t stream) {
-  const int row_blocks = max(1, min((max_col_nnz + 31) / 32, ROW_BLOCKS_MAX));
-  rows_kernel<LOSS><<<row_blocks, ROW_THREADS, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  owners_kernel<<<1 + a.n_heavy + a.light_blocks, OWNER_THREADS, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return a.col_repeats != nullptr ? launch_as<LOSS, true>(a, max_col_nnz, stream)
+                                  : launch_as<LOSS, false>(a, max_col_nnz, stream);
 }
 
 }  // namespace
@@ -625,7 +764,8 @@ extern "C" int port_coord_update(
     float inv_n, int d, float* gaps, int* coords, int slot, bool* done, int* stop_at,
     float gap_tol, float* gs, float* parts, int* rowinfo, int* colstamp, int* plan,
     int* routes, int epoch, int route, const int* heavy, int n_heavy, int warp_owner_max,
-    const int* col_info, int* lane_terms, int n_rows, cudaStream_t stream) {
+    const int* col_info, int* lane_terms, const int* col_repeats, const int* row_repeats,
+    int* rowmult, int lane_stride, cudaStream_t stream) {
   if (route < ROUTE_AUTO || route > ROUTE_LONG) return static_cast<int>(cudaErrorInvalidValue);
   const int light_blocks = max(1, min((d + 4 * OWNER_WARPS - 1) / (4 * OWNER_WARPS), 4096));
   const Args a{j, port::Cols{cidx, cval, cnnz, heavy_slot, hidx, hval, width, full},
@@ -634,8 +774,8 @@ extern "C" int port_coord_update(
                stop_at, gap_tol, gs, parts, reinterpret_cast<int2*>(rowinfo), colstamp,
                reinterpret_cast<Plan*>(plan), routes, epoch, route, heavy, n_heavy,
                warp_owner_max, light_blocks, reinterpret_cast<const int2*>(col_info),
-               reinterpret_cast<int2*>(lane_terms),
-               n_rows};
+               reinterpret_cast<int2*>(lane_terms), col_repeats, row_repeats, rowmult,
+               lane_stride};
   switch (loss) {
     case LOGISTIC: return launch<LOGISTIC>(a, full, stream);
     case SQUARED: return launch<SQUARED>(a, full, stream);

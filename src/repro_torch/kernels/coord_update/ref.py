@@ -10,6 +10,7 @@ does (``ops.coord_update``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.losses import get_loss
@@ -44,14 +45,16 @@ def coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue
     w[jj] = w[jj] + edt / wm
     gt = g_tilde * (1.0 - eta) + edt * a_j
     # ---- lines 22-28 over the live lanes of column j ------------------------
+    # a row that column j lists twice (a repeated entry) takes both lanes'
+    # v̄ terms, then each lane its γ, in lane order (the JAX package's
+    # scatter-adds; index_add_ adds in index order on the CPU)
     rows, xv = pcsc.col_live(jj)
     rows = rows.long()
-    vb = vbar[rows] + edt * xv / wm
-    vbar[rows] = vb
+    vbar.index_add_(0, rows, edt * xv / wm)
+    vb = vbar[rows]
     hm = obj.h(wm * vb, None if obj.separable else y[rows])
-    q = qbar[rows]
-    gamma = hm - q
-    qbar[rows] = q + gamma
+    gamma = hm - qbar[rows]
+    qbar.index_add_(0, rows, gamma)
     gs = gamma * inv_n
     ridx = pcsr.indices[rows].long()                    # (n, Kr)
     rval = pcsr.values[rows]                            # (n, Kr), 0 at padding
@@ -101,22 +104,39 @@ def scatter_alpha_rows(alpha: torch.Tensor, rows: torch.Tensor, gs: torch.Tensor
     return alpha.clone().index_add_(0, cols, terms)
 
 
+def _repeat_runs(r: torch.Tensor, v: torch.Tensor, mult: torch.Tensor):
+    """Column c's walk when column j lists a row on several lanes: each run
+    of c's entries of one row, repeated once per lane of j that lists the
+    row (non-members drop out)."""
+    r_np = r.cpu().numpy()
+    starts = np.flatnonzero(np.r_[True, r_np[1:] != r_np[:-1]]) if r_np.size else []
+    ends = np.r_[starts[1:], r_np.size] if r_np.size else []
+    take = [np.tile(np.arange(a, b), int(mult[r_np[a]])) for a, b in zip(starts, ends)]
+    take = torch.from_numpy(np.concatenate(take or [np.zeros(0, np.int64)])).to(r.device)
+    return r[take], v[take]
+
+
 def scatter_alpha_owners(alpha: torch.Tensor, rows: torch.Tensor, gs: torch.Tensor,
                          pcsr, pcsc) -> torch.Tensor:
     """α after line 26 in the column-owner order: each touched column c walks
-    its CSC rows in ascending order, skips the rows that are not column j's
-    (never adding them as +0, which would turn -0.0 into +0.0), and chains the
-    members' products onto α_old[c]."""
+    its CSC rows in ascending order (a row's repeated entries in lane order),
+    skips the rows that are not column j's (never adding them as +0, which
+    would turn -0.0 into +0.0), and chains the members' products onto
+    α_old[c].  A row that column j lists on m lanes adds its run of c's
+    entries m times over (the kernel's ``repeat_walk``)."""
     n = pcsr.shape[0]
     out = alpha.clone()
     g_row = torch.zeros(n, dtype=gs.dtype, device=gs.device)
     member = torch.zeros(n, dtype=torch.bool, device=gs.device)
-    g_row[rows.long()] = gs
+    g_row[rows.long()] = gs     # the lanes of one row carry one γ
     member[rows.long()] = True
+    mult = torch.bincount(rows.long(), minlength=n)
     touched = torch.unique(lane_terms(rows, gs, pcsr)[0])
     if touched.numel() == 0:
         return out
     walks = [pcsc.col_live(int(c)) for c in touched]
+    if int(mult.max()) > 1:
+        walks = [_repeat_runs(r.long(), v, mult) for r, v in walks]
     width = max(int(r.numel()) for r, _ in walks)
     crow = torch.zeros((len(walks), width), dtype=torch.long, device=gs.device)
     cval = torch.zeros((len(walks), width), dtype=gs.dtype, device=gs.device)

@@ -2,8 +2,8 @@
 
 ``ell_matvec`` gives the margins of every Alg 1 step; ``ell_rmatvec`` the
 Frank-Wolfe setup sweep and every Alg 1 step's gradient.  On a CUDA tensor
-each launches its kernel: ``csrc/ell_matvec.cu`` (a warp per ``PaddedCSR``
-row) and ``csrc/ell_rmatvec.cu`` (a warp per segment of ``SEGMENT`` entries
+each launches its kernel: ``csrc/ell_matvec.cu`` (a group of lanes per
+``PaddedCSR`` row, several rows a warp) and ``csrc/ell_rmatvec.cu`` (a warp per segment of ``SEGMENT`` entries
 of a ``PaddedCSC`` column); on a CPU tensor each runs its plain version over
 the ``PaddedCSR``.  There is no fallback from one to the other.
 """
@@ -16,9 +16,16 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments
 
 
-def ell_matvec(X: PaddedCSR, w: torch.Tensor) -> torch.Tensor:
-    """X·w, (N,) float32."""
+def ell_matvec(X: PaddedCSR, w: torch.Tensor, *, lanes: int = 0,
+               blocks: int = 0) -> torch.Tensor:
+    """X·w, (N,) float32.  ``lanes`` (4, 8, 16 or 32 lanes a row) and ``blocks``
+    (a grid that strides over the rows) pick another of the kernel's shapes
+    than its default (0: the source's choice); the sums do not depend on
+    ``blocks``."""
     n, d = X.shape
+    if lanes not in (0, 4, 8, 16, 32) or blocks < 0:
+        raise ValueError(f"ell_matvec: lanes must be 0, 4, 8, 16 or 32 and blocks >= 0, "
+                         f"got {lanes}, {blocks}")
     if w.device.type == "cpu":
         return ell_matvec_ref(X.indices, X.values, w)
     if w.dtype != torch.float32 or w.shape != (d,):
@@ -30,7 +37,7 @@ def ell_matvec(X: PaddedCSR, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=w.device)
     code = _lib.library().port_ell_matvec(
         _lib.ptr(X.indices), _lib.ptr(X.values), _lib.ptr(X.nnz), X.indices.shape[1],
-        _lib.ptr(w), _lib.ptr(out), n, _lib.stream())
+        _lib.ptr(w), _lib.ptr(out), n, lanes, blocks, _lib.stream())
     _lib.check(code, "ell_matvec")
     ell_matvec.launches += 1
     return out

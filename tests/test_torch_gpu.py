@@ -29,12 +29,14 @@ import torch
 
 from repro_torch import FWConfig, prng, solve
 from repro_torch.core.samplers.group_argmax import ga_init
-from repro_torch.core.samplers.two_level import tl_init, tl_rebuild_
+from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init, tl_rebuild_,
+                                                 tl_scatter_)
 from repro_torch.core.solvers.torch_sparse import fw_setup
-from repro_torch.core.sparse.formats import host_to_padded, tiered_from_padded
-from repro_torch.data.synthetic import make_sparse_classification
+from repro_torch.core.sparse.formats import PaddedCSR, host_to_padded, tiered_from_padded
+from repro_torch.data.synthetic import make_sparse_classification, with_repeated_entries
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.bsls_draw import two_level_draw
+from repro_torch.kernels.bsls_draw.ops import arrival_counter
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
 from repro_torch.kernels.coord_update import coord_update
 from repro_torch.kernels.coord_update import ops as cu_ops
@@ -239,6 +241,7 @@ def test_card_solve_matches_cpu_solve(problem, loss, private):
     counts = launch_counts()
     assert counts["coord_update"] == 40
     assert counts["two_level_draw"] == (40 if private else 0)
+    assert two_level_draw.rebuilds == (1 if private else 0)   # after the chunk's last step
     assert counts["ell_rmatvec"] == (2 if loss in ("logistic", "squared") else 1)
     cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
     assert torch.equal(card.coords.cpu(), cpu.coords)
@@ -285,6 +288,208 @@ def test_masked_card_run_is_prefix_of_fixed_run(problem, backend, queue):
     assert torch.equal(stopped.coords[:stop], full.coords[:stop])
     assert torch.equal(stopped.gaps[:stop], full.gaps[:stop])
     assert bool((stopped.coords[stop:] == -1).all())
+
+
+@pytest.fixture(scope="module")
+def repeated_problem(cuda):
+    """``long_problem``'s matrix with repeated entries (a row that lists a
+    column twice): three on the longest column (2,828 rows), three on a p99
+    column (282 rows, over warp_owner_max), one on a light column, and 40
+    anywhere."""
+    X, y, _ = make_sparse_classification(n=3000, d=2500, nnz_per_row=16, informative=20,
+                                         seed=5)
+    csc = X.tocsc()
+    col_nnz = np.diff(csc.indptr)
+    rng = np.random.default_rng(8)
+    order = np.argsort(col_nnz, kind="stable")
+    cols = dict(head=int(order[-1]), p99=int(order[-25]),
+                light=int(np.flatnonzero((col_nnz >= 3) & (col_nnz <= 8))[0]))
+    rows, picked = [], []
+    for c, k in ((cols["head"], 3), (cols["p99"], 3), (cols["light"], 1)):
+        rows += list(rng.choice(csc.indices[csc.indptr[c]:csc.indptr[c + 1]], k, replace=False))
+        picked += [c] * k
+    for i in rng.choice(X.shape[0], 40, replace=False):
+        rows.append(int(i))
+        picked.append(int(rng.choice(X.row(int(i))[0])))
+    Xr = with_repeated_entries(X, rows, picked, seed=9)
+    return Xr, y, host_to_padded(Xr, device=cuda), cols
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiered"])
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_coord_update_bitwise_rule_with_repeated_entries(repeated_problem, loss, private,
+                                                         layout):
+    """The kernel's bitwise rule against the CPU where column j lists a row
+    twice (the head, a p99 and a light column) and where it does not but
+    its rows list columns twice; both routes and a rerun give the same bits."""
+    X, y, (pcsr, flat), cols = repeated_problem
+    n, d = X.shape
+    pcsc = flat if layout == "flat" else tiered_from_padded(flat, 8)
+    owners = cu_ops.owner_table(pcsc)
+    assert all(int(owners.col_repeats[c]) == 1 for c in cols.values())
+    assert int(flat.nnz[cols["p99"]]) > cu_ops.WARP_OWNER_MAX
+    y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+    vbar, qbar, alpha = fw_setup(pcsr, y_t, loss=loss, pcsc=flat)
+    gen = torch.Generator().manual_seed(3)
+    w = (torch.randn(d, generator=gen) * (torch.rand(d, generator=gen) < 0.2)).cuda()
+    alpha[::7] = -0.0
+    em = 30.0 if private else 1.0
+    base = dict(w=w, w_m=torch.tensor(0.8, device="cuda"),
+                g_tilde=torch.tensor(0.5, device="cuda"), vbar=vbar, qbar=qbar, alpha=alpha,
+                queue=tl_init(alpha.abs() * em) if private else ga_init(alpha.abs()))
+    before = {k: v.to("cpu") for k, v in base.items()}
+    step = dict(t=4.0, lam=8.0, inv_n=1.0 / n, em_scale=em, loss=loss)
+    cpu_csr, cpu_csc, y_cpu = pcsr.to("cpu"), pcsc.to("cpu"), y_t.cpu()
+    # the longest column without a repeated row whose rows list a column twice
+    rows_repeat = owners.row_repeats.bool()
+    cands = torch.nonzero(owners.col_repeats == 0).flatten()
+    cands = cands[torch.argsort(flat.nnz[cands], descending=True, stable=True)]
+    plain = next(int(c) for c in cands
+                 if bool(rows_repeat[flat.col_live(int(c))[0].long()].any()))
+    scratch = coord_update_scratch(n, d, "cuda")
+    for j in (*cols.values(), plain):
+        card = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, "auto")
+        k = int(flat.nnz[j])
+        after = {key: v.to("cpu") for key, v in card.items()}
+        bad = bitwise_rule_mismatches(j, cpu_csr, cpu_csc, y_cpu, before, after,
+                                      scratch.gs[:k].cpu(), **step)
+        assert bad == [], (j, k, bad)
+        for route in ("short", "long", "auto"):
+            again = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, route)
+            assert _same_bits(_bits(card), _bits(again)), (j, route)
+
+
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_card_solve_with_repeated_entries_matches_cpu_solve(repeated_problem, loss, private):
+    X, y, pair, _ = repeated_problem
+    cfg = FWConfig(backend="torch_sparse", lam=8.0, steps=40, loss=loss,
+                   queue="two_level" if private else None)
+    card = solve(pair, y, cfg)
+    cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
+    assert torch.equal(card.coords.cpu(), cpu.coords)
+    assert torch.equal(card.w.cpu(), cpu.w)
+    torch.testing.assert_close(card.gaps.cpu(), cpu.gaps, rtol=0, atol=1e-4)
+    if not private:   # the exact argmax picks dense columns, which list a row twice
+        repeats = cu_ops.owner_table(pair[1]).col_repeats
+        assert int(repeats[card.coords.long()].sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def longer_than_n_problem(cuda):
+    """The longest column (367 of 400 rows) listing 63 of its rows twice:
+    more lanes (430) than the matrix has rows."""
+    X, y, _ = make_sparse_classification(n=400, d=600, nnz_per_row=12, informative=10,
+                                         seed=6)
+    head = int(np.argmax(np.bincount(X.indices, minlength=X.shape[1])))
+    holders = [i for i in range(X.shape[0]) if head in X.row(i)[0]]
+    extra = X.shape[0] + 30 - len(holders)
+    rows = np.random.default_rng(1).choice(holders, extra, replace=False)
+    Xr = with_repeated_entries(X, rows, [head] * extra, seed=2)
+    return Xr, y, host_to_padded(Xr, device=cuda), head
+
+
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", ["logistic", "squared"])
+def test_coord_update_on_a_column_longer_than_n(longer_than_n_problem, loss, private):
+    X, y, (pcsr, pcsc), head = longer_than_n_problem
+    n, d = X.shape
+    owners = cu_ops.owner_table(pcsc)
+    assert int(pcsc.nnz[head]) == n + 30 == owners.lanes and owners.slots > 0
+    y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+    vbar, qbar, alpha = fw_setup(pcsr, y_t, loss=loss, pcsc=pcsc)
+    em = 30.0 if private else 1.0
+    base = dict(w=torch.zeros(d, device="cuda"), w_m=torch.tensor(0.8, device="cuda"),
+                g_tilde=torch.tensor(0.5, device="cuda"), vbar=vbar, qbar=qbar, alpha=alpha,
+                queue=tl_init(alpha.abs() * em) if private else ga_init(alpha.abs()))
+    before = {k: v.to("cpu") for k, v in base.items()}
+    step = dict(t=4.0, lam=8.0, inv_n=1.0 / n, em_scale=em, loss=loss)
+    scratch = coord_update_scratch(n, d, "cuda")
+    light = int(torch.nonzero((pcsc.nnz > 2) & (pcsc.nnz < 10)).flatten()[0])
+    for j in (head, light):
+        card = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, "auto")
+        after = {key: v.to("cpu") for key, v in card.items()}
+        k = int(pcsc.nnz[j])
+        bad = bitwise_rule_mismatches(j, pcsr.to("cpu"), pcsc.to("cpu"), y_t.cpu(), before,
+                                      after, scratch.gs[:k].cpu(), **step)
+        assert bad == [], (j, bad)
+        for route in ("short", "long"):
+            again = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, route)
+            assert _same_bits(_bits(card), _bits(again)), (j, route)
+    assert scratch.gs.shape[0] >= n + 30
+    cfg = FWConfig(backend="torch_sparse", lam=8.0, steps=30, loss=loss,
+                   queue="two_level" if private else None)
+    card = solve((pcsr, pcsc), y, cfg)
+    cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
+    assert torch.equal(card.coords.cpu(), cpu.coords) and torch.equal(card.w.cpu(), cpu.w)
+    torch.testing.assert_close(card.gaps.cpu(), cpu.gaps, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("lanes", [0, 4, 8, 16, 32])
+def test_ell_matvec_at_every_row_length(cuda, lanes):
+    """Rows of 0, 1, L-1, L, L+1 and K live entries, for each L the kernel
+    has; every grid gives the same bits."""
+    k_pad, d = 111, 1000
+    lens = sorted({0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, k_pad})
+    gen = torch.Generator().manual_seed(lanes)
+    idx = torch.randint(0, d, (len(lens), k_pad), generator=gen, dtype=torch.int32)
+    val = torch.randn(len(lens), k_pad, generator=gen)
+    nnz = torch.tensor(lens, dtype=torch.int32)
+    live = torch.arange(k_pad)[None, :] < nnz[:, None]
+    idx, val = torch.where(live, idx, 0), torch.where(live, val, 0.0)
+    pcsr = PaddedCSR(idx.cuda(), val.cuda(), nnz.cuda(), (len(lens), d))
+    w = torch.randn(d, generator=gen).cuda()
+    got = ell_matvec(pcsr, w, lanes=lanes)
+    ref = ell_matvec_ref(pcsr.indices, pcsr.values, w)
+    scale = ell_matvec_ref(pcsr.indices, pcsr.values.abs(), w.abs())
+    assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-7).all())
+    assert float(got[0]) == 0.0
+    for blocks in (0, 1, 2):
+        assert torch.equal(got, ell_matvec(pcsr, w, lanes=lanes, blocks=blocks))
+    with pytest.raises(ValueError, match="lanes"):
+        ell_matvec(pcsr, w, lanes=2)
+
+
+def test_rebuilding_draw_matches_plain(problem):
+    """200 steps of (scatter, rebuilding draw): c within rtol/atol 1e-6 of the
+    plain rebuild, each draw equal to the plain draw on the kernel's c, no
+    group left touched, the arrival counter back at 0; a masked launch
+    rebuilds and writes -1; the rebuild-only launch equals the plain one."""
+    X, y, (pcsr, pcsc) = problem
+    alpha = fw_setup(pcsr, torch.from_numpy(y.astype(np.float32)).cuda(), loss="logistic",
+                     pcsc=pcsc)[2]
+    state = tl_init(alpha.abs() * 200.0)
+    plain = state.clone()
+    counter = arrival_counter("cuda")
+    _, keys = prng.key_chain(prng.PRNGKey(2), 200)
+    rng = np.random.default_rng(0)
+    for step, k in enumerate(keys):
+        idx = torch.from_numpy(rng.integers(0, X.shape[1], 30)).cuda()
+        vals = alpha.abs()[idx] * float(rng.uniform(50, 400))
+        for st in (state, plain):
+            tl_scatter_(st, idx, vals)
+        got = two_level_draw(state.c, state.v, k, touched=state.touched)
+        rebuild_groups_(plain.c, plain.v, plain.touched)
+        torch.testing.assert_close(state.c, plain.c, rtol=1e-6, atol=1e-6)
+        assert int(got) == int(two_level_draw_ref(state.c, state.v, k)), step
+        assert int(state.touched.sum()) == 0 and int(counter) == 0, step
+        plain.c.copy_(state.c)                     # the next step starts from the kernel's c
+    tl_scatter_(state, idx, vals * 2)
+    tl_scatter_(plain, idx, vals * 2)
+    rebuild_groups_(plain.c, plain.v, plain.touched)
+    out = two_level_draw(state.c, state.v, keys[0], touched=state.touched,
+                         done=torch.tensor(True, device="cuda"))
+    assert int(out) == -1 and int(state.touched.sum()) == 0 and int(counter) == 0
+    torch.testing.assert_close(state.c, plain.c, rtol=1e-6, atol=1e-6)
+    tl_scatter_(state, idx, vals * 3)
+    tl_scatter_(plain, idx, vals * 3)
+    before = two_level_draw.rebuilds
+    tl_rebuild_(state)                                # the rebuild-only launch
+    rebuild_groups_(plain.c, plain.v, plain.touched)
+    assert two_level_draw.rebuilds == before + 1
+    torch.testing.assert_close(state.c, plain.c, rtol=1e-6, atol=1e-6)
+    assert int(state.touched.sum()) == 0 and int(counter) == 0
 
 
 FLASH_CASES = [                          # b, s, h, kv, hd, causal, window
