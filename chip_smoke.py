@@ -24,6 +24,12 @@ must run only the rows, owners and draw kernels (``private_window``); the
 draw, which rebuilds the touched groups, is held against the plain rebuild
 and draw over 1,000 steps of real touched sets; ``ell_matvec`` is swept over
 its lane counts and grids, back to back and in the Alg 1 loop.
+Then it writes the matrix as LIBSVM text, ingests it into a dataset store
+(``repro_torch.data``), and solves from the store cold (padded and setup
+caches written) and warm (replayed): Alg 2 private and non-private and
+Alg 1 ``argmax`` on the dense form, each equal to its in-memory run bit for
+bit (``store``; it needs ~7.8 GB free under the temp directory and
+removes what it wrote).
 Then it drives the LM at the full published width of ``tinyllama-1.1b``
 (22 layers, d_model 2048, 32 heads, 4 KV heads, random weights from a seed):
 
@@ -44,9 +50,13 @@ It imports neither JAX nor the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,7 +65,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import FWConfig, prng, solve  # noqa: E402
+from repro_torch import FWConfig, obs, prng, solve  # noqa: E402
 from repro_torch.core.fw_dense import _carry0, _dense_chunk, _dense_step  # noqa: E402
 from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa: E402
 from repro_torch.core import fw_dense  # noqa: E402
@@ -65,6 +75,8 @@ from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init, 
                                                    fw_scan_chunk, fw_setup)
 from repro_torch.core.sparse.formats import (PaddedCSR, dense_to_host,  # noqa: E402
                                              host_to_padded, tiered_from_padded)
+from repro_torch.data.sparse_io import iter_libsvm, write_libsvm  # noqa: E402
+from repro_torch.data.store import DatasetStore  # noqa: E402
 from repro_torch.data.synthetic import (lm_batches, make_sparse_classification,  # noqa: E402
                                         with_repeated_entries)
 from repro_torch.kernels import _lib, launch_counts, reset_launch_counts  # noqa: E402
@@ -88,6 +100,7 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa
 N, D, NNZ_PER_ROW, INFORMATIVE, SEED = 20242, 47236, 74, 64, 0
 LAM, T_MAIN, T_PARITY, WARMUP = 50.0, 500, 200, 50
 T_DUP, DRAW_STEPS = 50, 1000    # the repeated-entries runs; the rebuilding draw's replay
+STORE_ROWS_PER_SHARD = (4096, 7000)   # the store phase's two shard sizes
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
 # H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores,
@@ -182,14 +195,15 @@ def phase_data():
     t0 = time.perf_counter()
     pcsr, pcsc = host_to_padded(X, device=DEVICE)
     torch.cuda.synchronize()
+    pad_s = time.perf_counter() - t0
     csc = X.tocsc()
     col_nnz = np.diff(csc.indptr)
     emit("data", n=N, d=D, nnz=X.nnz, max_row_nnz=int(np.diff(X.indptr).max()),
          max_col_nnz=int(col_nnz.max()), p99_col_nnz=int(np.percentile(col_nnz, 99)),
          cols_over_1024=int((col_nnz > 1024).sum()),
          padded_csc_bytes=pcsc.indices.numel() * 8, padded_csr_bytes=pcsr.indices.numel() * 8,
-         generate_s=t_gen, pad_on_card_s=time.perf_counter() - t0)
-    return X, csc, y, pcsr, pcsc, col_nnz
+         generate_s=t_gen, pad_on_card_s=pad_s)
+    return X, csc, y, pcsr, pcsc, col_nnz, pad_s
 
 
 def column_buckets(col_nnz: np.ndarray) -> dict:
@@ -657,8 +671,9 @@ def phase_alg1_step_times(pcsr, pcsc, y_t) -> tuple:
     return per_step, share
 
 
-def phase_parity(X, y, pcsr, pcsc, col_nnz) -> None:
-    """Card against CPU (plain versions) at full width, T = 200."""
+def phase_parity(X, y, pcsr, pcsc, col_nnz):
+    """Card against CPU (plain versions) at full width, T = 200; returns the
+    dense-matrix Alg 1 run (``phase_alg1_parity``)."""
     t0 = time.perf_counter()
     cpu_pair = host_to_padded(X, device="cpu")
     t_pad = time.perf_counter() - t0
@@ -687,15 +702,15 @@ def phase_parity(X, y, pcsr, pcsc, col_nnz) -> None:
                           tiered_coords_equal=True,
                           tiered_max_abs_w=float((tr.w - card.w).abs().max()))
         emit("card_vs_cpu", **fields)
-    phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair)
+    return phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair)
 
 
-def phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair) -> None:
+def phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair):
     """Alg 1 card against CPU at T = 200: argmax must take the CPU's
     coordinates; for the private rules, whose noise goes through torch's
     log/log1p (an ulp from the CPU's), a differing step is reported.  Then
     the dense (N, D) form on the card must take the padded form's argmax
-    coordinates."""
+    coordinates; that run is returned."""
     for sel in SELECTIONS:
         cfg = _alg1_config(sel, T_PARITY)
         card = solve((pcsr, pcsc), y, cfg)
@@ -727,7 +742,7 @@ def phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair) -> None:
          launches=launch_counts(), coords_equal_padded=True,
          max_abs_w_vs_padded=float((dense.w - padded.w).abs().max()),
          max_memory_allocated=torch.cuda.max_memory_allocated())
-    del dense
+    return dense
 
 
 def _alg2_scan(pair, y, private: bool, route: str) -> tuple:
@@ -746,7 +761,7 @@ def _alg2_scan(pair, y, private: bool, route: str) -> tuple:
     return (carry.w * carry.w_m).cpu(), gaps.cpu(), coords.cpu()
 
 
-def phase_duplicates(X, csc, y, y_t, buckets) -> None:
+def phase_duplicates(X, csc, y, y_t, buckets) -> tuple:
     """Repeated entries (a row that lists a column twice), at the rcv1.binary
     shape: the head, p99 and light columns each get repeated entries (3, 3
     and 1 of their rows' entries listed again in the HostCSR, not summed),
@@ -754,7 +769,8 @@ def phase_duplicates(X, csc, y, y_t, buckets) -> None:
     against the CPU on those columns (every loss, both queues, both routes
     and a rerun the same bits), and T_DUP-step runs with each route forced
     must take the CPU's coordinates and w bit for bit, the gaps within 1e-4
-    (g̃'s sum is held allclose by the rule)."""
+    (g̃'s sum is held allclose by the rule).  Returns the copy and the CPU
+    runs, {private: (w, coords)}."""
     rng = np.random.default_rng(21)
     rows, cols = [], []
     for name, k in (("head", 3), ("p99", 3), ("light", 1)):
@@ -773,9 +789,10 @@ def phase_duplicates(X, csc, y, y_t, buckets) -> None:
     routes = coord_update_bitwise(y_t, pcsr, pcsc, buckets)
     rule_s = time.perf_counter() - t0
     cpu_pair = host_to_padded(Xd, device="cpu")
-    runs = {}
+    runs, cpu_runs = {}, {}
     for private in (True, False):
         w_cpu, gaps_cpu, coords_cpu = _alg2_scan(cpu_pair, y, private, "auto")
+        cpu_runs[private] = (w_cpu, coords_cpu)
         picked = int(owners.col_repeats.cpu()[coords_cpu.long()].sum())
         for route in ("short", "long"):
             w, gaps, coords = _alg2_scan((pcsr, pcsc), y, private, route)
@@ -796,6 +813,7 @@ def phase_duplicates(X, csc, y, y_t, buckets) -> None:
          steps=T_DUP, runs=runs)
     del pcsr, pcsc, cpu_pair
     torch.cuda.empty_cache()
+    return Xd, cpu_runs
 
 
 def phase_gap_tol(pcsr, pcsc, y, runs, alg1) -> None:
@@ -832,6 +850,183 @@ def phase_gap_tol(pcsr, pcsc, y, runs, alg1) -> None:
         emit("gap_tol", run=name, expected_stop_step=k + 1, gap_tol=tol, stop_step=stop,
              stop_reason=res.stop_reason, prefix_bitwise_equal=True, solve_s=wall,
              launches=launch_counts())
+
+
+def _store_disk_need(X, pcsr, pcsc) -> int:
+    """Bytes the store phase writes at most at once: the LIBSVM text (at most
+    40 B an entry), the store's shards twice (two shard sizes) and the padded
+    cache, both layouts."""
+    shards = 16 * X.nnz + 24 * N + 8
+    padded = 8 * (pcsc.indices.numel() + pcsr.indices.numel()) + 4 * (N + D)
+    return 40 * X.nnz + 2 * shards + padded
+
+
+def _store_solve(store, cfg, want: dict) -> dict:
+    """One ``solve(store)`` on the card with the launch counts reset just
+    before; its span times (``repro_torch.obs``) and launches."""
+    reset_launch_counts()
+    with obs.session() as tel:
+        t0 = time.perf_counter()
+        res = solve(store, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts == want, f"store solve {cfg.backend} {cfg.queue}: launches {counts}, "
+            f"expected {want}")
+    spans = {e["name"]: e["dur_s"] for e in tel.events if e["ev"] == "span"}
+    return dict(res=res, wall=wall, counts=counts, run_s=spans["solve.run"],
+                coerce_s=spans["solve.coerce"], per_step_ms=spans["solve.run"] * 1e3 / cfg.steps,
+                cache={f"{m['labels']['cache']}_{m['labels']['outcome']}": m["value"]
+                       for m in tel.metrics.snapshot() if m["name"] == "store.cache"})
+
+
+def _same_run(got, ref, name: str) -> None:
+    for k in ("coords", "w", "gaps", "losses"):
+        a, b = getattr(got, k), getattr(ref, k)
+        require(torch.equal(a.cpu(), b.cpu()), f"store {name}: {k} differs from the in-memory run")
+
+
+def phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup) -> None:
+    """The dataset store at the rcv1.binary shape: the matrix as LIBSVM text,
+    ingested at two shard sizes (the same content hash), opened cold
+    (padded and setup caches written) and warm (both replayed), and solved
+    from the store on the card: Alg 2 private and non-private at T = 500
+    and Alg 1 ``argmax`` on the dense form at T = 200, each equal to the
+    in-memory run bit for bit.  ``setup_streamed`` is held to the JAX
+    package's tolerances (α₀ 1e-5, q̄₀ 1e-6) of the kernel setup.  Then the
+    repeated-entries copy goes through text and a store, T = 50 a queue."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = _store_disk_need(X, pcsr, pcsc)
+        require(free >= need, f"store phase: {free} bytes free under {tmp}, needs {need}")
+        text = os.path.join(tmp, "rcv1_shape.libsvm")
+        t0 = time.perf_counter()
+        write_libsvm(text, X, y)
+        write_s = time.perf_counter() - t0
+        root = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        store = DatasetStore.write(root, iter_libsvm(text, chunk_rows=8192), n_cols=D,
+                                   rows_per_shard=STORE_ROWS_PER_SHARD[0])
+        ingest_s = time.perf_counter() - t0
+        other = DatasetStore.write(os.path.join(tmp, "store_b"),
+                                   iter_libsvm(text, chunk_rows=5000), n_cols=D,
+                                   rows_per_shard=STORE_ROWS_PER_SHARD[1])
+        require(other.content_hash == store.content_hash and other.n_shards != store.n_shards,
+                "store: the content hash depends on the shard size")
+        shutil.rmtree(other.root)
+        host = store.to_host_csr()
+        for k in ("indptr", "indices", "data"):
+            require(np.array_equal(getattr(host, k), getattr(X, k)),
+                    f"store: HostCSR {k} differs from the generated matrix")
+        require(np.array_equal(store.labels(), y), "store: labels differ")
+        text_bytes = os.path.getsize(text)
+        os.remove(text)
+
+        alg2 = {name: FWConfig(backend="torch_sparse", lam=LAM, steps=T_MAIN, loss="logistic",
+                               epsilon=1.0, delta=1e-6, device=DEVICE,
+                               queue="two_level" if name == "private" else "group_argmax")
+                for name in ("private", "non_private")}
+        refs = {"private": runs["private"]["res"], "non_private": runs["non_private"]["res"],
+                "alg1_dense_argmax": dense}
+        cfgs = {**alg2, "alg1_dense_argmax": _alg1_config("argmax", T_PARITY)}
+        none = {k: 0 for k in ("coord_update", "two_level_draw", "ell_rmatvec", "ell_matvec",
+                               "flash_attention")}
+        solves, opened, prep_s, peak = {}, {}, {}, {}
+        for phase in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            opened[phase] = DatasetStore.open(root)
+            with obs.session() as tel:
+                t0 = time.perf_counter()
+                opened[phase].prepared(DEVICE)
+                torch.cuda.synchronize()
+                prep_s[phase] = time.perf_counter() - t0
+            prep_s[phase + "_spans"] = {e["name"]: e["dur_s"] for e in tel.events
+                                        if e["ev"] == "span"}
+            cache = {f"{m['labels']['cache']}_{m['labels']['outcome']}": m["value"]
+                     for m in tel.metrics.snapshot() if m["name"] == "store.cache"}
+            want = {"padded_miss": 1} if phase == "cold" else {"padded_hit": 1}
+            require(cache == want, f"store {phase} prepared(): cache {cache}, expected {want}")
+            setup_launches = 2 if phase == "cold" else 0     # ȳ and α₀; replayed when warm
+            for name, cfg in cfgs.items():
+                want = dict(none)
+                if name != "alg1_dense_argmax":
+                    want.update(coord_update=T_MAIN, ell_rmatvec=setup_launches,
+                                two_level_draw=T_MAIN if name == "private" else 0)
+                    setup_launches = 0     # the setup is memoized on the open store
+                got = _store_solve(opened[phase], cfg, want)
+                _same_run(got["res"], refs[name], f"{phase} {name}")
+                solves.setdefault(name, {})[phase] = {k: v for k, v in got.items() if k != "res"}
+            cache = solves["private"][phase]["cache"]
+            want = ({"setup_miss": 1, "autotune_miss": 1} if phase == "cold"
+                    else {"setup_hit": 1, "autotune_miss": 1})
+            require(cache == want, f"store {phase} private solve: cache {cache}, expected {want}")
+            peak[phase] = torch.cuda.max_memory_allocated()
+            if phase == "cold":
+                del opened["cold"]      # its hooks refer back to it: a cycle
+                gc.collect()
+                torch.cuda.empty_cache()
+        # the same solves in memory, timed the same way (their span times)
+        for name, cfg in alg2.items():
+            with obs.session() as tel:
+                solve((pcsr, pcsc), y, cfg)
+            run_s = next(e["dur_s"] for e in tel.events if e["name"] == "solve.run")
+            solves[name]["memory"] = dict(run_s=run_s, per_step_ms=run_s * 1e3 / T_MAIN)
+
+        warm = opened["warm"]
+        prep = warm.prepared(DEVICE)
+        streamed = {}
+        for loss in ("logistic", "huber"):
+            v0, q0, a0 = warm.setup_streamed(loss, device=DEVICE)
+            kv, kq, ka = prep.setup_for(y_t, loss)
+            da, dq = float((a0 - ka).abs().max()), float((q0 - kq).abs().max())
+            require(da <= 1e-5 and dq <= 1e-6 and not bool(v0.any()),
+                    f"setup_streamed {loss}: alpha0 {da} (1e-5), qbar0 {dq} (1e-6)")
+            streamed[loss] = dict(max_abs_alpha0=da, max_abs_qbar0=dq)
+        cache_dir = os.path.join(root, "cache")
+        cache_bytes = {f: os.path.getsize(os.path.join(cache_dir, f))
+                       for f in sorted(os.listdir(cache_dir))}
+        del prep, warm, opened
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root)
+        dups = _store_duplicates(tmp, *dup, y)
+        emit("store", n=N, d=D, nnz=X.nnz, shards=store.n_shards,
+             rows_per_shard=list(STORE_ROWS_PER_SHARD), content_hash=store.content_hash,
+             hash_equal_across_shard_sizes=True, host_csr_bitwise_equal=True,
+             free_disk_bytes=free, disk_needed_bytes=need, libsvm_bytes=text_bytes,
+             write_libsvm_s=write_s, ingest_s=ingest_s, pad_on_card_s=pad_s,
+             cold_prepared_s=prep_s["cold"], warm_prepared_s=prep_s["warm"],
+             cold_prepared_spans_s=prep_s["cold_spans"],
+             warm_prepared_spans_s=prep_s["warm_spans"],
+             cache_bytes=cache_bytes, max_memory_allocated=peak, solves=solves, bitwise_equal_in_memory=True,
+             setup_streamed=streamed, duplicates=dups)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _store_duplicates(tmp, Xd, cpu_runs, y) -> dict:
+    """The repeated-entries copy through LIBSVM text (a line lists a column
+    twice) and a store, T_DUP steps a queue on the card: the coordinates and
+    w of the CPU runs of ``phase_duplicates``."""
+    text = os.path.join(tmp, "duplicates.libsvm")
+    write_libsvm(text, Xd, y)
+    store = DatasetStore.write(os.path.join(tmp, "duplicates"), iter_libsvm(text), n_cols=D,
+                               rows_per_shard=STORE_ROWS_PER_SHARD[0])
+    require(np.array_equal(store.to_host_csr().indices, Xd.indices),
+            "duplicates store: the repeated entries did not survive the text")
+    out = {}
+    for private, (w_cpu, coords_cpu) in cpu_runs.items():
+        cfg = FWConfig(backend="torch_sparse", lam=LAM, steps=T_DUP, epsilon=1.0, delta=1e-6,
+                       device=DEVICE, queue="two_level" if private else "group_argmax")
+        res = solve(store, config=cfg)
+        name = "private" if private else "non_private"
+        require(torch.equal(res.coords.cpu(), coords_cpu) and torch.equal(res.w.cpu(), w_cpu),
+                f"duplicates store {name}: coords or w differ from the CPU run")
+        out[name] = dict(steps=T_DUP, coords_equal=True, w_bitwise_equal=True)
+    shutil.rmtree(store.root)
+    os.remove(text)
+    return out
 
 
 def _coord_update_bytes(X, csc, coords, group_size: int) -> tuple:
@@ -1425,7 +1620,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
-    X, csc, y, pcsr, pcsc, col_nnz = phase_data()
+    X, csc, y, pcsr, pcsc, col_nnz, pad_s = phase_data()
     y_t = torch.from_numpy(y.astype(np.float32)).to(DEVICE)
     buckets = column_buckets(col_nnz)
     errs = phase_kernels_vs_plain(y_t, pcsr, pcsc, buckets, col_nnz)
@@ -1439,12 +1634,13 @@ def main() -> int:
         solve_s={**{f"dense_{k}": v["wall"] for k, v in alg1.items()},
                  **{f"torch_sparse_{k}": v["wall"] for k, v in runs.items()}},
         alg1_argmax_share_of_step=share)
-    phase_parity(X, y, pcsr, pcsc, col_nnz)
-    phase_duplicates(X, csc, y, y_t, buckets)
+    dense = phase_parity(X, y, pcsr, pcsc, col_nnz)
+    dup = phase_duplicates(X, csc, y, y_t, buckets)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
     kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share,
                                  window)
-    del X, csc, pcsr, pcsc, runs, alg1
+    phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup)
+    del X, csc, pcsr, pcsc, runs, alg1, dense, dup
     torch.cuda.empty_cache()
     flash_errs = phase_flash_vs_plain()
     api, params, api32, p32, routes, f32_routes = phase_lm_forward()

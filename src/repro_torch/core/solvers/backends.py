@@ -9,13 +9,17 @@
 
 Each adapter maps its engine onto the shared ``(data, y, FWConfig) ->
 FWResult`` contract; ``gap_tol``/``max_seconds`` route to the chunked
-early-stopping loop (``stopping.drive_chunks``).
+early-stopping loop (``stopping.drive_chunks``).  A dataset store reaches
+``torch_sparse`` as a ``PreparedDataset``, whose cached setup state is
+replayed and whose tuning record, when one exists for the device's
+platform, picks the tiered CSC and the chunk length.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core.solvers.config import STOP_GAP_TOL, STOP_MAX_STEPS, FWConfig, FWResult
+from repro_torch.core.solvers.prepared import PreparedDataset
 from repro_torch.core.solvers.registry import QUEUE_ALIASES, register
 
 
@@ -46,5 +50,19 @@ def _dense_backend(data, y, config: FWConfig) -> FWResult:
           default_queue="group_argmax")
 def _torch_sparse_backend(data, y, config: FWConfig) -> FWResult:
     from repro_torch.core.solvers.torch_sparse import torch_sparse_fw
-    pcsr, pcsc = data
-    return torch_sparse_fw(pcsr, pcsc, y, config)
+    setup = None
+    if isinstance(data, PreparedDataset):
+        # dataset-store path: replay the cached fw_setup state (bit-exact)
+        setup = data.setup_for(y, config.loss)
+        pcsr, pcsc = data.pair
+        # the store's tuned layout/chunk winner for this platform, when one
+        # exists — parity-gated at tuning time, so the iterates are the same
+        rec = data.tuning_for("torch_sparse", config.loss)
+        if rec is not None:
+            if rec.ell_width is not None:
+                pcsc = data.tuned_pcsc(rec)
+            if config.chunk_steps is None and rec.chunk_steps is not None:
+                config = dataclasses.replace(config, chunk_steps=rec.chunk_steps)
+    else:
+        pcsr, pcsc = data
+    return torch_sparse_fw(pcsr, pcsc, y, config, setup=setup)

@@ -7,9 +7,12 @@
 Two backends are registered (``backends.py``): ``dense`` (Alg 1, the
 default, as in the JAX package) and ``torch_sparse`` (Alg 2; the JAX name
 ``jax_sparse`` is accepted for it).  :func:`solve` refuses what the port
-does not implement, coerces ``X`` — a ``HostCSR``, a dense numpy matrix, or
-a padded pair — into the backend's data format on ``config.device``, and
-translates queue names through ``QUEUE_ALIASES`` as the JAX registry does.
+does not implement, coerces ``X`` — a ``HostCSR``, a dense numpy matrix, a
+padded pair, or a ``repro_torch.data.store`` ``DatasetStore``/``DatasetRef``
+(whose labels stand in for ``y``) — into the backend's data format on
+``config.device``, and translates queue names through ``QUEUE_ALIASES`` as
+the JAX registry does.  A store reaches ``torch_sparse`` as a
+``PreparedDataset``: its cached padded layout and setup state.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.solvers.config import (FWConfig, FWResult, check_gap_certificate,
                                              check_supported)
+from repro_torch.core.solvers.prepared import PreparedDataset
 from repro_torch.core.sparse.formats import (HostCSR, PaddedCSC, PaddedCSR, TieredCSC,
-                                             dense_to_host, host_to_padded)
+                                             coo_to_host, dense_to_host, host_to_padded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,26 +101,100 @@ def _is_padded_pair(X) -> bool:
             and isinstance(X[1], (PaddedCSC, TieredCSC)))
 
 
+def _as_store(X):
+    """The ``DatasetStore`` behind ``X``, or None (lazy import, no cycle)."""
+    from repro_torch.data.store import DatasetStore
+    return X if isinstance(X, DatasetStore) else None
+
+
+def resolve_data(X, y=None):
+    """Resolve a ``DatasetRef``/``DatasetStore`` ``X`` into (source, labels).
+
+    Plain matrices pass through unchanged (``y`` then required).  A ref with
+    ``split="all"`` resolves to its open ``DatasetStore`` so the coercion
+    can reuse the store's cached padded layout and setup state; train/test
+    refs materialize the row subset.  An explicitly passed ``y`` always wins
+    over the store's labels.
+    """
+    from repro_torch.data.store import DatasetRef, DatasetStore
+    if isinstance(X, DatasetRef):
+        X, ref_y = X.resolve()
+        y = ref_y if y is None else y
+    elif isinstance(X, DatasetStore):
+        y = X.labels() if y is None else y
+    if y is None:
+        raise TypeError(
+            "y is required unless X is a DatasetRef or DatasetStore "
+            "(which carry their own labels)")
+    return X, y
+
+
+def _on_device(prep: PreparedDataset, device) -> PreparedDataset:
+    if prep.device != torch.device(device):
+        raise ValueError(f"the PreparedDataset lives on {prep.device}, the solve on {device}; "
+                         "prepare the store on the solve's device")
+    return prep
+
+
+def as_host_csr(X) -> HostCSR:
+    """→ ``HostCSR``: stores read their shards (mmap, zero-copy per shard),
+    padded layouts are rebuilt from their live lanes, never as N×D."""
+    if isinstance(X, HostCSR):
+        return X
+    store = _as_store(X)
+    if store is not None:
+        return store.to_host_csr()
+    if isinstance(X, PreparedDataset):
+        X = X.pair
+    if _is_padded_pair(X):
+        pcsr = X[0]
+        idx, val = pcsr.indices.cpu().numpy(), pcsr.values.cpu().numpy().astype(np.float64)
+        nnz = pcsr.nnz.cpu().numpy()
+        mask = np.arange(idx.shape[1])[None, :] < nnz[:, None]
+        rows = np.broadcast_to(np.arange(idx.shape[0])[:, None], idx.shape)
+        return coo_to_host(rows[mask], idx[mask], val[mask], pcsr.shape)
+    if isinstance(X, (np.ndarray, torch.Tensor)) and X.ndim == 2:
+        x = X.cpu().numpy() if isinstance(X, torch.Tensor) else X
+        return dense_to_host(np.asarray(x))
+    raise TypeError("X must be a HostCSR, a 2-D matrix, a (PaddedCSR, PaddedCSC) pair, "
+                    f"or a DatasetStore/DatasetRef; got {type(X).__name__}")
+
+
 def as_padded(X, device="cuda"):
-    """→ ``(PaddedCSR, PaddedCSC | TieredCSC)`` on ``device``."""
+    """→ ``(PaddedCSR, PaddedCSC | TieredCSC)`` on ``device``, or a
+    ``PreparedDataset`` for dataset stores (the same pair plus the persisted
+    setup cache)."""
+    if isinstance(X, PreparedDataset):
+        return _on_device(X, device)
+    store = _as_store(X)
+    if store is not None:
+        return store.prepared(device)
     if _is_padded_pair(X):
         return X[0].to(device), X[1].to(device)
     if isinstance(X, HostCSR):
         return host_to_padded(X, device)
     if isinstance(X, np.ndarray) and X.ndim == 2:
         return host_to_padded(dense_to_host(X), device)
-    raise TypeError("X must be a HostCSR, a 2-D numpy matrix, or a (PaddedCSR, "
-                    f"PaddedCSC | TieredCSC) pair; got {type(X).__name__}")
+    raise TypeError("X must be a HostCSR, a 2-D numpy matrix, a (PaddedCSR, "
+                    "PaddedCSC | TieredCSC) pair, or a DatasetStore/DatasetRef; "
+                    f"got {type(X).__name__}")
 
 
 def as_dense(X, device="cuda"):
     """→ a dense float32 ``(N, D)`` tensor on ``device``, or a padded pair
     (moved to ``device``), which Alg 1 consumes through the spmv kernels.
 
-    A ``HostCSR`` is scattered on the device: the float32 values equal the
-    JAX package's ``jnp.asarray(X.to_dense(), float32)`` without an N×D
-    float64 copy on the host.
+    A ``HostCSR`` — and a store, through its shards — is scattered on the
+    device: the float32 values equal the JAX package's
+    ``jnp.asarray(X.to_dense(), float32)`` without an N×D float64 copy on
+    the host.  A ``PreparedDataset`` gives its padded pair.
     """
+    store = _as_store(X)
+    if store is not None:
+        # the same arrays the in-memory path sees → identical iterates
+        X = store.to_host_csr()
+    if isinstance(X, PreparedDataset):
+        return _on_device(X, device).pair
     if _is_padded_pair(X):
         return X[0].to(device), X[1].to(device)
     if isinstance(X, HostCSR):
@@ -126,8 +205,8 @@ def as_dense(X, device="cuda"):
         return out
     if isinstance(X, (np.ndarray, torch.Tensor)) and X.ndim == 2:
         return torch.as_tensor(X, dtype=torch.float32, device=device)
-    raise TypeError("X must be a HostCSR, a 2-D matrix, or a (PaddedCSR, "
-                    f"PaddedCSC | TieredCSC) pair; got {type(X).__name__}")
+    raise TypeError("X must be a HostCSR, a 2-D matrix, a (PaddedCSR, PaddedCSC | "
+                    f"TieredCSC) pair, or a DatasetStore/DatasetRef; got {type(X).__name__}")
 
 
 _COERCE = {"dense": as_dense, "padded": as_padded}
@@ -158,23 +237,34 @@ def check_device(device: str) -> torch.device:
     return dev
 
 
-def solve(X, y, config: Optional[FWConfig] = None, **overrides) -> FWResult:
+def solve(X, y=None, config: Optional[FWConfig] = None, **overrides) -> FWResult:
     """Run the configured Frank-Wolfe backend on (X, y).
 
-    ``X``: HostCSR, dense (N, D) numpy matrix, or a padded pair; ``y``: (N,)
-    labels in {0, 1}, numpy or torch.  Keyword overrides apply on top of ``config``.
+    ``X``: HostCSR, dense (N, D) numpy matrix, a padded pair, or a
+    ``DatasetStore``/``DatasetRef`` (``y`` then defaults to the store's
+    labels); ``y``: (N,) labels in {0, 1}, numpy or torch.  Keyword
+    overrides apply on top of ``config``.  With telemetry on
+    (``repro_torch.obs``) the call records the JAX package's spans
+    (``solve``, ``solve.coerce``, ``solve.run``) and counter
+    (``solve.calls``); the iterates are the same either way.
     """
     config = config or FWConfig()
     if overrides:
         config = dataclasses.replace(config, **overrides)
     check_supported(config)
-    check_gap_certificate(config)
-    device = check_device(config.device)
-    backend = get_backend(config.backend)
-    config = resolve_queue(backend, config)
-    data = backend.prepare(X, device)
-    if isinstance(y, torch.Tensor):
-        y = y.to(device=device, dtype=torch.float32)
-    else:
-        y = torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
-    return backend.fn(data, y, config)
+    with obs.span("solve", loss=config.loss, steps=config.steps) as sp:
+        check_gap_certificate(config)
+        device = check_device(config.device)
+        X, y = resolve_data(X, y)
+        backend = get_backend(config.backend)
+        config = resolve_queue(backend, config)
+        sp.set(backend=backend.name, queue=config.queue)
+        obs.count("solve.calls", backend=backend.name)
+        with obs.span("solve.coerce", layout=backend.data_format):
+            data = backend.prepare(X, device)
+            if isinstance(y, torch.Tensor):
+                y = y.to(device=device, dtype=torch.float32)
+            else:
+                y = torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
+        with obs.span("solve.run", backend=backend.name):
+            return backend.fn(data, y, config)

@@ -7,10 +7,11 @@ loop that advances one chunk of steps at a time until the device ``done``
 flag is set, the wall clock runs out, or T is spent, and ``assemble_outputs``,
 which pads the output arrays to full length with sentinels (0.0 gaps, -1
 coords).  Reading ``done`` after a chunk is the only host synchronisation
-the loop adds.
-
-The telemetry calls of the JAX ``drive_chunks`` (``repro.obs``) are left out
-until the port has ``obs`` (ROADMAP.md item A11).
+the loop adds.  With telemetry on (``repro_torch.obs``) the loop records
+what the JAX ``drive_chunks`` records: the ``chunk.first_seconds`` gauge,
+the ``chunk.seconds`` histogram, the ``chunk.steps`` counter, and the
+``chunks.respec`` and ``chunks.stop`` events with the ``chunks.stopped``
+counter.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.solvers.config import (STOP_GAP_TOL, STOP_MAX_SECONDS,
                                              STOP_MAX_STEPS, FWConfig)
 
@@ -91,6 +93,7 @@ def drive_chunks(
     t0, stop_reason = 0, STOP_MAX_STEPS
     t_start: Optional[float] = None
     n_chunks = 0
+    t_prev = clock()
     while t0 < steps:
         c = min(chunk, steps - t0)
         carry, out = advance(carry, t0, c)
@@ -102,6 +105,15 @@ def drive_chunks(
         n_chunks += 1
         done = bool(done_of(carry))         # synchronises: the chunk has run
         now = clock()
+        if obs.enabled():
+            if n_chunks == 1:
+                # the first chunk carries one-off costs: its own gauge, so it
+                # never skews the steady-state chunk histogram
+                obs.gauge("chunk.first_seconds", now - t_prev)
+            else:
+                obs.observe("chunk.seconds", now - t_prev)
+            obs.count("chunk.steps", c)
+        t_prev = now
         if done:
             stop_reason = STOP_GAP_TOL
             break
@@ -113,8 +125,14 @@ def drive_chunks(
         if respec is not None and t0 < steps:
             swapped = respec(carry, t0, n_chunks)
             if swapped is not None:
-                carry, _ = swapped
+                carry, info = swapped
+                if obs.enabled():
+                    obs.event("chunks.respec", t0=t0, chunks=n_chunks, **(info or {}))
     stop_step = int(stop_at_of(carry)) if bool(done_of(carry)) else t0
+    if obs.enabled():
+        obs.event("chunks.stop", stop_step=stop_step, stop_reason=stop_reason,
+                  chunks=n_chunks, steps_requested=steps)
+        obs.count("chunks.stopped", reason=stop_reason)
     return carry, outs, stop_step, stop_reason
 
 

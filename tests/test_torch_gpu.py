@@ -19,7 +19,9 @@ route) and 0.06 in bfloat16 (the tensor-core route; ``tests/test_kernels.py``'s
 bounds); the smoke LM's
 forward on the card against the CPU's within 1e-4, decode against forward
 within 5e-4 (``tests/test_models_smoke.py``'s bound), and the serving
-engine's greedy tokens equal to the CPU engine's.
+engine's greedy tokens equal to the CPU engine's.  A dataset store solved on
+the card equals the in-memory solve on the card bit for bit, cold and warm,
+and its setup cache is the card's own file.
 """
 import dataclasses
 
@@ -597,3 +599,60 @@ def test_card_engine_matches_cpu_engine(cuda):
             engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=6))
         out.append({r.uid: r.generated for r in engine.run()})
     assert out[0] == out[1]
+
+
+def _cache_counts(tel) -> dict:
+    return {f"{m['labels']['cache']}_{m['labels']['outcome']}": m["value"]
+            for m in tel.metrics.snapshot() if m["name"] == "store.cache"}
+
+
+@pytest.mark.parametrize("queue", ["two_level", "group_argmax"])
+def test_card_store_solve_matches_in_memory_solve(cuda, tmp_path, queue):
+    """``solve(store)`` on the card equals ``solve(X, y)`` on the card bit
+    for bit, cold (caches written) and warm (replayed: no setup launch)."""
+    from repro_torch import obs
+    from repro_torch.data.store import DatasetStore
+    X, y, _ = make_sparse_classification(n=600, d=2000, nnz_per_row=12, informative=20, seed=5)
+    root = str(tmp_path / "store")
+    DatasetStore.from_arrays(root, X, y, rows_per_shard=128)
+    cfg = FWConfig(backend="torch_sparse", lam=20.0, steps=60, queue=queue, epsilon=1.0,
+                   delta=1e-6)
+    ref = solve(X, y, cfg)
+    for phase, want in (("cold", {"padded_miss": 1, "setup_miss": 1, "autotune_miss": 1}),
+                        ("warm", {"padded_hit": 1, "setup_hit": 1, "autotune_miss": 1})):
+        reset_launch_counts()
+        with obs.session() as tel:
+            got = solve(DatasetStore.open(root), config=cfg)
+        assert _cache_counts(tel) == want, phase
+        assert launch_counts()["ell_rmatvec"] == (2 if phase == "cold" else 0), phase
+        assert launch_counts()["coord_update"] == 60, phase
+        for k in ("coords", "w", "gaps"):
+            assert torch.equal(getattr(got, k), getattr(ref, k)), f"{phase}: {k}"
+
+
+def test_card_setup_cache_is_the_cuda_file_and_never_read_on_the_cpu(cuda, tmp_path):
+    import os
+
+    from repro_torch import obs
+    from repro_torch.data.store import DatasetStore
+    X, y, _ = make_sparse_classification(n=300, d=900, nnz_per_row=10, informative=15, seed=6)
+    root = str(tmp_path / "store")
+    DatasetStore.from_arrays(root, X, y, rows_per_shard=100)
+    cfg = FWConfig(backend="torch_sparse", lam=10.0, steps=30, queue="two_level")
+    solve(DatasetStore.open(root), config=cfg)
+    cache = os.path.join(root, "cache")
+    setup_files = sorted(f for f in os.listdir(cache) if f.startswith("setup-"))
+    assert setup_files == ["setup-logistic-torch-cuda.npz"]
+    with open(os.path.join(cache, setup_files[0]), "rb") as f:
+        card_bytes = f.read()
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    with obs.session() as tel:
+        got = solve(DatasetStore.open(root), config=cpu_cfg)
+    assert _cache_counts(tel) == {"padded_hit": 1, "setup_miss": 1, "autotune_miss": 1}
+    ref = solve(X, y, cpu_cfg)
+    for k in ("coords", "w", "gaps"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    assert sorted(f for f in os.listdir(cache) if f.startswith("setup-")) == [
+        "setup-logistic-torch-cpu.npz", "setup-logistic-torch-cuda.npz"]
+    with open(os.path.join(cache, setup_files[0]), "rb") as f:
+        assert f.read() == card_bytes
