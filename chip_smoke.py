@@ -65,14 +65,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import FWConfig, obs, prng, solve  # noqa: E402
+from repro_torch import FWConfig, grid, obs, plan_for, prng, solve, solve_many  # noqa: E402
 from repro_torch.core.fw_dense import _carry0, _dense_chunk, _dense_step  # noqa: E402
 from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa: E402
 from repro_torch.core import fw_dense  # noqa: E402
 from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init,  # noqa: E402
                                                  tl_rebuild_, tl_scatter_)
+from repro_torch.core.solvers import planner  # noqa: E402
+from repro_torch.core.solvers.autotune import autotune  # noqa: E402
 from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init,  # noqa: E402
-                                                   fw_scan_chunk, fw_setup)
+                                                   fw_carry_init_lanes, fw_scan_chunk,
+                                                   fw_scan_chunk_lanes, fw_setup)
 from repro_torch.core.sparse.formats import (PaddedCSR, dense_to_host,  # noqa: E402
                                              host_to_padded, tiered_from_padded)
 from repro_torch.data.sparse_io import iter_libsvm, write_libsvm  # noqa: E402
@@ -80,14 +83,17 @@ from repro_torch.data.store import DatasetStore  # noqa: E402
 from repro_torch.data.synthetic import (lm_batches, make_sparse_classification,  # noqa: E402
                                         with_repeated_entries)
 from repro_torch.kernels import _lib, launch_counts, reset_launch_counts  # noqa: E402
-from repro_torch.kernels.bsls_draw import two_level_draw  # noqa: E402
-from repro_torch.kernels.bsls_draw.ops import arrival_counter, launch_floor  # noqa: E402
-from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref  # noqa: E402
-from repro_torch.kernels.coord_update import coord_update  # noqa: E402
-from repro_torch.kernels.coord_update.ops import (coord_update_scratch,  # noqa: E402
-                                                  owner_table, short_route_max_rows)
+from repro_torch.kernels.bsls_draw import two_level_draw, two_level_draw_lanes  # noqa: E402
+from repro_torch.kernels.bsls_draw.ops import arrival_counter, key_table, launch_floor  # noqa: E402
+from repro_torch.kernels.bsls_draw.ref import (two_level_draw_lanes_ref,  # noqa: E402
+                                               two_level_draw_ref)
+from repro_torch.kernels.coord_update import coord_update, coord_update_lanes  # noqa: E402
+from repro_torch.kernels.coord_update.ops import (coord_update_scratch, lane_scalars,  # noqa: E402
+                                                  owner_table, scratch_bytes,
+                                                  short_route_max_rows)
 from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # noqa: E402
-                                                  coord_update_ref, same_bits)
+                                                  coord_update_lanes_ref, coord_update_ref,
+                                                  same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
@@ -100,6 +106,10 @@ from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa
 N, D, NNZ_PER_ROW, INFORMATIVE, SEED = 20242, 47236, 74, 64, 0
 LAM, T_MAIN, T_PARITY, WARMUP = 50.0, 500, 200, 50
 T_DUP, DRAW_STEPS = 50, 1000    # the repeated-entries runs; the rebuilding draw's replay
+# the sweep: a private grid of λ × ε (B = 8) and a non-private grid of λ (B = 4);
+# the lane kernels are timed at B = 1, 4 and 8
+SWEEP_LAMS, SWEEP_EPS, LANE_WIDTHS, LANE_STEPS = (10.0, 20.0, 30.0, 50.0), (0.5, 1.0), \
+    (1, 4, 8), 200
 STORE_ROWS_PER_SHARD = (4096, 7000)   # the store phase's two shard sizes
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
@@ -474,7 +484,8 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"coord_update": T_MAIN, "two_level_draw": T_MAIN if private else 0,
-                "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0}
+                "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0,
+                "two_level_draw_lanes": 0, "coord_update_lanes": 0}
         require(counts == want, f"launch counts {counts}, expected {want}")
         require(two_level_draw.rebuilds == int(private),
                 f"rebuild-only launches {two_level_draw.rebuilds}, expected {int(private)}")
@@ -614,7 +625,8 @@ def phase_alg1(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"ell_matvec": T_MAIN, "ell_rmatvec": T_MAIN + 1, "coord_update": 0,
-                "two_level_draw": 0, "flash_attention": 0}
+                "two_level_draw": 0, "flash_attention": 0, "two_level_draw_lanes": 0,
+                "coord_update_lanes": 0}
         require(counts == want, f"Alg 1 {sel}: launch counts {counts}, expected {want}")
         gaps, losses = res.gaps.cpu().numpy(), res.losses.cpu().numpy()
         require(bool(np.isfinite(gaps).all() and np.isfinite(losses).all()
@@ -930,8 +942,7 @@ def phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup) -> None:
         refs = {"private": runs["private"]["res"], "non_private": runs["non_private"]["res"],
                 "alg1_dense_argmax": dense}
         cfgs = {**alg2, "alg1_dense_argmax": _alg1_config("argmax", T_PARITY)}
-        none = {k: 0 for k in ("coord_update", "two_level_draw", "ell_rmatvec", "ell_matvec",
-                               "flash_attention")}
+        none = dict.fromkeys(launch_counts(), 0)
         solves, opened, prep_s, peak = {}, {}, {}, {}
         for phase in ("cold", "warm"):
             torch.cuda.reset_peak_memory_stats()
@@ -983,6 +994,7 @@ def phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup) -> None:
             require(da <= 1e-5 and dq <= 1e-6 and not bool(v0.any()),
                     f"setup_streamed {loss}: alpha0 {da} (1e-5), qbar0 {dq} (1e-6)")
             streamed[loss] = dict(max_abs_alpha0=da, max_abs_qbar0=dq)
+        tuned = _store_autotune(warm, root, prep, y, refs)
         cache_dir = os.path.join(root, "cache")
         cache_bytes = {f: os.path.getsize(os.path.join(cache_dir, f))
                        for f in sorted(os.listdir(cache_dir))}
@@ -1000,7 +1012,7 @@ def phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup) -> None:
              cold_prepared_spans_s=prep_s["cold_spans"],
              warm_prepared_spans_s=prep_s["warm_spans"],
              cache_bytes=cache_bytes, max_memory_allocated=peak, solves=solves, bitwise_equal_in_memory=True,
-             setup_streamed=streamed, duplicates=dups)
+             setup_streamed=streamed, duplicates=dups, autotune=tuned)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1327,6 +1339,459 @@ def coord_update_times(X, csc, y_t, pcsr, pcsc, runs, buckets, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the sweep (solve_many), its lane kernels, the autotuner, backend="auto"
+# ---------------------------------------------------------------------------
+
+
+def _sweep_configs(private: bool):
+    """The private grid λ × ε (B = 8, ``two_level``) or the non-private grid
+    of λ (B = 4), logistic, T = 500."""
+    base = FWConfig(backend="torch_sparse", steps=T_MAIN, loss="logistic", delta=1e-6,
+                    device=DEVICE, queue="two_level" if private else "group_argmax")
+    return grid(base, lam=SWEEP_LAMS, epsilon=SWEEP_EPS if private else 1.0)
+
+
+def _same_as_solve(got, ref, name: str) -> None:
+    for k in ("coords", "w", "gaps"):
+        require(torch.equal(getattr(got, k), getattr(ref, k)),
+                f"{name}: {k} differs from the config's own solve")
+    require((got.stop_step_or(), got.stop_reason) == (ref.stop_step_or(), ref.stop_reason),
+            f"{name}: stop step or reason differs from the config's own solve")
+
+
+def phase_sweep(pcsr, pcsc, y) -> dict:
+    """``solve_many`` over the private grid (B = 8) and the non-private grid
+    (B = 4), each ``plan="vmap"`` (lanes) and ``plan="sequential"``, twice
+    (the cost book drops a key's first reading): every config equals its own
+    ``solve`` bit for bit; the lanes launch each kernel once a step for the
+    whole group and ``ell_rmatvec`` twice a group.  Per-config wall, steps/s
+    over the lanes, the lane cost ratio (vmap wall over sequential wall: a
+    lane's step in sequential steps) and ``plan_for`` before and after the
+    cost book has readings.  Then the idle share of 100 private lane steps
+    and a ``gap_tol`` cohort."""
+    pair = (pcsr, pcsc)
+    planner.clear_costbook()
+    out = {}
+    for private in (True, False):
+        name = "private" if private else "non_private"
+        cfgs = _sweep_configs(private)
+        lanes = len(cfgs)
+        before = plan_for(pair, cfgs)
+        t0 = time.perf_counter()
+        refs = [solve(pair, y, c) for c in cfgs]
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        runs = {}
+        for mode in ("vmap", "sequential") * 2:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = solve_many(pair, y, cfgs, plan=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            rebuilds = two_level_draw_lanes.rebuilds + two_level_draw.rebuilds
+            per, sfx = (lanes, "") if mode == "sequential" else (1, "_lanes")
+            want = dict.fromkeys(counts, 0)
+            want.update({"coord_update" + sfx: per * T_MAIN, "ell_rmatvec": 2})
+            if private:
+                want["two_level_draw" + sfx] = per * T_MAIN
+            require(counts == want, f"sweep {name} {mode}: launches {counts}, expected {want}")
+            require(rebuilds == (per if private else 0),
+                    f"sweep {name} {mode}: {rebuilds} rebuild-only launches")
+            for i, (got, ref) in enumerate(zip(res, refs)):
+                _same_as_solve(got, ref, f"sweep {name} {mode} config {i}")
+            runs.setdefault(mode, []).append(dict(
+                wall_s=wall, per_config_s=wall / lanes, lane_steps_per_s=lanes * T_MAIN / wall,
+                launches=counts,
+                launches_per_step={k: v / T_MAIN for k, v in counts.items()
+                                   if v and k != "ell_rmatvec"},
+                ell_rmatvec_per_group=counts["ell_rmatvec"], rebuild_only_launches=rebuilds,
+                max_memory_allocated=torch.cuda.max_memory_allocated()))
+        lane_cost = runs["vmap"][-1]["wall_s"] / runs["sequential"][-1]["wall_s"]
+        stats = planner.data_stats(pair)
+        book = {m: planner.measured_cost("torch_sparse", m, "torch-cuda", stats)
+                for m in ("vmap", "sequential")}
+        emit("sweep", run=name, lanes=lanes, steps=T_MAIN, lams=list(SWEEP_LAMS),
+             epsilons=sorted({c.epsilon for c in cfgs}), per_config_solve_s=solve_s / lanes,
+             vmap=runs["vmap"], sequential=runs["sequential"], lane_cost_ratio=lane_cost,
+             accel_vmap_lane_overhead=planner.ACCEL_VMAP_LANE_OVERHEAD,
+             plan_for_before=before.mode, plan_for_after=plan_for(pair, cfgs).mode,
+             costbook_s_per_step_lane=book, bitwise_equal_own_solve=True)
+        out[name] = dict(cfgs=cfgs, refs=refs, runs=runs, lane_cost=lane_cost)
+    out["window"] = _lane_window(pcsr, pcsc, y, out["private"]["cfgs"])
+    out["cohort"] = _sweep_cohort(pair, y, out["private"])
+    return out
+
+
+def _lanes_of(setup, cfgs, private: bool = True):
+    """Stacked carries and scalars of ``cfgs`` over one setup."""
+    em = [em_scale_for(c, N) for c in cfgs]
+    carry = fw_carry_init_lanes(D, torch.float32, *setup, em,
+                                [prng.PRNGKey(c.seed) for c in cfgs], private=private)
+    return carry, lane_scalars([c.lam for c in cfgs], em, [c.gap_tol for c in cfgs], DEVICE)
+
+
+def _lane_window(pcsr, pcsc, y, cfgs) -> dict:
+    """100 private lane steps at B = 8 under the profiler: device busy ms and
+    idle share, and the kernels a step (the rows, owners and draw kernels
+    once each, whatever B)."""
+    setup = fw_setup(pcsr, torch.from_numpy(y.astype(np.float32)).to(DEVICE), loss="logistic",
+                     pcsc=pcsc)
+    carry, sc = _lanes_of(setup, cfgs)
+    kw = dict(loss="logistic", private=True,
+              scratch=coord_update_scratch(N, D, DEVICE, lanes=len(cfgs)))
+    fw_scan_chunk_lanes(pcsr, pcsc, carry, sc, 0, None, steps=WARMUP, **kw)
+    prof = profile_steps("sweep_private_lanes", 100, lambda: fw_scan_chunk_lanes(
+        pcsr, pcsc, carry, sc, WARMUP, None, steps=100, **kw))
+    calls = {name: _device_ms_of(prof, name)[1] for name in PRIVATE_STEP_KERNELS}
+    require(all(c == 100 for c in calls.values()),
+            f"sweep window: {calls}, expected 100 calls of each")
+    busy = sum(prof["by_kernel"].values())
+    fields = dict(lanes=len(cfgs), steps=100, calls=calls,
+                  kernels_per_step=sum(prof["calls"].values()) / 100,
+                  wall_ms_per_step=prof["wall_ms"] / 100, device_busy_ms_per_step=busy / 100,
+                  device_idle_share=1.0 - busy / prof["wall_ms"],
+                  device_ms_per_step={n: _device_ms_of(prof, n)[0] / 100
+                                      for n in PRIVATE_STEP_KERNELS})
+    emit("sweep_window", **fields)
+    return fields
+
+
+def _tol_near(gaps: np.ndarray, k: int) -> float:
+    """A tolerance > 0 midway between two distinct positive gap values of a
+    fixed-T trace (or below the least one), whose first crossing lies
+    nearest step k (a private trace is read at DP-drawn coordinates and
+    crosses where it may)."""
+    pos = np.unique(gaps[gaps > 0]).astype(np.float64)
+    cands = [0.5 * pos[0]] + [0.5 * (a + b) for a, b in zip(pos[:-1], pos[1:])]
+    first = lambda tol: int(np.argmax(gaps <= np.float32(tol)))
+    return min(cands, key=lambda tol: abs(first(tol) - k))
+
+
+def _sweep_cohort(pair, y, private: dict) -> dict:
+    """A ``gap_tol`` cohort of the private grid's four ε = 1 configs, each
+    tolerance chosen on its own fixed-T trace to cross first near step 100,
+    200, 300 or 400: each config equals its own ``solve`` and retires at its
+    own step, between chunks."""
+    picks = [i for i, c in enumerate(private["cfgs"]) if c.epsilon == 1.0]
+    cfgs = [dataclasses.replace(private["cfgs"][i],
+                                gap_tol=_tol_near(private["refs"][i].gaps.cpu().numpy(), k))
+            for k, i in zip((T_MAIN // 5, 2 * T_MAIN // 5, 3 * T_MAIN // 5, 4 * T_MAIN // 5),
+                            picks)]
+    refs = [solve(pair, y, c) for c in cfgs]
+    reset_launch_counts()
+    with obs.session() as tel:
+        t0 = time.perf_counter()
+        got = solve_many(pair, y, cfgs, plan="vmap")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for i, (g, ref) in enumerate(zip(got, refs)):
+        _same_as_solve(g, ref, f"sweep cohort config {i}")
+    start = next(e["ts"] for e in tel.events if e["ev"] == "span" and e["name"] == "group.cohort")
+    retired = {e["attrs"]["config"]: e for e in tel.events
+               if e["ev"] == "event" and e["name"] == "cohort.retire"}
+    require(sorted(retired) == list(range(len(cfgs))), "sweep cohort: not every config retired")
+    rows = [dict(lam=c.lam, epsilon=c.epsilon, gap_tol=c.gap_tol, stop_step=g.stop_step_or(),
+                 stop_reason=g.stop_reason, own_solve_stop_step=ref.stop_step_or(),
+                 retired_after_s=retired[i]["ts"] - start)
+            for i, (c, g, ref) in enumerate(zip(cfgs, got, refs))]
+    chunks = [m for m in tel.metrics.snapshot() if m["name"] == "cohort.chunk.seconds"]
+    emit("sweep_cohort", configs=rows, chunk_steps=planner.default_chunk(T_MAIN),
+         chunks=chunks[0]["count"] if chunks else 0, wall_s=wall, launches=counts,
+         bitwise_equal_own_solve=True)
+    return dict(rows=rows, wall=wall)
+
+
+def lane_kernel_times(X, csc, y_t, pcsr, pcsc, runs, sweep, buckets) -> list:
+    """The lane forms of ``coord_update`` and ``two_level_draw`` at the rcv1.binary
+    shape: held against the single-config kernel on each lane (bit for bit)
+    and against their plain versions (the update by its bitwise rule per
+    lane on the CPU, one lane done; the draw over LANE_STEPS steps of real
+    touched sets: c within rtol/atol 1e-6 of the plain rebuild, each draw the
+    plain draw on the kernel's c, every arrival counter 0 after each launch);
+    then the device ms per launch at B = 1, 4, 8 (the private run's columns,
+    lane b shifted by 61 steps) against B times the single-lane bound.  The
+    two ``kernels`` entries report B = 8."""
+    setup = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
+    cfgs = sweep["private"]["cfgs"]
+    vmap_counts = sweep["private"]["runs"]["vmap"][-1]["launches"]
+    coords = runs["private"]["res"].coords.cpu().numpy()
+    lanes_max = max(LANE_WIDTHS)
+    group_size = _lanes_of(setup, cfgs[:1])[0].sampler.group_size
+    one_bytes, one_ops = _coord_update_bytes(X, csc, coords, group_size)
+    # ---- coord_update_lanes against the single kernel and the plain version ----
+    cols = [buckets["light"], buckets["p99"], buckets["head"]] + \
+        [int(c) for c in coords[:lanes_max]]
+    carry, sc = _lanes_of(setup, cfgs)
+    fw_scan_chunk_lanes(pcsr, pcsc, carry, sc, 0, None, steps=20, loss="logistic", private=True)
+    done = torch.zeros(lanes_max, dtype=torch.bool, device=DEVICE)
+    done[-1] = True
+    stop_at = torch.zeros(lanes_max, dtype=torch.int32, device=DEVICE)
+    js = torch.tensor(cols[:lanes_max], dtype=torch.int32, device=DEVICE)
+    state = lambda c: dict(w=c.w, w_m=c.w_m, g_tilde=c.g_tilde, vbar=c.vbar, qbar=c.qbar,
+                           alpha=c.alpha, queue=c.sampler)
+    before = {k: (v.to("cpu") if k == "queue" else v.cpu().clone())
+              for k, v in state(carry).items()}
+    singles = [{k: (v.lane(b).clone() if k == "queue" else v[b].clone())
+                for k, v in state(carry).items()} for b in range(lanes_max)]
+    gaps = torch.zeros((lanes_max, 1), device=DEVICE)
+    cds = torch.zeros((lanes_max, 1), dtype=torch.int32, device=DEVICE)
+    scratch = coord_update_scratch(N, D, DEVICE, lanes=lanes_max)
+    step = dict(t=21.0, inv_n=1.0 / N, loss="logistic", gaps=gaps, coords=cds, slot=0)
+    coord_update_lanes(js, pcsr, pcsc, None, *state(carry).values(), scalars=sc,
+                       scratch=scratch, done=done, stop_at=stop_at, **step)
+    one = coord_update_scratch(N, D, DEVICE)
+    for b in range(lanes_max):
+        g1, c1 = torch.zeros(1, device=DEVICE), torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        sb = singles[b]
+        coord_update(js[b:b + 1], pcsr, pcsc, None, *sb.values(), t=21.0, lam=sc.lam[b],
+                     inv_n=1.0 / N, em_scale=sc.em_scale[b], loss="logistic", gaps=g1,
+                     coords=c1, slot=0, scratch=one, done=done[b:b + 1].clone(),
+                     stop_at=stop_at[b:b + 1].clone())
+        lane = {k: (v.lane(b) if k == "queue" else v[b]) for k, v in state(carry).items()}
+        require(all(same_bits(a, c) for a, c in zip(
+            [lane[k] for k in ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha")]
+            + [lane["queue"].v, lane["queue"].c, lane["queue"].touched, gaps[b], cds[b]],
+            [sb[k] for k in ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha")]
+            + [sb["queue"].v, sb["queue"].c, sb["queue"].touched, g1, c1])),
+            f"coord_update_lanes: lane {b} (column {cols[b]}) differs from the single kernel")
+    cpu_csr, cpu_csc = pcsr.to("cpu"), pcsc.to("cpu")
+    plain = {k: v.clone() for k, v in before.items()}
+    sc_cpu = lane_scalars(sc.lam, sc.em_scale, sc.gap_tol)
+    pg, pc = torch.zeros((lanes_max, 1)), torch.zeros((lanes_max, 1), dtype=torch.int32)
+    coord_update_lanes(js.cpu(), cpu_csr, cpu_csc, None, *plain.values(), scalars=sc_cpu,
+                       t=21.0, inv_n=1.0 / N, loss="logistic", gaps=pg, coords=pc, slot=0,
+                       done=done.cpu(), stop_at=stop_at.cpu())
+    after = {k: (v.to("cpu") if k == "queue" else v.cpu()) for k, v in state(carry).items()}
+    err = max(float((after[k] - plain[k]).abs().max()) for k in
+              ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha"))
+    err = max(err, float((after["queue"].v - plain["queue"].v).abs().max()))
+    routes = scratch.routes[:lanes_max - 1].sum(0).tolist()
+    for b in range(lanes_max - 1):      # the last lane is done: sentinels only
+        k = int(pcsc.nnz[cols[b]])
+        lane_after = {key: (v.lane(b) if key == "queue" else v[b]) for key, v in after.items()}
+        lane_after.update(gaps=gaps[b].cpu(), coords=cds[b].cpu())
+        lane_before = {key: (v.lane(b) if key == "queue" else v[b]) for key, v in before.items()}
+        bad = bitwise_rule_mismatches(cols[b], cpu_csr, cpu_csc, None, lane_before, lane_after,
+                                      scratch.gs[b, :k].cpu(), t=21.0, lam=sc.lam[b],
+                                      inv_n=1.0 / N, em_scale=sc.em_scale[b], loss="logistic")
+        require(bad == [], f"coord_update_lanes: lane {b} (column {cols[b]}) breaks the "
+                           f"bitwise rule: {bad}")
+    require(int(cds[-1, 0]) == -1 and float(gaps[-1, 0]) == 0.0,
+            "coord_update_lanes: the done lane wrote no sentinel")
+    require(routes[0] > 0 and routes[1] > 0, f"coord_update_lanes: routes {routes}")
+    del singles, before, after, plain
+    # ---- timing: the private run's columns, each lane shifted -----------------------
+    cu = {}
+    for lanes in LANE_WIDTHS:
+        carry, sc = _lanes_of(setup, cfgs[:lanes])
+        scratch = coord_update_scratch(N, D, DEVICE, lanes=lanes)
+        g, c = (torch.zeros((lanes, T_MAIN), device=DEVICE),
+                torch.zeros((lanes, T_MAIN), dtype=torch.int32, device=DEVICE))
+        jl = [torch.tensor([int(coords[(i + 61 * b) % len(coords)]) for b in range(lanes)],
+                           dtype=torch.int32, device=DEVICE) for i in range(T_MAIN)]
+        launches = [lambda i=i: coord_update_lanes(
+            jl[i], pcsr, pcsc, None, carry.w, carry.w_m, carry.g_tilde, carry.vbar, carry.qbar,
+            carry.alpha, carry.sampler, t=float(i + 1), scalars=sc, inv_n=1.0 / N,
+            loss="logistic", gaps=g, coords=c, slot=i, scratch=scratch)
+            for i in range(T_MAIN)]
+        ms = device_ms(launches)
+        bd, by = bound(lanes * one_bytes, lanes * one_ops)
+        row = dict(ms=ms, bound_ms=bd, bound_by=by, ms_per_lane=ms / lanes)
+        if lanes == lanes_max:
+            plain_carry = dataclasses.replace(carry)
+            row["plain_ms"] = sync_ms(lambda: [coord_update_lanes_ref(
+                jl[i], pcsr, pcsc, None, plain_carry.w, plain_carry.w_m, plain_carry.g_tilde,
+                plain_carry.vbar, plain_carry.qbar, plain_carry.alpha, plain_carry.sampler,
+                t=float(i + 1), scalars=sc, inv_n=1.0 / N, loss="logistic", gaps=g, coords=c,
+                slot=i) for i in range(20)]) / 20
+            row["scratch_bytes_per_lane"] = scratch_bytes(N, D, owner_table(pcsc))
+        cu[lanes] = row
+    # ---- two_level_draw_lanes over real touched sets --------------------------------
+    dr = {}
+    for lanes in LANE_WIDTHS:
+        carry, _ = _lanes_of(setup, cfgs[:lanes])
+        st = carry.sampler
+        chains = [prng.key_chain(prng.PRNGKey(9 + b), LANE_STEPS)[1] for b in range(lanes)]
+        table = key_table(chains, DEVICE)
+        gen = torch.Generator(DEVICE).manual_seed(4)
+        sets, touched_groups = [], 0
+        for i in range(LANE_STEPS):
+            per = []
+            for b in range(lanes):
+                rows = pcsc.col_live(int(coords[(i + 61 * b) % len(coords)]))[0].long()
+                live = torch.arange(pcsr.indices.shape[1], device=DEVICE)[None, :] < \
+                    pcsr.nnz[rows][:, None]
+                idx = torch.unique(pcsr.indices[rows][live].long())
+                touched_groups += int(torch.unique(idx // st.group_size).numel())
+                per.append((idx, st.v[b].view(-1)[idx] * (1.0 + 0.05 * torch.randn(
+                    idx.numel(), generator=gen, device=DEVICE))))
+            sets.append(per)
+        out = torch.empty(lanes, dtype=torch.int32, device=DEVICE)
+        done = torch.zeros(lanes, dtype=torch.bool, device=DEVICE)
+        worst = 0.0
+        if lanes == lanes_max:      # against the plain rebuild and draw, every step
+            plain = st.clone()
+            for i, per in enumerate(sets):
+                for b, (idx, vals) in enumerate(per):
+                    tl_scatter_(st.lane(b), idx, vals)
+                    tl_scatter_(plain.lane(b), idx, vals)
+                two_level_draw_lanes(st.c, st.v, table[i], out, done=done, touched=st.touched)
+                for b in range(lanes):
+                    rebuild_groups_(plain.c[b], plain.v[b], plain.touched[b])
+                require(torch.allclose(st.c, plain.c, rtol=1e-6, atol=1e-6),
+                        "two_level_draw_lanes: c differs from the plain rebuild")
+                worst = max(worst, float((st.c - plain.c).abs().max()))
+                want = torch.cat([two_level_draw_ref(st.c[b], st.v[b], chains[b][i])
+                                  for b in range(lanes)])
+                require(torch.equal(out, want), "two_level_draw_lanes: a draw differs from "
+                                                "the plain draw on its c")
+                require(int(st.touched.sum()) == 0 and
+                        int(arrival_counter(DEVICE, lanes).abs().sum()) == 0,
+                        "two_level_draw_lanes: a group left touched or a counter not at 0")
+                plain.c.copy_(st.c)
+            t0 = time.perf_counter()
+            for i, per in enumerate(sets[:50]):
+                for b, (idx, vals) in enumerate(per):
+                    tl_scatter_(plain.lane(b), idx, vals)
+                two_level_draw_lanes_ref(plain.c, plain.v, table[i], touched=plain.touched)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 / 50
+
+        def replay():
+            for i, per in enumerate(sets):
+                for b, (idx, vals) in enumerate(per):
+                    tl_scatter_(st.lane(b), idx, vals)
+                two_level_draw_lanes(st.c, st.v, table[i], out, done=done, touched=st.touched)
+        prof = profile_steps(f"draw_lanes_{lanes}", LANE_STEPS, replay, quiet=True)
+        ms, calls = _device_ms_of(prof, "two_level_draw_kernel<true>")
+        require(0.99 * LANE_STEPS <= calls <= LANE_STEPS,
+                f"two_level_draw_lanes replay: {calls} profiled launches")
+        g, m = st.v.shape[1:]
+        tg = touched_groups / LANE_STEPS / lanes
+        bd, by = bound(lanes * (4.0 * (2 * g + m + 1) + tg * (4.0 * m + 8.0)),
+                       lanes * (125.0 * (g + m) + 230.0 + tg * 4.0 * m))
+        dr[lanes] = dict(ms=ms / calls, bound_ms=bd, bound_by=by, mean_touched_groups=tg)
+        if lanes == lanes_max:
+            dr[lanes].update(plain_ms=plain_ms, max_abs_c_err=worst)
+    emit("lane_kernels", lanes=list(LANE_WIDTHS), coord_update_lanes=cu,
+         two_level_draw_lanes=dr, coord_update_routes=routes, coord_update_max_abs_err=err,
+         tolerance="coord_update: bitwise rule per lane (ref.bitwise_rule_mismatches), "
+                   "equal to the single kernel bit for bit; draw: c rtol/atol 1e-6, "
+                   "draws equal")
+    top = lanes_max
+    return [dict(name="coord_update_lanes", route="cuda",
+                 source="src/repro_torch/kernels/coord_update/csrc/coord_update.cu",
+                 replaces="src/repro/kernels/coord_update/kernel.py:156",
+                 launches=vmap_counts["coord_update_lanes"], max_abs_err=err,
+                 ms=cu[top]["ms"], plain_ms=cu[top]["plain_ms"], bound_ms=cu[top]["bound_ms"],
+                 bound_by=cu[top]["bound_by"], library_ms=None, lanes=top,
+                 ms_by_lanes={b: r["ms"] for b, r in cu.items()},
+                 bound_ms_by_lanes={b: r["bound_ms"] for b, r in cu.items()}),
+            dict(name="two_level_draw_lanes", route="cuda",
+                 source="src/repro_torch/kernels/bsls_draw/csrc/two_level_draw.cu",
+                 replaces="src/repro/kernels/bsls_draw/kernel.py:62",
+                 launches=vmap_counts["two_level_draw_lanes"],
+                 max_abs_err=dr[top]["max_abs_c_err"], ms=dr[top]["ms"],
+                 plain_ms=dr[top]["plain_ms"], bound_ms=dr[top]["bound_ms"],
+                 bound_by=dr[top]["bound_by"], library_ms=None, lanes=top,
+                 ms_by_lanes={b: r["ms"] for b, r in dr.items()},
+                 bound_ms_by_lanes={b: r["bound_ms"] for b, r in dr.items()})]
+
+
+def _layout_bytes(layout) -> int:
+    return sum(t.numel() * t.element_size() for t in vars(layout).values()
+               if isinstance(t, torch.Tensor))
+
+
+def phase_autotune(pcsr, pcsc, y) -> dict:
+    """The autotune search on the in-memory pair at the rcv1.binary shape:
+    candidate widths, the parity gate, each candidate's per-step ms (the
+    worse of a private and a non-private run of 24 steps, best of 3) and
+    device bytes, the winner and the chunk."""
+    with obs.session() as tel:
+        t0 = time.perf_counter()
+        rec = autotune((pcsr, pcsc), y, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cands = [e["attrs"] for e in tel.events
+             if e["ev"] == "event" and e["name"] == "autotune.candidate"]
+    rows = []
+    for cand in cands:
+        width = None if cand["candidate"] == "flat" else int(cand["candidate"].split("-")[1])
+        layout = pcsc if width is None else tiered_from_padded(pcsc, width)
+        rows.append(dict(cand, device_bytes=_layout_bytes(layout)))
+        del layout
+    torch.cuda.empty_cache()
+    require(rec.pass_parity and rec.per_iter_tuned_ms <= rec.per_iter_default_ms,
+            f"autotune: record {rec}")
+    require(all(r["parity"] for r in rows), f"autotune: a tiered candidate failed parity {rows}")
+    emit("autotune", source="in_memory", widths=[r["candidate"] for r in rows], candidates=rows,
+         winner_ell_width=rec.ell_width, chunk_steps=rec.chunk_steps,
+         per_iter_default_ms=rec.per_iter_default_ms, per_iter_tuned_ms=rec.per_iter_tuned_ms,
+         search_s=wall, platform=rec.platform)
+    return dict(record=rec, rows=rows)
+
+
+def _store_autotune(store, root: str, prep, y, refs) -> dict:
+    """The search on the warm store, its record written; a fresh open
+    replays it with no search; the store's private and non-private solves
+    on the tuned layout keep their bits."""
+    with obs.session():
+        t0 = time.perf_counter()
+        rec = autotune(store, device=DEVICE)
+        search_s = time.perf_counter() - t0
+    require(prep.tuning_for("torch_sparse", "logistic") == rec,
+            "store autotune: the prepared dataset does not hold the record")
+    with obs.session() as tel:
+        again = autotune(DatasetStore.open(root), device=DEVICE)
+    replayed = [m["value"] for m in tel.metrics.snapshot() if m["name"] == "autotune.replayed"]
+    require(again == rec and replayed == [1], "store autotune: the warm open did not replay")
+    for name in ("private", "non_private"):
+        cfg = FWConfig(backend="torch_sparse", lam=LAM, steps=T_MAIN, loss="logistic",
+                       epsilon=1.0, delta=1e-6, device=DEVICE,
+                       queue="two_level" if name == "private" else "group_argmax")
+        _same_run(solve(store, config=cfg), refs[name], f"tuned {name}")
+    fields = dict(record=rec.to_json(), search_s=search_s, replayed_on_warm_open=True,
+                  tuned_solves_bitwise_equal=True)
+    emit("autotune", source="store", **fields)
+    return fields
+
+
+def phase_auto_backend(pcsr, pcsc, y) -> dict:
+    """``backend="auto"`` on the padded pair: the planner's pick, its
+    modelled per-step time for each backend (and the cost book's, after the
+    autotune fed it) against the measured ``solve.run`` per step; the pick's
+    iterates equal the explicit backend's, and the pick is ``torch_sparse``
+    unless the book has measured steps of both backends."""
+    pair = (pcsr, pcsc)
+    cfg = FWConfig(backend="auto", lam=LAM, steps=T_MAIN, loss="logistic", epsilon=1.0,
+                   delta=1e-6, device=DEVICE, queue="two_level")
+    stats = planner.data_stats(pair)
+    with obs.session() as tel:
+        res = solve(pair, y, cfg)
+    pick = next(e["attrs"]["backend"] for e in tel.events
+                if e["ev"] == "span" and e["name"] == "solve")
+    run_s = next(e["dur_s"] for e in tel.events if e["ev"] == "span" and e["name"] == "solve.run")
+    plan_s = next(e["dur_s"] for e in tel.events if e["ev"] == "span" and e["name"] == "solve.plan")
+    _same_run(res, solve(pair, y, dataclasses.replace(cfg, backend=pick)), "auto")
+    model = {b: planner.step_time_model(stats, b, "torch-cuda") * 1e3
+             for b in ("dense", "torch_sparse")}
+    book = {b: planner.measured_cost(b, "sequential", "torch-cuda", stats)
+            for b in ("dense", "torch_sparse")}
+    require(pick == "torch_sparse" or None not in book.values(),
+            f"auto: picked {pick} against a modelled step")
+    fields = dict(pick=pick, modelled_step_ms=model,
+                  costbook_step_ms={b: None if v is None else v * 1e3 for b, v in book.items()},
+                  measured_step_ms=run_s * 1e3 / T_MAIN, plan_s=plan_s,
+                  stats=dataclasses.asdict(stats))
+    emit("auto_backend", **fields)
+    return fields
+
+
+# ---------------------------------------------------------------------------
 # the LM: flash attention, forward, serving, the DP-LASSO probe
 # ---------------------------------------------------------------------------
 
@@ -1637,8 +2102,13 @@ def main() -> int:
     dense = phase_parity(X, y, pcsr, pcsc, col_nnz)
     dup = phase_duplicates(X, csc, y, y_t, buckets)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
+    sweep = phase_sweep(pcsr, pcsc, y)
     kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share,
                                  window)
+    kernels.extend(lane_kernel_times(X, csc, y_t, pcsr, pcsc, runs, sweep, buckets))
+    del sweep
+    phase_autotune(pcsr, pcsc, y)
+    phase_auto_backend(pcsr, pcsc, y)
     phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup)
     del X, csc, pcsr, pcsc, runs, alg1, dense, dup
     torch.cuda.empty_cache()

@@ -6,6 +6,8 @@ nor JAX.  Entry points run on ``cuda`` unless the caller passes
 
     from repro_torch import FWConfig, solve
     result = solve(X, y, FWConfig(lam=50.0, steps=500, queue="two_level"))
+    results = solve_many(X, y, grid(FWConfig(backend="torch_sparse", steps=500),
+                                    lam=(10.0, 50.0), epsilon=(0.5, 1.0)))
 """
-from repro_torch.core.solvers import (FWConfig, FWResult, available_backends,  # noqa: F401
-                                      solve)
+from repro_torch.core.solvers import (FWConfig, FWResult, SolvePlan,  # noqa: F401
+                                      available_backends, grid, plan_for, solve, solve_many)

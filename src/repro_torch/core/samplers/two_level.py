@@ -14,12 +14,18 @@ raises ``touched`` in place (``tl_scatter_`` is its plain form), then the
 next step's draw launch rebuilds the touched groups' ``c`` before it draws;
 ``tl_rebuild_`` rebuilds alone (after a chunk's last step).  ``tl_update``
 is the functional form of both, with the JAX package's signature.
+
+Stacked state (a sweep group's lanes): ``tl_init`` on a (B, D) matrix of
+log-weights gives ``v`` (B, G, M), ``c`` (B, G) and ``touched`` (B, G), each
+lane initialised as the single-config state is; ``lane(b)`` is lane b's
+state as views into the stacked tensors, and ``tl_rebuild_`` rebuilds every
+lane in one launch.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,7 +43,16 @@ class TwoLevelSamplerState:
 
     @property
     def group_size(self) -> int:
-        return self.v.shape[1]
+        return self.v.shape[-1]
+
+    @property
+    def lanes(self) -> Optional[int]:
+        """B of a stacked state; None for one config."""
+        return self.v.shape[0] if self.v.dim() == 3 else None
+
+    def lane(self, b: int) -> "TwoLevelSamplerState":
+        """Lane b of a stacked state, as views (updates write through)."""
+        return TwoLevelSamplerState(self.v[b], self.c[b], self.d, self.touched[b])
 
     def clone(self) -> "TwoLevelSamplerState":
         return TwoLevelSamplerState(self.v.clone(), self.c.clone(), self.d,
@@ -62,6 +77,12 @@ def logsumexp_rows(v: torch.Tensor) -> torch.Tensor:
 
 
 def tl_init(log_weights: torch.Tensor) -> TwoLevelSamplerState:
+    """State of the (D,) log-weights, or stacked state of (B, D) ones."""
+    if log_weights.dim() == 2:
+        lanes = [tl_init(row) for row in log_weights]
+        return TwoLevelSamplerState(v=torch.stack([s.v for s in lanes]),
+                                    c=torch.stack([s.c for s in lanes]), d=lanes[0].d,
+                                    touched=torch.stack([s.touched for s in lanes]))
     d = log_weights.shape[0]
     g, m = _group_shape(d)
     v = torch.full((g * m,), NEG_INF, dtype=log_weights.dtype, device=log_weights.device)
@@ -98,9 +119,11 @@ def rebuild_groups_(c: torch.Tensor, v: torch.Tensor, touched: torch.Tensor) -> 
 
 def tl_rebuild_(state: TwoLevelSamplerState) -> None:
     """In place: rebuild the touched groups' log-sum-exps and clear their
-    flags (a CUDA state launches the draw kernel's rebuild-only form)."""
+    flags (a CUDA state launches the draw kernel's rebuild-only form, one
+    launch for every lane of a stacked state)."""
     if state.v.device.type == "cpu":
-        rebuild_groups_(state.c, state.v, state.touched)
+        for lane in [state.lane(b) for b in range(state.lanes)] if state.lanes else [state]:
+            rebuild_groups_(lane.c, lane.v, lane.touched)
         return
     # imported here: the kernels' modules import this one
     from repro_torch.kernels.bsls_draw.ops import rebuild_touched

@@ -1,4 +1,7 @@
-"""Solver entry points of the port."""
+"""Solver entry points of the port: ``solve``, ``solve_many`` over a
+``grid`` of configs, and the planner's ``SolvePlan``/``plan_for``."""
+from repro_torch.core.solvers.batched import grid, solve_many  # noqa: F401
 from repro_torch.core.solvers.config import FWConfig, FWResult  # noqa: F401
+from repro_torch.core.solvers.planner import SolvePlan, plan_for  # noqa: F401
 from repro_torch.core.solvers.registry import (available_backends, get_backend,  # noqa: F401
                                                resolve_queue, solve)

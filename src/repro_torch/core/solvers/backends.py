@@ -46,23 +46,31 @@ def _dense_backend(data, y, config: FWConfig) -> FWResult:
     return _normalize_stop(dense_fw(data, y, config), config)
 
 
+def torch_sparse_operands(data, y, config: FWConfig):
+    """(pcsr, pcsc, setup, config) of a ``torch_sparse`` solve on ``data``.
+
+    A dataset store (a ``PreparedDataset``) replays its cached setup state
+    and applies its tuning record for the device's platform, when one
+    exists: the tiered CSC and, unless the config pins one, the chunk length
+    — parity-gated at tuning time, so the iterates are the same.  A padded
+    pair has no setup yet (None)."""
+    if not isinstance(data, PreparedDataset):
+        pcsr, pcsc = data
+        return pcsr, pcsc, None, config
+    setup = data.setup_for(y, config.loss)
+    pcsr, pcsc = data.pair
+    rec = data.tuning_for("torch_sparse", config.loss)
+    if rec is not None:
+        if rec.ell_width is not None:
+            pcsc = data.tuned_pcsc(rec)
+        if config.chunk_steps is None and rec.chunk_steps is not None:
+            config = dataclasses.replace(config, chunk_steps=rec.chunk_steps)
+    return pcsr, pcsc, setup, config
+
+
 @register("torch_sparse", data_format="padded", queues=QUEUE_ALIASES["device"],
           default_queue="group_argmax")
 def _torch_sparse_backend(data, y, config: FWConfig) -> FWResult:
     from repro_torch.core.solvers.torch_sparse import torch_sparse_fw
-    setup = None
-    if isinstance(data, PreparedDataset):
-        # dataset-store path: replay the cached fw_setup state (bit-exact)
-        setup = data.setup_for(y, config.loss)
-        pcsr, pcsc = data.pair
-        # the store's tuned layout/chunk winner for this platform, when one
-        # exists — parity-gated at tuning time, so the iterates are the same
-        rec = data.tuning_for("torch_sparse", config.loss)
-        if rec is not None:
-            if rec.ell_width is not None:
-                pcsc = data.tuned_pcsc(rec)
-            if config.chunk_steps is None and rec.chunk_steps is not None:
-                config = dataclasses.replace(config, chunk_steps=rec.chunk_steps)
-    else:
-        pcsr, pcsc = data
+    pcsr, pcsc, setup, config = torch_sparse_operands(data, y, config)
     return torch_sparse_fw(pcsr, pcsc, y, config, setup=setup)

@@ -101,6 +101,11 @@ class PreparedDataset:
                                  if self.tuning_loader else None)
         return self._tuning[key]
 
+    def set_tuning(self, record) -> None:
+        """Install a freshly searched record in memory (the tuner's hook, so
+        the session that ran the search also uses it)."""
+        self._tuning[(record.backend, record.loss, record.platform)] = record
+
     def tuned_pcsc(self, record):
         """The CSC layout ``record`` names: the tiered split at its
         ``ell_width``, memoized per width; the flat layout when untuned."""

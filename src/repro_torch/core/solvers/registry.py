@@ -86,14 +86,32 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+# the JAX package's backends the port does not have yet → their ROADMAP.md item
+UNPORTED_BACKENDS: Mapping[str, str] = {
+    "host_sparse": "A9 (the other engines)",
+    "jax_dense": "A9 (the other engines)",
+    "jax_shard": "A12 (sharded engine)",
+}
+
+
 def get_backend(name: str) -> Backend:
+    """The registered backend ``name`` (``jax_sparse`` is ``torch_sparse``).
+
+    A JAX backend the port lacks raises ``NotImplementedError`` naming its
+    ROADMAP.md item; any other unknown name, ``ValueError``.  ``"auto"`` is
+    resolved by the planner before this is reached (``solve``,
+    ``solve_many``)."""
     _ensure_builtins()
-    try:
-        return _REGISTRY[BACKEND_ALIASES.get(name, name)]
-    except KeyError:
+    name = BACKEND_ALIASES.get(name, name)
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    available = ", ".join(available_backends())
+    if name in UNPORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend {name!r} is not ported (available: {', '.join(available_backends())});"
-            " the other engines are ROADMAP.md item A9") from None
+            f"backend {name!r} is not ported yet (available: {available}): "
+            f"see ROADMAP.md item {UNPORTED_BACKENDS[name]}")
+    raise ValueError(f"unknown solver backend {name!r}; available: {available}"
+                     + ("; 'auto' is resolved by solve/solve_many" if name == "auto" else ""))
 
 
 def _is_padded_pair(X) -> bool:
@@ -243,10 +261,12 @@ def solve(X, y=None, config: Optional[FWConfig] = None, **overrides) -> FWResult
     ``X``: HostCSR, dense (N, D) numpy matrix, a padded pair, or a
     ``DatasetStore``/``DatasetRef`` (``y`` then defaults to the store's
     labels); ``y``: (N,) labels in {0, 1}, numpy or torch.  Keyword
-    overrides apply on top of ``config``.  With telemetry on
-    (``repro_torch.obs``) the call records the JAX package's spans
-    (``solve``, ``solve.coerce``, ``solve.run``) and counter
-    (``solve.calls``); the iterates are the same either way.
+    overrides apply on top of ``config``.  ``backend="auto"`` lets the
+    planner pick ``dense`` or ``torch_sparse`` from the problem's shape
+    (``planner.choose_backend``).  With telemetry on (``repro_torch.obs``)
+    the call records the JAX package's spans (``solve``, ``solve.plan``,
+    ``solve.coerce``, ``solve.run``) and counter (``solve.calls``); the
+    iterates are the same either way.
     """
     config = config or FWConfig()
     if overrides:
@@ -256,6 +276,11 @@ def solve(X, y=None, config: Optional[FWConfig] = None, **overrides) -> FWResult
         check_gap_certificate(config)
         device = check_device(config.device)
         X, y = resolve_data(X, y)
+        if config.backend == "auto":
+            with obs.span("solve.plan"):
+                from repro_torch.core.solvers.planner import choose_backend, data_stats
+                config = dataclasses.replace(
+                    config, backend=choose_backend(data_stats(X), config))
         backend = get_backend(config.backend)
         config = resolve_queue(backend, config)
         sp.set(backend=backend.name, queue=config.queue)

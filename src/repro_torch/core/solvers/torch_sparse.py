@@ -23,7 +23,19 @@ non-private queue synchronises once per lazy-repair pop.
 
 The key chain ``key, sel_t = split(key)`` depends on nothing but the key and
 T, so it is computed on the host once per chunk; the draw kernel receives
-each step's selection key as two uint32 arguments.
+each step's selection key as two uint32 arguments (one config) or as a row
+of a (B, 2) device table uploaded once per chunk (lanes).
+
+Lanes (the JAX package's vmap over a sweep group, ``batched.py``):
+``fw_carry_init_lanes`` stacks B configs' carries over one setup (v̄₀, q̄₀,
+α₀), each with its own EM scale and key, and ``fw_scan_chunk_lanes``
+advances them together: a private step is one ``two_level_draw_lanes`` and
+one ``coord_update_lanes`` launch for all lanes (the chunk's closing
+rebuild one more); a non-private step pops each live lane's host queue,
+writes the (B,) coordinates to the device and makes one update launch.
+One config is the case B = 1 (``fw_carry_init``, ``fw_scan_chunk``: views
+of a one-lane carry), which launches the single-config kernels; so each
+lane's carry, outputs and key equal its own run's bit for bit.
 
 Early stopping (``gap_tol``, ``max_seconds``) runs the masked form of the
 chunk under the shared chunk loop (``stopping.drive_chunks``).  The masking is
@@ -36,7 +48,7 @@ host queue reads ``done`` before each pop and leaves a frozen queue alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -44,14 +56,16 @@ from repro_torch import prng
 from repro_torch.core.dp.accountant import em_log_weight_scale
 from repro_torch.core.losses import get_loss
 from repro_torch.core.samplers.group_argmax import (GroupArgmaxState, ga_get_next,
-                                                    ga_init)
+                                                    ga_init, ga_pop_)
 from repro_torch.core.samplers.two_level import (TwoLevelSamplerState, tl_init,
                                                  tl_rebuild_)
 from repro_torch.core.solvers.config import STOP_MAX_STEPS, FWConfig, FWResult
 from repro_torch.core.solvers.stopping import assemble_outputs, drive_chunks, resolve_chunk
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
-from repro_torch.kernels.bsls_draw.ops import two_level_draw
-from repro_torch.kernels.coord_update.ops import coord_update, coord_update_scratch
+from repro_torch.kernels.bsls_draw.ops import key_table, two_level_draw, two_level_draw_lanes
+from repro_torch.kernels.coord_update.ops import (CoordScratch, LaneScalars, coord_update,
+                                                  coord_update_lanes, coord_update_scratch,
+                                                  lane_scalars)
 from repro_torch.kernels.spmv.ops import ell_rmatvec
 
 ColumnLayout = Union[PaddedCSC, TieredCSC]
@@ -107,20 +121,202 @@ class FWCarry:
     stop_at: torch.Tensor
 
 
+@dataclasses.dataclass
+class LaneCarry:
+    """The loop state of B configs stacked on a leading lane axis (the
+    ``FWCarry`` fields): ``w``/``alpha`` (B, D), ``w_m``/``g_tilde`` (B,),
+    ``vbar``/``qbar`` (B, N), the stacked sampler, ``done``/``stop_at`` (B,) on
+    the device, and each lane's uint32[2] key on the host.  ``queues`` are the
+    non-private lanes' host queues (views into the stacked sampler)."""
+
+    w: torch.Tensor
+    w_m: torch.Tensor
+    g_tilde: torch.Tensor
+    vbar: torch.Tensor
+    qbar: torch.Tensor
+    alpha: torch.Tensor
+    sampler: Union[TwoLevelSamplerState, GroupArgmaxState]
+    keys: List[Tuple[int, int]]
+    done: torch.Tensor
+    stop_at: torch.Tensor
+    queues: Optional[List[GroupArgmaxState]] = None
+
+    def __post_init__(self):
+        if isinstance(self.sampler, GroupArgmaxState) and self.queues is None:
+            self.queues = [self.sampler.lane(b) for b in range(self.lanes)]
+
+    @property
+    def lanes(self) -> int:
+        return self.w.shape[0]
+
+    def take(self, idx: Sequence[int]) -> "LaneCarry":
+        """A carry of lanes ``idx`` (copies, in that order): a cohort's repack."""
+        at = torch.as_tensor(list(idx), dtype=torch.long, device=self.w.device)
+        pick = lambda t: t.index_select(0, at)
+        s = self.sampler
+        if isinstance(s, TwoLevelSamplerState):
+            sampler = TwoLevelSamplerState(pick(s.v), pick(s.c), s.d, pick(s.touched))
+        else:
+            sampler = GroupArgmaxState(pick(s.p), pick(s.bound), s.d)
+        return LaneCarry(pick(self.w), pick(self.w_m), pick(self.g_tilde), pick(self.vbar),
+                         pick(self.qbar), pick(self.alpha), sampler,
+                         [self.keys[i] for i in idx], pick(self.done), pick(self.stop_at))
+
+    def result_w(self) -> torch.Tensor:
+        """(B, D) iterates w·w_m of every lane."""
+        return self.w * self.w_m[:, None]
+
+    def queue(self, b: int) -> Union[TwoLevelSamplerState, GroupArgmaxState]:
+        """Lane b's sampler state, as views (a non-private lane's host queue)."""
+        return self.sampler.lane(b) if self.queues is None else self.queues[b]
+
+
+def _as_lanes(carry: FWCarry) -> LaneCarry:
+    """``carry`` as one lane, viewing its tensors (the lane loop writes through)."""
+    s = carry.sampler
+    one = lambda t: t[None]
+    if isinstance(s, TwoLevelSamplerState):
+        sampler, queues = TwoLevelSamplerState(one(s.v), one(s.c), s.d, one(s.touched)), None
+    else:
+        sampler, queues = GroupArgmaxState(one(s.p), one(s.bound), s.d), [s]
+    return LaneCarry(one(carry.w), one(carry.w_m), one(carry.g_tilde), one(carry.vbar),
+                     one(carry.qbar), one(carry.alpha), sampler,
+                     [tuple(int(k) for k in carry.key)], one(carry.done), one(carry.stop_at),
+                     queues)
+
+
+def fw_carry_init_lanes(d: int, dtype, vbar0, qbar0, alpha0, em_scales: Sequence[float],
+                        keys: Sequence, *, private: bool) -> LaneCarry:
+    """Stacked carries at t = 0 of B configs over one setup (v̄₀, q̄₀, α₀),
+    each with its own EM scale and key (copies: the loop mutates them)."""
+    dev = alpha0.device
+    lanes = len(keys)
+    if len(em_scales) != lanes or lanes < 1:
+        raise ValueError("fw_carry_init_lanes: one EM scale and one key per lane")
+    em = torch.tensor([float(e) for e in em_scales], dtype=dtype, device=dev)
+    prio = alpha0.abs()[None, :].expand(lanes, -1)
+    sampler = tl_init(prio * em[:, None]) if private else ga_init(prio.clone())
+    stack = lambda t: t[None].expand(lanes, *t.shape).clone()
+    return LaneCarry(
+        w=torch.zeros((lanes, d), dtype=dtype, device=dev),
+        w_m=torch.ones(lanes, dtype=dtype, device=dev),
+        g_tilde=torch.zeros(lanes, dtype=dtype, device=dev),
+        vbar=stack(vbar0), qbar=stack(qbar0), alpha=stack(alpha0), sampler=sampler,
+        keys=[tuple(int(k) for k in key) for key in keys],
+        done=torch.zeros(lanes, dtype=torch.bool, device=dev),
+        stop_at=torch.zeros(lanes, dtype=torch.int32, device=dev))
+
+
 def fw_carry_init(d: int, dtype, vbar0, qbar0, alpha0, em_scale, key,
                   *, private: bool) -> FWCarry:
-    """Loop carry at t = 0 (copies the setup state, which the loop mutates)."""
-    dev = alpha0.device
-    em = torch.tensor(em_scale, dtype=dtype, device=dev)
-    sampler = tl_init(alpha0.abs() * em) if private else ga_init(alpha0.abs())
-    return FWCarry(
-        w=torch.zeros(d, dtype=dtype, device=dev),
-        w_m=torch.tensor(1.0, dtype=dtype, device=dev),
-        g_tilde=torch.tensor(0.0, dtype=dtype, device=dev),
-        vbar=vbar0.clone(), qbar=qbar0.clone(), alpha=alpha0.clone(),
-        sampler=sampler, key=torch.as_tensor(key, dtype=torch.int64).clone(),
-        done=torch.tensor(False, device=dev),
-        stop_at=torch.tensor(0, dtype=torch.int32, device=dev))
+    """Loop carry at t = 0: lane 0 of ``fw_carry_init_lanes`` for one config."""
+    lc = fw_carry_init_lanes(d, dtype, vbar0, qbar0, alpha0, [em_scale], [key],
+                             private=private)
+    return FWCarry(w=lc.w[0], w_m=lc.w_m[0], g_tilde=lc.g_tilde[0], vbar=lc.vbar[0],
+                   qbar=lc.qbar[0], alpha=lc.alpha[0], sampler=lc.queue(0),
+                   key=torch.tensor(lc.keys[0], dtype=torch.int64), done=lc.done[0],
+                   stop_at=lc.stop_at[0])
+
+
+def fw_scan_chunk_lanes(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: LaneCarry,
+                        scalars: LaneScalars, t0: int, y=None, *, steps: int, loss: str,
+                        private: bool, early_stop: bool = False,
+                        scratch: Optional[CoordScratch] = None
+                        ) -> Tuple[LaneCarry, Tuple[torch.Tensor, torch.Tensor]]:
+    """Advance B stacked carries (in place) by ``steps`` iterations after
+    global step ``t0``, lane b with λ, EM scale and gap_tol ``scalars``' b;
+    returns (carry, (gaps, coords)), each (B, steps).
+
+    ``y`` (labels) is required for label-coupled objectives.  With
+    ``early_stop`` the chunk is masked: the step that observes
+    ``g_t <= gap_tol`` is still applied, after it the lane's carry (PRNG key
+    included) stays as it was and its outputs are (0.0, -1).  The keys are
+    settled after the chunk, which reads ``done`` back once.  ``scratch``: a
+    ``coord_update_scratch`` for B' >= B lanes, kept by the caller across
+    chunks (allocated if None).
+    """
+    return _scan_chunk(pcsr, pcsc, carry, scalars, t0, y, steps=steps, loss=loss,
+                       private=private, early_stop=early_stop, scratch=scratch, route="auto")
+
+
+def _scan_chunk(pcsr, pcsc, carry: LaneCarry, scalars: LaneScalars, t0: int, y, *,
+                steps: int, loss: str, private: bool, early_stop: bool,
+                scratch: Optional[CoordScratch], route: str):
+    """The chunk loop of ``fw_scan_chunk_lanes``.  One lane runs the
+    single-config kernels (its scalars by value, its key words as
+    arguments), which alone take a forced ``route``; B > 1 lanes run the lane
+    kernels, one launch of each for every lane."""
+    n, d = pcsr.shape
+    obj = get_loss(loss)
+    if not obj.separable and y is None:
+        raise ValueError(f"loss {loss!r} is label-coupled; pass y")
+    lanes = carry.lanes
+    if scalars.lanes != lanes:
+        raise ValueError(f"fw_scan_chunk_lanes: {scalars.lanes} lanes of scalars, "
+                         f"{lanes} of carry")
+    if route != "auto" and lanes > 1:
+        raise ValueError("coord_update: a route is forced for one config only")
+    dev = carry.alpha.device
+    gaps = torch.zeros((lanes, steps), dtype=torch.float32, device=dev)
+    coords = torch.zeros((lanes, steps), dtype=torch.int32, device=dev)
+    j = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    if scratch is None and dev.type == "cuda":
+        scratch = coord_update_scratch(n, d, dev, lanes=None if lanes == 1 else lanes)
+    chains = [prng.key_chain(key, steps) for key in carry.keys]
+    mask = dict(done=carry.done, stop_at=carry.stop_at) if early_stop else {}
+    if lanes == 1:
+        q = carry.queue(0)
+        state = [t[0] for t in (carry.w, carry.w_m, carry.g_tilde, carry.vbar, carry.qbar,
+                                carry.alpha)]
+        flags = {k: v[0] for k, v in mask.items()}
+        if early_stop:
+            flags["gap_tol"] = scalars.gap_tol[0]
+        sel = chains[0][1]
+        draw = lambda i: two_level_draw(q.c, q.v, sel[i], out=j, done=flags.get("done"),
+                                        touched=q.touched)
+        update = lambda i: coord_update(
+            j, pcsr, pcsc, y, *state, q, t=float(t0 + i + 1), lam=scalars.lam[0],
+            inv_n=1.0 / n, em_scale=scalars.em_scale[0], loss=loss, gaps=gaps[0],
+            coords=coords[0], slot=i, scratch=scratch, route=route, **flags)
+    else:
+        q = carry.sampler
+        sel = key_table([s for _, s in chains], dev) if private and steps else None
+        draw = lambda i: two_level_draw_lanes(q.c, q.v, sel[i], out=j, done=mask.get("done"),
+                                              touched=q.touched)
+        update = lambda i: coord_update_lanes(
+            j, pcsr, pcsc, y, carry.w, carry.w_m, carry.g_tilde, carry.vbar, carry.qbar,
+            carry.alpha, q, t=float(t0 + i + 1), scalars=scalars, inv_n=1.0 / n, loss=loss,
+            gaps=gaps, coords=coords, slot=i, scratch=scratch, **mask)
+    picked = [0] * lanes
+    for i in range(steps):
+        # ---- line 15: select each lane's coordinate ------------------------------
+        if private:   # the previous step's touched groups are rebuilt first
+            draw(i)
+        else:
+            live = range(lanes)
+            if early_stop:   # a frozen lane's queue stays as it is
+                live = [b for b, frozen in enumerate(carry.done.tolist()) if not frozen]
+                if not live:
+                    coords[:, i:] = -1
+                    break
+            for b in live:
+                picked[b] = ga_pop_(carry.queues[b])
+            if lanes == 1:
+                j.fill_(picked[0])
+            else:
+                j.copy_(torch.tensor(picked, dtype=torch.int32))
+        # ---- lines 16-29 -----------------------------------------------------------
+        update(i)
+    if private:
+        tl_rebuild_(q)   # every lane's last groups (none after done), one launch
+    keys_next = [tuple(int(k) for k in key_next) for key_next, _ in chains]
+    if early_stop:
+        for b, (frozen, stop) in enumerate(zip(carry.done.tolist(), carry.stop_at.tolist())):
+            if frozen:
+                ran = min(max(stop - t0, 0), steps)
+                keys_next[b] = tuple(int(k) for k in prng.key_chain(carry.keys[b], ran)[0])
+    carry.keys = keys_next
+    return carry, (gaps, coords)
 
 
 def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
@@ -128,51 +324,17 @@ def fw_scan_chunk(pcsr: PaddedCSR, pcsc: ColumnLayout, carry: FWCarry,
                   private: bool, early_stop: bool = False, route: str = "auto"
                   ) -> Tuple[FWCarry, Tuple[torch.Tensor, torch.Tensor]]:
     """Advance ``carry`` (in place) by ``steps`` iterations after global step
-    ``t0``; returns (carry, (gaps, coords)) for this chunk.
-
-    ``y`` (labels) is required for label-coupled objectives.  With
-    ``early_stop`` the chunk is masked: the step that observes
-    ``g_t <= gap_tol`` is still applied, after it the carry (PRNG key
-    included) stays as it was and the outputs are (0.0, -1).  The key is
-    settled after the chunk, which reads ``done`` back once.  ``route``
-    forces ``coord_update``'s route on the card (its results do not depend
-    on it).
-    """
-    n, _ = pcsr.shape
-    obj = get_loss(loss)
-    if not obj.separable and y is None:
-        raise ValueError(f"loss {loss!r} is label-coupled; pass y")
-    dev = carry.alpha.device
-    gaps = torch.zeros(steps, dtype=torch.float32, device=dev)
-    coords = torch.zeros(steps, dtype=torch.int32, device=dev)
-    j = torch.zeros(1, dtype=torch.int32, device=dev)
-    scratch = coord_update_scratch(n, pcsr.shape[1], dev) if dev.type == "cuda" else None
-    key_next, sel_keys = prng.key_chain(carry.key, steps)
-    mask = dict(done=carry.done, stop_at=carry.stop_at, gap_tol=float(gap_tol)) \
-        if early_stop else {}
-    for i in range(steps):
-        # ---- line 15: select coordinate --------------------------------------
-        if private:   # the previous step's touched groups are rebuilt first
-            two_level_draw(carry.sampler.c, carry.sampler.v, sel_keys[i], out=j,
-                           done=mask.get("done"), touched=carry.sampler.touched)
-        else:
-            if early_stop and bool(carry.done):   # frozen: the queue stays as it is
-                coords[i:] = -1
-                break
-            jj, carry.sampler = ga_get_next(carry.sampler)
-            j.fill_(jj)
-        # ---- lines 16-29 ---------------------------------------------------------
-        coord_update(j, pcsr, pcsc, y, carry.w, carry.w_m, carry.g_tilde, carry.vbar,
-                     carry.qbar, carry.alpha, carry.sampler, t=float(t0 + i + 1), lam=lam,
-                     inv_n=1.0 / n, em_scale=em_scale, loss=loss, gaps=gaps,
-                     coords=coords, slot=i, scratch=scratch, route=route, **mask)
-    if private:
-        tl_rebuild_(carry.sampler)   # the last step's groups (none after done)
-    if early_stop and bool(carry.done):
-        ran = min(max(int(carry.stop_at) - t0, 0), steps)
-        key_next = prng.key_chain(carry.key, ran)[0]
-    carry.key = key_next
-    return carry, (gaps, coords)
+    ``t0``; returns (carry, (gaps, coords)) for this chunk: the one-lane case
+    of ``fw_scan_chunk_lanes`` (same masking), on views of ``carry``.
+    ``route`` forces ``coord_update``'s route on the card (its results do
+    not depend on it)."""
+    lanes = _as_lanes(carry)
+    scalars = lane_scalars([lam], [em_scale], [gap_tol])
+    _, (gaps, coords) = _scan_chunk(pcsr, pcsc, lanes, scalars, t0, y, steps=steps, loss=loss,
+                                    private=private, early_stop=early_stop, scratch=None,
+                                    route=route)
+    carry.key = torch.tensor(lanes.keys[0], dtype=torch.int64)
+    return carry, (gaps[0], coords[0])
 
 
 def fw_scan(pcsr: PaddedCSR, pcsc: ColumnLayout, vbar0, qbar0, alpha0, lam, em_scale,

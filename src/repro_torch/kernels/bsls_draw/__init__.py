@@ -1,1 +1,1 @@
-from repro_torch.kernels.bsls_draw.ops import two_level_draw  # noqa: F401
+from repro_torch.kernels.bsls_draw.ops import two_level_draw, two_level_draw_lanes  # noqa: F401

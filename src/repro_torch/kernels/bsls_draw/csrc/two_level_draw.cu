@@ -31,6 +31,15 @@
 // writes the sentinel -1 instead of a draw.  The rebuild-only instance
 // (DRAW = false) is the same kernel without the arrival and the draw.
 //
+// Lanes (the JAX package's vmap of the draw over a sweep group's configs):
+// the grid's second axis is the lane b, and every per-config array has a
+// leading lane axis — c (B, G), v (B, G, M), touched (B, G), out (B,),
+// done (B,) — with one arrival counter per lane: the last block to arrive
+// within lane b draws lane b's coordinate and resets lane b's counter.
+// Lane b's key is row b of a (B, 2) uint32 table in device memory (one
+// table per step, uploaded once per chunk).  The single-config launch is
+// the lane form with B = 1 and its key by value: the same code.
+//
 // Bound on the H100: neither bytes nor operations.  It reads touched (4·G B),
 // the touched groups' rows of v (4·M B each) and c, and writes their c and
 // flags and 4 B of output, with about 100 integer operations per element
@@ -114,9 +123,22 @@ __device__ void draw(const float* c, const float* __restrict__ v, int groups, in
 template <bool DRAW>
 __global__ void __launch_bounds__(DRAW_THREADS)
     two_level_draw_kernel(float* c, const float* __restrict__ v, int groups, int group_size,
-                          int* touched, uint32_t k0, uint32_t k1, int* out,
-                          const bool* done, unsigned* arrivals) {
+                          int* touched, uint32_t k0, uint32_t k1, const uint32_t* keys,
+                          int* out, const bool* done, unsigned* arrivals) {
   __shared__ bool s_last;
+  const int b = blockIdx.y;  // the lane: every per-config array is offset to its row
+  c += static_cast<long long>(b) * groups;
+  v += static_cast<long long>(b) * groups * group_size;
+  if (touched != nullptr) touched += static_cast<long long>(b) * groups;
+  if (DRAW) {
+    out += b;
+    arrivals += b;
+    if (done != nullptr) done += b;
+    if (keys != nullptr) {
+      k0 = keys[2 * b];
+      k1 = keys[2 * b + 1];
+    }
+  }
   if (touched != nullptr && touched[blockIdx.x] != 0) {  // the same for the whole block
     rebuild_group(v, c, blockIdx.x, group_size);
     if (threadIdx.x == 0) touched[blockIdx.x] = 0;  // every thread read it before the barriers
@@ -125,7 +147,7 @@ __global__ void __launch_bounds__(DRAW_THREADS)
   if (gridDim.x > 1) {  // one block (no rebuild) draws at once
     if (threadIdx.x == 0) {
       __threadfence();  // this block's c[g] is visible before it arrives
-      s_last = atomicAdd(arrivals, 1u) == gridDim.x - 1;
+      s_last = atomicAdd(arrivals, 1u) == gridDim.x - 1;  // lane b's blocks only
     }
     __syncthreads();
     if (!s_last) return;
@@ -144,19 +166,24 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // draw != 0: rebuild the touched groups (touched may be null) and draw into
-// out; draw == 0: rebuild only.
+// out; draw == 0: rebuild only.  lanes >= 1 configs, each with its own rows
+// of c, v, touched, out, done and arrivals; keys: a (lanes, 2) device table
+// of the lanes' keys, or null to use (k0, k1) (one lane).
 extern "C" int port_two_level_draw(float* c, const float* v, int groups, int group_size,
-                                   int* touched, uint32_t k0, uint32_t k1, int* out,
-                                   const bool* done, unsigned* arrivals, int draw,
+                                   int* touched, uint32_t k0, uint32_t k1,
+                                   const uint32_t* keys, int* out, const bool* done,
+                                   unsigned* arrivals, int draw, int lanes,
                                    cudaStream_t stream) {
+  if (lanes < 1 || lanes > 65535 || (draw && keys == nullptr && lanes != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (draw) {
-    const int blocks = touched != nullptr ? groups : 1;
-    two_level_draw_kernel<true><<<blocks, DRAW_THREADS, 0, stream>>>(
-        c, v, groups, group_size, touched, k0, k1, out, done, arrivals);
+    const dim3 grid(touched != nullptr ? groups : 1, lanes);
+    two_level_draw_kernel<true><<<grid, DRAW_THREADS, 0, stream>>>(
+        c, v, groups, group_size, touched, k0, k1, keys, out, done, arrivals);
   } else {
     if (touched == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    two_level_draw_kernel<false><<<groups, DRAW_THREADS, 0, stream>>>(
-        c, v, groups, group_size, touched, k0, k1, out, done, arrivals);
+    two_level_draw_kernel<false><<<dim3(groups, lanes), DRAW_THREADS, 0, stream>>>(
+        c, v, groups, group_size, touched, k0, k1, keys, out, done, arrivals);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ the rebuild).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -27,3 +28,15 @@ def two_level_draw_ref(c: torch.Tensor, v: torch.Tensor, key, done=None,
     g = torch.argmax(c + prng.gumbel(kg, c.shape, c.device))
     m = torch.argmax(v[g] + prng.gumbel(km, (1, v.shape[1]), v.device)[0])
     return (g * v.shape[1] + m).to(torch.int32).reshape(1)
+
+
+def two_level_draw_lanes_ref(c: torch.Tensor, v: torch.Tensor, keys: torch.Tensor, done=None,
+                             touched=None) -> torch.Tensor:
+    """The lane form's plain version: (B,) int32 draws, lane b's from its rows
+    of ``c``/``v``/``touched`` with the key in row b of ``keys`` (an int32
+    (B, 2) table of uint32 words)."""
+    words = keys.cpu().numpy().view(np.uint32)
+    return torch.cat([two_level_draw_ref(c[b], v[b], (int(words[b, 0]), int(words[b, 1])),
+                                         None if done is None else done[b],
+                                         None if touched is None else touched[b])
+                      for b in range(v.shape[0])])

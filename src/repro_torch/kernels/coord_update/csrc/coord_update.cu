@@ -88,6 +88,24 @@
 // so they give the same bits for every output; Δg̃'s order differs from the
 // CPU's (allclose there), but is fixed from launch to launch.
 //
+// Lanes (the JAX package's vmap of the kernel over a sweep group's B
+// configs): the grid's second axis is the lane b.  Both kernels offset every
+// per-config array to lane b's row — j (B,), w and α (B, D), w_m and g̃
+// (B,), v̄ and q̄ (B, N), the queue (B, G·M) and its flags or bounds (B, G),
+// done/stop_at (B,), gaps/coords (B, steps) — and read λ, the EM scale and
+// gap_tol from (B,) tables; t and the output slot are shared (lanes advance
+// in lockstep), and so are the matrix, the owner table and the segment
+// tables.  Each lane picks its route from its own nnz[j_b] (the owners
+// kernel skips a lane on the short route through the lane's plan).  Every
+// scratch array that holds one step's state has a lane axis too (γᵢ/N and
+// the parts, the row and column stamps, the plan, the route counts, the
+// lane terms, the row multiplicities): a stamp array shared by two lanes
+// would let lane b' read lane b's stamps as members of its own column.  One
+// epoch per launch serves all lanes, because each lane's stamps are its own.
+// The single-config launch is the same kernels compiled without the lane
+// offsets (LANES = false), its scalars by value; lane b of a lane launch
+// gives its bits.
+//
 // Traps the design avoids:
 //   * stale membership marks: every mark (row, light column, lane term) is
 //     stamped with an epoch that the wrapper increments per call, so a
@@ -202,7 +220,55 @@ struct Args {
   const int* row_repeats;  // (N,) 1: the row lists a column twice (null: no repeats)
   int* rowmult;          // (N,) lanes of column j that list the row (steps whose j repeats)
   int lane_stride;       // lanes of the longest column (N, or more when one lists a row twice)
+  // lanes: per-lane scalar tables (null: the by-value lam/em_scale/gap_tol)
+  // and the strides between two lanes' rows of the per-config arrays
+  const float* lams;     // (B,) λ
+  const float* em_scales;  // (B,) EM scale
+  const float* gap_tols;   // (B,) gap_tol
+  int n_rows;            // N: v̄, q̄, rowinfo, rowmult
+  int prio_stride;       // G·M: prio
+  int groups;            // G: touched or bound
+  int out_stride;        // gaps, coords
+  int terms_stride;      // S·lane_stride: lane_terms
 };
+
+// Lane b's view of the arguments: every per-config pointer at lane b's row,
+// its scalars from the tables.  A single-config launch (LANES = false) uses
+// the arguments as given: its kernels compile as they did before lanes, so
+// the offsets cost them no registers.
+template <bool LANES>
+__device__ __forceinline__ Args lane_args(Args a) {
+  if constexpr (!LANES) return a;
+  const long long b = blockIdx.y;
+  a.j += b;
+  a.w += b * a.d;
+  a.w_m += b;
+  a.g_tilde += b;
+  a.vbar += b * a.n_rows;
+  a.qbar += b * a.n_rows;
+  a.alpha += b * a.d;
+  a.prio += b * a.prio_stride;
+  if (a.bound != nullptr) a.bound += b * a.groups;
+  if (a.touched != nullptr) a.touched += b * a.groups;
+  a.gaps += b * a.out_stride;
+  a.coords += b * a.out_stride;
+  if (a.done != nullptr) {
+    a.done += b;
+    a.stop_at += b;
+  }
+  a.lam = a.lams[b];
+  a.em_scale = a.em_scales[b];
+  a.gap_tol = a.gap_tols[b];
+  a.gs += b * a.lane_stride;
+  a.parts += b * a.lane_stride;
+  a.rowinfo += b * a.n_rows;
+  a.colstamp += b * a.d;
+  a.plan += b;
+  a.routes += 2 * b;
+  a.lane_terms += b * a.terms_stride;
+  a.rowmult += b * a.n_rows;
+  return a;
+}
 
 struct Scalars {
   const int* rows;
@@ -412,8 +478,9 @@ __device__ __forceinline__ void fetch_entry(const Args& a, const Scalars& s, int
 
 // ---- the rows kernel: lines 16-25 and the row dots; the short route whole --
 
-template <int LOSS, bool REPEATS>
-__global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args a) {
+template <int LOSS, bool REPEATS, bool LANES>
+__global__ void __launch_bounds__(ROW_THREADS) rows_kernel(const Args args) {
+  const Args a = lane_args<LANES>(args);
   __shared__ Scalars s_sc;
   __shared__ int s_state;  // 0 frozen, 1 short route, 2 long route
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -697,8 +764,9 @@ __device__ __forceinline__ void warp_owner(const Args& a, int c, int lane, float
 
 // Block 0: Δg̃ and the step's last writes; blocks 1..H: one heavy column
 // each (longest first); then warps over the other columns.
-template <bool REPEATS>
-__global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args a) {
+template <bool REPEATS, bool LANES>
+__global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args args) {
+  const Args a = lane_args<LANES>(args);
   const Plan plan = *a.plan;
   if (!plan.long_route) return;
   const int b = blockIdx.x;
@@ -735,26 +803,39 @@ __global__ void __launch_bounds__(OWNER_THREADS) owners_kernel(const Args a) {
 
 // REPEATS: the matrix holds a repeated entry (col_repeats/row_repeats not
 // null); a matrix without one runs kernels compiled without those paths.
-template <int LOSS, bool REPEATS>
-int launch_as(const Args& a, int max_col_nnz, cudaStream_t stream) {
+// LANES: the lane form (per-lane tables given); the single-config launch
+// runs the kernels compiled without the lane offsets.
+template <int LOSS, bool REPEATS, bool LANES>
+int launch_as(const Args& a, int max_col_nnz, int lanes, cudaStream_t stream) {
   const int row_blocks = max(1, min((max_col_nnz + 31) / 32, ROW_BLOCKS_MAX));
-  rows_kernel<LOSS, REPEATS><<<row_blocks, ROW_THREADS, 0, stream>>>(a);
+  rows_kernel<LOSS, REPEATS, LANES><<<dim3(row_blocks, lanes), ROW_THREADS, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  owners_kernel<REPEATS><<<1 + a.n_heavy + a.light_blocks, OWNER_THREADS, 0, stream>>>(a);
+  owners_kernel<REPEATS, LANES><<<dim3(1 + a.n_heavy + a.light_blocks, lanes), OWNER_THREADS,
+                                  0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LOSS, bool REPEATS>
+int launch_lanes(const Args& a, int max_col_nnz, int lanes, cudaStream_t stream) {
+  return a.lams != nullptr ? launch_as<LOSS, REPEATS, true>(a, max_col_nnz, lanes, stream)
+                           : launch_as<LOSS, REPEATS, false>(a, max_col_nnz, lanes, stream);
+}
+
 template <int LOSS>
-int launch(const Args& a, int max_col_nnz, cudaStream_t stream) {
-  return a.col_repeats != nullptr ? launch_as<LOSS, true>(a, max_col_nnz, stream)
-                                  : launch_as<LOSS, false>(a, max_col_nnz, stream);
+int launch(const Args& a, int max_col_nnz, int lanes, cudaStream_t stream) {
+  return a.col_repeats != nullptr ? launch_lanes<LOSS, true>(a, max_col_nnz, lanes, stream)
+                                  : launch_lanes<LOSS, false>(a, max_col_nnz, lanes, stream);
 }
 
 }  // namespace
 
 extern "C" int port_coord_update_short_route_max() { return SHORT_ROUTE_MAX_ROWS; }
 
+// lanes >= 1 configs in one launch.  lams/em_scales/gap_tols: (lanes,) device
+// tables, or null for one lane with the by-value lam/em_scale/gap_tol; the
+// per-config arrays hold lane b's row at b times their stride (n_rows,
+// prio_stride, groups, out_stride, terms_stride; d and lane_stride).
 extern "C" int port_coord_update(
     int loss, const int* j, const int* cidx, const float* cval, const int* cnnz,
     const int* heavy_slot, const int* hidx, const float* hval, int width, int full,
@@ -765,8 +846,12 @@ extern "C" int port_coord_update(
     float gap_tol, float* gs, float* parts, int* rowinfo, int* colstamp, int* plan,
     int* routes, int epoch, int route, const int* heavy, int n_heavy, int warp_owner_max,
     const int* col_info, int* lane_terms, const int* col_repeats, const int* row_repeats,
-    int* rowmult, int lane_stride, cudaStream_t stream) {
+    int* rowmult, int lane_stride, const float* lams, const float* em_scales,
+    const float* gap_tols, int lanes, int n_rows, int prio_stride, int groups,
+    int out_stride, int terms_stride, cudaStream_t stream) {
   if (route < ROUTE_AUTO || route > ROUTE_LONG) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes < 1 || lanes > 65535 || (lanes > 1 && lams == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int light_blocks = max(1, min((d + 4 * OWNER_WARPS - 1) / (4 * OWNER_WARPS), 4096));
   const Args a{j, port::Cols{cidx, cval, cnnz, heavy_slot, hidx, hval, width, full},
                ridx, rval, rnnz, kr, y, w, w_m, g_tilde, vbar, qbar, alpha, prio, bound,
@@ -775,13 +860,14 @@ extern "C" int port_coord_update(
                reinterpret_cast<Plan*>(plan), routes, epoch, route, heavy, n_heavy,
                warp_owner_max, light_blocks, reinterpret_cast<const int2*>(col_info),
                reinterpret_cast<int2*>(lane_terms), col_repeats, row_repeats, rowmult,
-               lane_stride};
+               lane_stride, lams, em_scales, gap_tols, n_rows, prio_stride, groups,
+               out_stride, terms_stride};
   switch (loss) {
-    case LOGISTIC: return launch<LOGISTIC>(a, full, stream);
-    case SQUARED: return launch<SQUARED>(a, full, stream);
-    case LAD: return launch<LAD>(a, full, stream);
-    case HUBER: return launch<HUBER>(a, full, stream);
-    case SMOOTHED_HINGE: return launch<SMOOTHED_HINGE>(a, full, stream);
+    case LOGISTIC: return launch<LOGISTIC>(a, full, lanes, stream);
+    case SQUARED: return launch<SQUARED>(a, full, lanes, stream);
+    case LAD: return launch<LAD>(a, full, lanes, stream);
+    case HUBER: return launch<HUBER>(a, full, lanes, stream);
+    case SMOOTHED_HINGE: return launch<SMOOTHED_HINGE>(a, full, lanes, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -21,18 +21,32 @@ A masked run passes its ``done`` (bool) and ``stop_at`` (int32) device
 flags: a step that finds ``done`` set writes only the sentinels
 ``gaps[slot] = 0``, ``coords[slot] = -1``; the step whose gap is
 ``<= gap_tol`` (float32) is applied and sets ``done`` and ``stop_at = t``.
+
+``coord_update_lanes`` is the lane form (the JAX package's vmap over a
+sweep group): one launch steps B configs over the shared matrix, each
+with its own rows of the state — ``j`` (B,), ``w``/``alpha`` (B, D),
+``w_m``/``g_tilde`` (B,), ``vbar``/``qbar`` (B, N), the stacked queue,
+``gaps``/``coords`` (B, steps), ``done``/``stop_at`` (B,) — and its own λ,
+EM scale and gap_tol (``LaneScalars``); ``t`` and ``slot`` are shared.  Lane
+b gives the bits of ``coord_update`` on lane b's state.  Its scratch
+(``coord_update_scratch(..., lanes=B')``, B' >= B: a launch uses its first
+B rows, and one scratch serves a cohort as it narrows, down to one config's
+``coord_update``) has a lane axis on every array that holds a step's state.
+Each lane takes the route its column picks.  It counts
+``coord_update_lanes.launches``; its plain version loops
+``coord_update_ref`` over the lanes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.losses import get_loss
 from repro_torch.core.samplers.two_level import TwoLevelSamplerState
 from repro_torch.kernels import _lib
-from repro_torch.kernels.coord_update.ref import coord_update_ref
+from repro_torch.kernels.coord_update.ref import coord_update_lanes_ref, coord_update_ref
 
 ROUTES = {"auto": 0, "short": 1, "long": 2}
 # an owner column of more rows than this gets a block of the owners kernel,
@@ -48,7 +62,8 @@ _EPOCH_MAX = 2 ** 31 - 1
 
 @dataclasses.dataclass
 class CoordScratch:
-    """Device scratch of the kernel for an (N, D) matrix (``coord_update_scratch``)."""
+    """Device scratch of the kernel for an (N, D) matrix (``coord_update_scratch``);
+    with ``lanes`` set, every array below has a leading lane axis (B, ...)."""
 
     gs: torch.Tensor        # (L,) float32 γᵢ/N of each lane of column j
     parts: torch.Tensor     # (L,) float32 γᵢ/N·⟨X[i,:], w⟩ of each lane; L >= the
@@ -61,15 +76,29 @@ class CoordScratch:
     rowmult: torch.Tensor   # (N,) int32 lanes of column j that list the row (repeated entries)
     lane_terms: torch.Tensor = None  # (S·L, 2) int32 (term bits, epoch), sized at first use
     epoch: int = 0          # stamp of the last call (incremented per call)
+    lanes: Optional[int] = None  # B of the lane form; None: one config, no lane axis
+
+    def lane_shape(self, *shape: int) -> Tuple[int, ...]:
+        return shape if self.lanes is None else (self.lanes,) + shape
 
 
-def coord_update_scratch(n: int, d: int, device) -> CoordScratch:
+def coord_update_scratch(n: int, d: int, device, lanes: Optional[int] = None) -> CoordScratch:
+    """Scratch for an (N, D) matrix; ``lanes`` = B for ``coord_update_lanes``."""
+    lead = () if lanes is None else (lanes,)
     i32 = dict(dtype=torch.int32, device=device)
-    return CoordScratch(gs=torch.zeros(n, dtype=torch.float32, device=device),
-                        parts=torch.zeros(n, dtype=torch.float32, device=device),
-                        rowinfo=torch.zeros((n, 2), **i32), colstamp=torch.zeros(d, **i32),
-                        plan=torch.zeros(8, **i32), routes=torch.zeros(2, **i32),
-                        rowmult=torch.zeros(n, **i32))
+    return CoordScratch(gs=torch.zeros(lead + (n,), dtype=torch.float32, device=device),
+                        parts=torch.zeros(lead + (n,), dtype=torch.float32, device=device),
+                        rowinfo=torch.zeros(lead + (n, 2), **i32),
+                        colstamp=torch.zeros(lead + (d,), **i32),
+                        plan=torch.zeros(lead + (8,), **i32), routes=torch.zeros(lead + (2,), **i32),
+                        rowmult=torch.zeros(lead + (n,), **i32), lanes=lanes)
+
+
+def scratch_bytes(n: int, d: int, table: "OwnerTable") -> int:
+    """Device bytes of one lane's scratch for an (N, D) matrix with owner
+    table ``table`` (the lane terms dominate: S·L·8 B, up to 2^24·8 B)."""
+    lanes = max(table.lanes, n)
+    return 4 * (2 * lanes + 2 * n + d + 8 + 2 + n) + 8 * max(1, table.slots * table.lanes)
 
 
 def _row_runs(indices: torch.Tensor, nnz: torch.Tensor, n_rows: int, chunk: int = 1024):
@@ -149,26 +178,46 @@ def owner_table(pcsc) -> OwnerTable:
     return table
 
 
-def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
-                 t: float, lam: float, inv_n: float, em_scale: float, loss: str,
-                 gaps: torch.Tensor, coords: torch.Tensor, slot: int,
-                 scratch: Optional[CoordScratch] = None, done: Optional[torch.Tensor] = None,
-                 stop_at: Optional[torch.Tensor] = None, gap_tol: float = 0.0,
-                 route: str = "auto") -> None:
-    """``scratch``: a ``CoordScratch`` for this matrix's shape (allocated if None)."""
-    obj = get_loss(loss)
-    if route not in ROUTES:
-        raise ValueError(f"coord_update: route must be one of {sorted(ROUTES)}, got {route!r}")
-    kw = dict(t=t, lam=lam, inv_n=inv_n, em_scale=em_scale, loss=loss,
-              gaps=gaps, coords=coords, slot=slot, done=done, stop_at=stop_at,
-              gap_tol=gap_tol)
-    if alpha.device.type == "cpu":
-        coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, **kw)
-        return
+@dataclasses.dataclass
+class LaneScalars:
+    """The per-config scalars of a lane launch: the configs' own floats (the
+    plain version reads them, as ``coord_update`` reads its arguments) and
+    their float32 (3, B) table on the card (λ, EM scale, gap_tol), uploaded
+    once per chunk."""
+
+    lam: Tuple[float, ...]
+    em_scale: Tuple[float, ...]
+    gap_tol: Tuple[float, ...]
+    table: Optional[torch.Tensor] = None
+
+    @property
+    def lanes(self) -> int:
+        return len(self.lam)
+
+    def take(self, idx: Sequence[int]) -> "LaneScalars":
+        """The scalars of lanes ``idx``, in that order (a cohort's repack)."""
+        pick = lambda xs: tuple(xs[i] for i in idx)
+        dev = None if self.table is None else self.table.device
+        return lane_scalars(pick(self.lam), pick(self.em_scale), pick(self.gap_tol), dev)
+
+
+def lane_scalars(lams: Sequence[float], em_scales: Sequence[float],
+                 gap_tols: Sequence[float], device=None) -> LaneScalars:
+    lams, ems, tols = (tuple(float(x) for x in xs) for xs in (lams, em_scales, gap_tols))
+    if not len(lams) == len(ems) == len(tols) >= 1:
+        raise ValueError("coord_update_lanes: one λ, EM scale and gap_tol per lane")
+    table = None
+    if device is not None and torch.device(device).type == "cuda":
+        table = torch.tensor([lams, ems, tols], dtype=torch.float32, device=device)
+    return LaneScalars(lams, ems, tols, table)
+
+
+def _validate(j, pcsr, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, gaps, coords,
+              slot, done, stop_at, lanes: Optional[int]):
     private = isinstance(queue, TwoLevelSamplerState)
     prio = queue.v if private else queue.p
     if not obj.separable and y is None:
-        raise ValueError(f"loss {loss!r} is label-coupled; pass y")
+        raise ValueError(f"loss {obj.name!r} is label-coupled; pass y")
     if j.dtype != torch.int32 or coords.dtype != torch.int32:
         raise ValueError("coord_update: j and coords must be int32")
     floats = (w, w_m, g_tilde, vbar, qbar, alpha, prio, gaps, pcsr.values)
@@ -177,32 +226,63 @@ def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
         raise ValueError("coord_update: state tensors must be float32")
     if pcsr.indices.dtype != torch.int32 or pcsr.nnz.dtype != torch.int32:
         raise ValueError("coord_update: padded CSR ids must be int32")
-    if not 0 <= slot < gaps.shape[0]:
+    if not 0 <= slot < gaps.shape[-1]:
         raise ValueError(f"coord_update: slot {slot} outside the output arrays")
     if (done is None) != (stop_at is None) or (done is not None and (
             done.dtype != torch.bool or stop_at.dtype != torch.int32)):
         raise ValueError("coord_update: pass both done (bool) and stop_at (int32), or neither")
     n, d = pcsr.shape
-    if scratch is None:
-        scratch = coord_update_scratch(n, d, alpha.device)
-    if scratch.rowinfo.shape[0] != n or scratch.colstamp.shape != (d,):
+    if lanes is not None:
+        g = prio.shape[-2]
+        want = {"j": (j, (lanes,)), "w": (w, (lanes, d)), "w_m": (w_m, (lanes,)),
+                "g_tilde": (g_tilde, (lanes,)), "vbar": (vbar, (lanes, n)),
+                "qbar": (qbar, (lanes, n)), "alpha": (alpha, (lanes, d)),
+                "queue": (prio, (lanes, g, prio.shape[-1])),
+                "coords": (coords, gaps.shape), "gaps": (gaps, (lanes, gaps.shape[-1]))}
+        if done is not None:
+            want.update(done=(done, (lanes,)), stop_at=(stop_at, (lanes,)))
+        bad = [k for k, (t, shape) in want.items() if tuple(t.shape) != tuple(shape)]
+        if bad:
+            raise ValueError(f"coord_update_lanes: {', '.join(bad)} not shaped for "
+                             f"{lanes} lanes of an ({n}, {d}) matrix")
+
+
+def _launch_cuda(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, *,
+                 t: float, lam: float, inv_n: float, em_scale: float, gaps, coords, slot: int,
+                 scratch: CoordScratch, done, stop_at, gap_tol: float, route: str,
+                 scalars: Optional[LaneScalars]) -> None:
+    """One launch of the rows and owners kernels: one config (``scalars``
+    None) or ``scalars.lanes`` configs (the first rows of a lane scratch)."""
+    private = isinstance(queue, TwoLevelSamplerState)
+    prio = queue.v if private else queue.p
+    n, d = pcsr.shape
+    lanes = 1 if scalars is None else scalars.lanes
+    if scratch.rowinfo.shape[-2] != n or scratch.colstamp.shape[-1] != d:
         raise ValueError(f"coord_update: scratch is not for an ({n}, {d}) matrix")
+    if scalars is not None and (scalars.table is None or scalars.lanes != lanes):
+        raise ValueError(f"coord_update_lanes: the scalars' table is not for {lanes} lanes "
+                         "on the card")
     y_arg = None if obj.separable else y
     bound = None if private else queue.bound
     touched = queue.touched if private else None
+    table = None if scalars is None else scalars.table
     _lib.require_cuda("coord_update", j, pcsr.indices, pcsr.values, pcsr.nnz, y_arg, w, w_m,
                       g_tilde, vbar, qbar, alpha, prio, bound, touched, gaps, coords, done,
                       stop_at, scratch.gs, scratch.parts, scratch.rowinfo, scratch.colstamp,
-                      scratch.plan, scratch.routes, scratch.rowmult)
+                      scratch.plan, scratch.routes, scratch.rowmult, table)
     cols = _lib.col_table(pcsc)
     owners = owner_table(pcsc)
-    if scratch.gs.shape[0] < owners.lanes:   # a column lists more lanes than rows
-        scratch.gs = torch.zeros(owners.lanes, dtype=torch.float32, device=alpha.device)
-        scratch.parts = torch.zeros(owners.lanes, dtype=torch.float32, device=alpha.device)
-    if scratch.lane_terms is None or \
-            scratch.lane_terms.shape[0] < max(1, owners.slots * owners.lanes):
-        scratch.lane_terms = torch.zeros((max(1, owners.slots * owners.lanes), 2),
-                                         dtype=torch.int32, device=alpha.device)
+    dev = alpha.device
+    if scratch.gs.shape[-1] < owners.lanes:   # a column lists more lanes than rows
+        scratch.gs = torch.zeros(scratch.lane_shape(owners.lanes), dtype=torch.float32,
+                                 device=dev)
+        scratch.parts = torch.zeros(scratch.lane_shape(owners.lanes), dtype=torch.float32,
+                                    device=dev)
+    stride = scratch.gs.shape[-1]   # a lane of j's terms, and a lane's row of gs/parts
+    terms = max(1, owners.slots * stride)
+    if scratch.lane_terms is None or scratch.lane_terms.shape[-2] < terms:
+        scratch.lane_terms = torch.zeros(scratch.lane_shape(terms, 2), dtype=torch.int32,
+                                         device=dev)
     if scratch.epoch >= _EPOCH_MAX:   # stamps restart; no stale mark can match
         for stamped in (scratch.rowinfo, scratch.colstamp, scratch.lane_terms):
             stamped.zero_()
@@ -219,9 +299,68 @@ def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
         ROUTES[route], p(owners.heavy), owners.heavy.shape[0], WARP_OWNER_MAX,
         p(owners.col_info), p(scratch.lane_terms),
         *((p(owners.col_repeats), p(owners.row_repeats)) if owners.repeats else (None, None)),
-        p(scratch.rowmult), owners.lanes, _lib.stream())
+        p(scratch.rowmult), stride,
+        *((None, None, None) if table is None else (p(table[0]), p(table[1]), p(table[2]))),
+        lanes, n, prio.shape[-2] * prio.shape[-1], prio.shape[-2], gaps.shape[-1],
+        scratch.lane_terms.shape[-2], _lib.stream())
     _lib.check(code, "coord_update")
+
+
+def coord_update(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
+                 t: float, lam: float, inv_n: float, em_scale: float, loss: str,
+                 gaps: torch.Tensor, coords: torch.Tensor, slot: int,
+                 scratch: Optional[CoordScratch] = None, done: Optional[torch.Tensor] = None,
+                 stop_at: Optional[torch.Tensor] = None, gap_tol: float = 0.0,
+                 route: str = "auto") -> None:
+    """``scratch``: a ``CoordScratch`` for this matrix's shape (allocated if
+    None); a lane scratch serves with its first row."""
+    obj = get_loss(loss)
+    if route not in ROUTES:
+        raise ValueError(f"coord_update: route must be one of {sorted(ROUTES)}, got {route!r}")
+    if alpha.device.type == "cpu":
+        coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, t=t,
+                         lam=lam, inv_n=inv_n, em_scale=em_scale, loss=loss, gaps=gaps,
+                         coords=coords, slot=slot, done=done, stop_at=stop_at,
+                         gap_tol=gap_tol)
+        return
+    _validate(j, pcsr, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, gaps, coords, slot,
+              done, stop_at, None)
+    if scratch is None:
+        scratch = coord_update_scratch(*pcsr.shape, alpha.device)
+    _launch_cuda(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, t=t,
+                 lam=lam, inv_n=inv_n, em_scale=em_scale, gaps=gaps, coords=coords, slot=slot,
+                 scratch=scratch, done=done, stop_at=stop_at, gap_tol=gap_tol, route=route,
+                 scalars=None)
     coord_update.launches += 1
+
+
+def coord_update_lanes(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
+                       t: float, scalars: LaneScalars, inv_n: float, loss: str,
+                       gaps: torch.Tensor, coords: torch.Tensor, slot: int,
+                       scratch: Optional[CoordScratch] = None,
+                       done: Optional[torch.Tensor] = None,
+                       stop_at: Optional[torch.Tensor] = None) -> None:
+    """One step of B configs in one launch (see the module docstring);
+    ``queue``: the stacked ``TwoLevelSamplerState`` or ``GroupArgmaxState``."""
+    obj = get_loss(loss)
+    lanes = scalars.lanes
+    _validate(j, pcsr, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, gaps, coords, slot,
+              done, stop_at, lanes)
+    if alpha.device.type == "cpu":
+        coord_update_lanes_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, t=t,
+                               scalars=scalars, inv_n=inv_n, loss=loss, gaps=gaps,
+                               coords=coords, slot=slot, done=done, stop_at=stop_at)
+        return
+    if scratch is None:
+        scratch = coord_update_scratch(*pcsr.shape, alpha.device, lanes=lanes)
+    if scratch.lanes is None or scratch.lanes < lanes:
+        raise ValueError(f"coord_update_lanes: the scratch is for {scratch.lanes} lanes, "
+                         f"fewer than {lanes}")
+    _launch_cuda(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, obj, t=t,
+                 lam=0.0, inv_n=inv_n, em_scale=0.0, gaps=gaps, coords=coords, slot=slot,
+                 scratch=scratch, done=done, stop_at=stop_at, gap_tol=0.0, route="auto",
+                 scalars=scalars)
+    coord_update_lanes.launches += 1
 
 
 def short_route_max_rows() -> int:
@@ -231,3 +370,4 @@ def short_route_max_rows() -> int:
 
 
 coord_update.launches = 0
+coord_update_lanes.launches = 0

@@ -72,6 +72,21 @@ def coord_update_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue
     g_tilde.copy_(gt + wm * (gs * dots).sum())
 
 
+def coord_update_lanes_ref(j, pcsr, pcsc, y, w, w_m, g_tilde, vbar, qbar, alpha, queue, *,
+                           t: float, scalars, inv_n: float, loss: str, gaps: torch.Tensor,
+                           coords: torch.Tensor, slot: int, done=None, stop_at=None) -> None:
+    """The lane form's plain version: ``coord_update_ref`` on each lane's
+    rows of the stacked state, with the lane's own λ, EM scale and gap_tol
+    (``scalars``, a ``LaneScalars``)."""
+    for b in range(scalars.lanes):
+        coord_update_ref(j[b:b + 1], pcsr, pcsc, y, w[b], w_m[b], g_tilde[b], vbar[b], qbar[b],
+                         alpha[b], queue.lane(b), t=t, lam=scalars.lam[b], inv_n=inv_n,
+                         em_scale=scalars.em_scale[b], loss=loss, gaps=gaps[b],
+                         coords=coords[b], slot=slot, done=None if done is None else done[b],
+                         stop_at=None if stop_at is None else stop_at[b],
+                         gap_tol=scalars.gap_tol[b])
+
+
 # ---- line 26's order, stated two ways ------------------------------------------
 #
 # The kernel's α is bitwise equal to ``coord_update_ref``'s: every α[c] is

@@ -21,7 +21,13 @@ forward on the card against the CPU's within 1e-4, decode against forward
 within 5e-4 (``tests/test_models_smoke.py``'s bound), and the serving
 engine's greedy tokens equal to the CPU engine's.  A dataset store solved on
 the card equals the in-memory solve on the card bit for bit, cold and warm,
-and its setup cache is the card's own file.
+and its setup cache is the card's own file.  The lane kernels (a sweep
+group's B configs in one launch) at B = 1, 3 and 8 equal the single-config
+kernel run on each lane bit for bit — lanes on different routes, a lane
+that is done — and meet the kernels' rules against the plain versions;
+every lane's arrival counter is 0 after each launch; ``solve_many`` on the
+card equals per-config ``solve`` bit for bit with one launch of each kernel
+per step for the whole group.
 """
 import dataclasses
 
@@ -29,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import FWConfig, prng, solve
+from repro_torch import FWConfig, grid, prng, solve, solve_many
 from repro_torch.core.samplers.group_argmax import ga_init
 from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init, tl_rebuild_,
                                                  tl_scatter_)
@@ -37,12 +43,13 @@ from repro_torch.core.solvers.torch_sparse import fw_setup
 from repro_torch.core.sparse.formats import PaddedCSR, host_to_padded, tiered_from_padded
 from repro_torch.data.synthetic import make_sparse_classification, with_repeated_entries
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.bsls_draw import two_level_draw
-from repro_torch.kernels.bsls_draw.ops import arrival_counter
+from repro_torch.kernels.bsls_draw import two_level_draw, two_level_draw_lanes
+from repro_torch.kernels.bsls_draw.ops import arrival_counter, key_table
 from repro_torch.kernels.bsls_draw.ref import two_level_draw_ref
-from repro_torch.kernels.coord_update import coord_update
+from repro_torch.kernels.coord_update import coord_update, coord_update_lanes
 from repro_torch.kernels.coord_update import ops as cu_ops
-from repro_torch.kernels.coord_update.ops import coord_update_scratch, short_route_max_rows
+from repro_torch.kernels.coord_update.ops import (coord_update_scratch, lane_scalars,
+                                                  short_route_max_rows)
 from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches, coord_update_ref,
                                                   same_bits)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -262,7 +269,8 @@ def test_dense_card_solve_matches_cpu_solve(problem, selection):
     reset_launch_counts()
     card = solve(pair, y, cfg)
     assert launch_counts() == {"ell_matvec": 40, "ell_rmatvec": 41, "two_level_draw": 0,
-                               "coord_update": 0, "flash_attention": 0}
+                               "coord_update": 0, "flash_attention": 0,
+                               "two_level_draw_lanes": 0, "coord_update_lanes": 0}
     cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
     assert torch.equal(card.coords.cpu(), cpu.coords)
     for name in ("w", "gaps", "losses"):
@@ -656,3 +664,179 @@ def test_card_setup_cache_is_the_cuda_file_and_never_read_on_the_cpu(cuda, tmp_p
         "setup-logistic-torch-cpu.npz", "setup-logistic-torch-cuda.npz"]
     with open(os.path.join(cache, setup_files[0]), "rb") as f:
         assert f.read() == card_bytes
+
+
+# ---- the lane kernels (solve_many's lane form) ---------------------------------
+
+
+def _lane_state(alpha, lanes, private, em, d):
+    """B lanes of distinct state: lane b's w, w_m, g̃ and α scaled by its own
+    factors, and its queue from its own α."""
+    gen = torch.Generator().manual_seed(lanes)
+    w = (torch.randn(lanes, d, generator=gen) * (torch.rand(lanes, d, generator=gen) < 0.2))
+    scale = torch.tensor([1.0 + 0.25 * b for b in range(lanes)])
+    a = (alpha[None, :].cpu() * scale[:, None]).cuda()
+    prio = a.abs() * torch.tensor(em, device="cuda")[:, None]
+    return dict(w=w.cuda(), w_m=torch.tensor([0.8 - 0.05 * b for b in range(lanes)]).cuda(),
+                g_tilde=torch.tensor([0.5 + 0.1 * b for b in range(lanes)]).cuda(),
+                alpha=a, queue=tl_init(prio) if private else ga_init(prio))
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiered"])
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_lane_coord_update_equals_single_kernel_per_lane(long_problem, lanes, private,
+                                                         layout):
+    """Three steps of B lanes, each lane on its own column (short and long
+    routes in one launch), the last lane of a group done: every lane's state
+    and outputs equal the single-config kernel's on that lane bit for bit,
+    and the first step meets the bitwise rule against the plain version."""
+    X, y, (pcsr, flat) = long_problem
+    n, d = X.shape
+    pcsc = flat if layout == "flat" else tiered_from_padded(flat, 8)
+    y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+    vbar, qbar, alpha = fw_setup(pcsr, y_t, loss="logistic", pcsc=flat)
+    nnz = flat.nnz.cpu()
+    short = torch.nonzero((nnz >= 1) & (nnz <= short_route_max_rows())).flatten()[:4].tolist()
+    heavy = [int(torch.argmax(nnz))] + torch.nonzero(nnz > 300).flatten()[:3].tolist()
+    cols = [c for pair in zip(short, heavy) for c in pair]
+    em = [30.0 + 10.0 * b if private else 1.0 for b in range(lanes)]
+    lams = [8.0 + b for b in range(lanes)]
+    st = _lane_state(alpha, lanes, private, em, d)
+    st.update(vbar=vbar[None].expand(lanes, -1).clone(), qbar=qbar[None].expand(lanes, -1).clone())
+    singles = [{k: (v.lane(b).clone() if k == "queue" else v[b].clone()) for k, v in st.items()}
+               for b in range(lanes)]
+    done = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+    done[lanes - 1] = lanes > 1
+    stop_at = torch.zeros(lanes, dtype=torch.int32, device="cuda")
+    s_done = [done[b:b + 1].clone() for b in range(lanes)]
+    s_stop = [stop_at[b:b + 1].clone() for b in range(lanes)]
+    gaps = torch.zeros((lanes, 4), device="cuda")
+    coords = torch.zeros((lanes, 4), dtype=torch.int32, device="cuda")
+    s_out = [(torch.zeros(4, device="cuda"), torch.zeros(4, dtype=torch.int32, device="cuda"))
+             for _ in range(lanes)]
+    scratch = coord_update_scratch(n, d, "cuda", lanes=lanes)
+    one = coord_update_scratch(n, d, "cuda")
+    scalars = lane_scalars(lams, em, [0.0] * lanes, "cuda")
+    cpu_csr, cpu_csc, y_cpu = pcsr.to("cpu"), pcsc.to("cpu"), y_t.cpu()
+    for step in range(3):
+        js = [cols[(b + step) % len(cols)] for b in range(lanes)]
+        before = [{k: (v.lane(b).to("cpu") if k == "queue" else v[b].cpu())
+                   for k, v in st.items()} for b in range(lanes)]
+        reset_launch_counts()
+        coord_update_lanes(torch.tensor(js, dtype=torch.int32, device="cuda"), pcsr, pcsc, y_t,
+                           st["w"], st["w_m"], st["g_tilde"], st["vbar"], st["qbar"],
+                           st["alpha"], st["queue"], t=float(step + 2), scalars=scalars,
+                           inv_n=1.0 / n, loss="logistic", gaps=gaps, coords=coords,
+                           slot=step, scratch=scratch, done=done, stop_at=stop_at)
+        assert launch_counts()["coord_update_lanes"] == 1
+        gs = scratch.gs.clone()
+        for b in range(lanes):
+            sb = singles[b]
+            coord_update(torch.tensor([js[b]], dtype=torch.int32, device="cuda"), pcsr, pcsc,
+                         y_t, sb["w"], sb["w_m"], sb["g_tilde"], sb["vbar"], sb["qbar"],
+                         sb["alpha"], sb["queue"], t=float(step + 2), lam=lams[b],
+                         inv_n=1.0 / n, em_scale=em[b], loss="logistic", gaps=s_out[b][0],
+                         coords=s_out[b][1], slot=step, scratch=one, done=s_done[b],
+                         stop_at=s_stop[b])
+            lane = {k: (v.lane(b) if k == "queue" else v[b]) for k, v in st.items()}
+            lane.update(gaps=gaps[b], coords=coords[b])
+            sb_all = dict(sb, gaps=s_out[b][0], coords=s_out[b][1])
+            assert _same_bits(_bits(lane), _bits(sb_all)), (lanes, step, b, js[b])
+            if bool(done[b]):
+                assert int(coords[b, step]) == -1 and float(gaps[b, step]) == 0.0
+            elif step == 0:
+                k = int(flat.nnz[js[b]])
+                after = {key: v.cpu() for key, v in lane.items()
+                         if key not in ("gaps", "coords", "queue")}
+                after.update(queue=lane["queue"].to("cpu"), gaps=gaps[b, :1].cpu(),
+                             coords=coords[b, :1].cpu())
+                bad = bitwise_rule_mismatches(js[b], cpu_csr, cpu_csc, y_cpu, before[b], after,
+                                              gs[b, :k].cpu(), t=2.0, lam=lams[b],
+                                              inv_n=1.0 / n, em_scale=em[b], loss="logistic")
+                assert bad == [], (b, js[b], bad)
+        if private:      # the next draw's rebuild, on both sides
+            tl_rebuild_(st["queue"])
+            for sb in singles:
+                tl_rebuild_(sb["queue"])
+    live = lanes - 1 if lanes > 1 else 1
+    routes = scratch.routes[:live].sum(0).tolist()
+    assert routes[0] > 0 and routes[1] > 0, routes   # both routes in the lane launches
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_lane_draw_equals_single_draw_and_plain(problem, lanes):
+    """60 steps of B lanes' scatters and rebuilding draws, one launch a step:
+    each lane's draw and c equal the single-config kernel's on that lane,
+    the draw equals the plain draw on the kernel's c, a done lane writes -1,
+    and every lane's arrival counter is 0 after each launch."""
+    X, y, (pcsr, pcsc) = problem
+    alpha = fw_setup(pcsr, torch.from_numpy(y.astype(np.float32)).cuda(), loss="logistic",
+                     pcsc=pcsc)[2]
+    em = torch.tensor([200.0 + 50.0 * b for b in range(lanes)], device="cuda")
+    state = tl_init(alpha.abs()[None, :] * em[:, None])
+    singles = [state.lane(b).clone() for b in range(lanes)]
+    chains = [prng.key_chain(prng.PRNGKey(b + 5), 60)[1] for b in range(lanes)]
+    table = key_table(chains, "cuda")
+    done = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+    done[lanes // 2] = lanes > 1
+    out = torch.empty(lanes, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(lanes)
+    reset_launch_counts()
+    for step in range(60):
+        for b in range(lanes):
+            idx = torch.from_numpy(rng.integers(0, X.shape[1], 30)).cuda()
+            vals = alpha.abs()[idx] * float(rng.uniform(50, 400))
+            tl_scatter_(state.lane(b), idx, vals)
+            tl_scatter_(singles[b], idx, vals)
+        two_level_draw_lanes(state.c, state.v, table[step], out, done=done,
+                             touched=state.touched)
+        assert int(arrival_counter("cuda", lanes).abs().sum()) == 0, step
+        for b in range(lanes):
+            one = two_level_draw(singles[b].c, singles[b].v, chains[b][step],
+                                 done=done[b:b + 1], touched=singles[b].touched)
+            assert int(one) == int(out[b]), (step, b)
+            assert same_bits(singles[b].c, state.c[b]), (step, b)
+            want = -1 if bool(done[b]) else int(two_level_draw_ref(state.c[b], state.v[b],
+                                                                   chains[b][step]))
+            assert int(out[b]) == want, (step, b)
+        assert int(state.touched.sum()) == 0
+    assert launch_counts()["two_level_draw_lanes"] == 60
+    tl_scatter_(state.lane(0), idx, vals * 2)       # the rebuild-only launch, every lane
+    plain = state.clone()
+    tl_rebuild_(state)
+    for b in range(lanes):
+        rebuild_groups_(plain.c[b], plain.v[b], plain.touched[b])
+    torch.testing.assert_close(state.c, plain.c, rtol=1e-6, atol=1e-6)
+    assert int(state.touched.sum()) == 0
+
+
+@pytest.mark.parametrize("private", [False, True])
+def test_card_sweep_equals_per_config_solves(problem, private):
+    """``solve_many`` on the card, lanes and sequential, equals each config's
+    own ``solve`` bit for bit; the lane sweep launches each kernel once a step
+    for the whole group and ``ell_rmatvec`` once per group; a gap_tol cohort
+    retires each config at its own step."""
+    X, y, pair = problem
+    configs = grid(FWConfig(backend="torch_sparse", steps=40, delta=1e-6,
+                            queue="two_level" if private else None),
+                   lam=(4.0, 8.0, 16.0, 32.0), epsilon=(0.5, 2.0))
+    want = [solve(pair, y, c) for c in configs]
+    reset_launch_counts()
+    lanes = solve_many(pair, y, configs, plan="vmap")
+    counts = launch_counts()
+    assert counts["coord_update_lanes"] == 40 and counts["coord_update"] == 0
+    assert counts["two_level_draw_lanes"] == (40 if private else 0)
+    assert counts["ell_rmatvec"] == 2
+    seq = solve_many(pair, y, configs, plan="sequential")
+    for got_l, got_s, ref in zip(lanes, seq, want):
+        for name in ("w", "gaps", "coords"):
+            assert torch.equal(getattr(got_l, name), getattr(ref, name)), name
+            assert torch.equal(getattr(got_s, name), getattr(ref, name)), name
+    tols = [float(ref.gaps[10 + 7 * i].abs()) + 1e-9 for i, ref in enumerate(want[:4])]
+    cohort = [dataclasses.replace(c, gap_tol=t, chunk_steps=8) for c, t in zip(configs, tols)]
+    got = solve_many(pair, y, cohort, plan="vmap")
+    for c, res in zip(cohort, got):
+        ref = solve(pair, y, c)
+        assert res.stop_step_or() == ref.stop_step_or() and res.stop_reason == ref.stop_reason
+        assert torch.equal(res.w, ref.w) and torch.equal(res.coords, ref.coords)
