@@ -12,7 +12,13 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
 * Alg 2, backend ``torch_sparse``, private and non-private;
 * Alg 1, backend ``dense``, for the ``argmax``, ``gumbel`` and
   ``noisy_max`` rules on the padded pair, and on the dense (N, D) matrix;
-* both with ``gap_tol`` early stopping (the chunk loop ``drive_chunks``).
+* both with ``gap_tol`` early stopping (the chunk loop ``drive_chunks``);
+* both with DP screening (``screen_every=1``, 8 rounds: the pair repacked on
+  the card), against the unscreened runs, the CPU's and forced keep-all
+  rounds, and the kernels timed on the survivors' pair (``screen``);
+* ``solve_path`` over λ = 50, 30, 20, 10 (both, against cold solves of the
+  segments) and a private path group of 8 configs as lanes and
+  sequentially (``path``).
 
 It holds the card's runs against CPU runs of the plain versions and the
 stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
@@ -71,12 +77,13 @@ from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa:
 from repro_torch.core import fw_dense  # noqa: E402
 from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init,  # noqa: E402
                                                  tl_rebuild_, tl_scatter_)
-from repro_torch.core.solvers import planner  # noqa: E402
+from repro_torch.core.solvers import planner, screening, solve_path  # noqa: E402
+from repro_torch.core.solvers.path import segment_config  # noqa: E402
 from repro_torch.core.solvers.autotune import autotune  # noqa: E402
 from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init,  # noqa: E402
                                                    fw_carry_init_lanes, fw_scan_chunk,
                                                    fw_scan_chunk_lanes, fw_setup)
-from repro_torch.core.sparse.formats import (PaddedCSR, dense_to_host,  # noqa: E402
+from repro_torch.core.sparse.formats import (HostCSR, PaddedCSR, dense_to_host,  # noqa: E402
                                              host_to_padded, tiered_from_padded)
 from repro_torch.data.sparse_io import iter_libsvm, write_libsvm  # noqa: E402
 from repro_torch.data.store import DatasetStore  # noqa: E402
@@ -111,6 +118,15 @@ T_DUP, DRAW_STEPS = 50, 1000    # the repeated-entries runs; the rebuilding draw
 SWEEP_LAMS, SWEEP_EPS, LANE_WIDTHS, LANE_STEPS = (10.0, 20.0, 30.0, 50.0), (0.5, 1.0), \
     (1, 4, 8), 200
 STORE_ROWS_PER_SHARD = (4096, 7000)   # the store phase's two shard sizes
+# screening: gap_tol's chunk, so T = 500 runs 9 chunks and screen_every=1 fires 8 rounds;
+# λ-paths: budgets 500, 125, 125, 125 at T = 500; the path group: ε × seeds (B = 8)
+SCREEN_CHUNK = 62
+PATH_LAMS, PATH_GROUP_EPS, PATH_GROUP_SEEDS = (50.0, 30.0, 20.0, 10.0), (0.5, 1.0), \
+    (0, 1, 2, 3)
+SCREEN_RUNS = {"torch_sparse_private": dict(backend="torch_sparse", queue="two_level"),
+               "torch_sparse_non_private": dict(backend="torch_sparse", queue="group_argmax"),
+               "alg1_argmax": dict(backend="dense", selection="argmax"),
+               "alg1_gumbel": dict(backend="dense", selection="gumbel")}
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
 # H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores,
@@ -419,20 +435,20 @@ def _flat_state(st) -> list:
                             "coords")] + extra
 
 
-def coord_update_bitwise(y_t, pcsr, pcsc, buckets) -> dict:
-    """The kernel's bitwise rule against the CPU on each bucket's column, every
-    loss, both queues; the short and the long route forced on the same column
-    give the same bits, and so does a rerun.  Returns the route each bucket
-    took (from the kernel's own route counters)."""
+def coord_update_bitwise(y_t, pcsr, pcsc, buckets, losses=LOSSES) -> dict:
+    """The kernel's bitwise rule against the CPU on each bucket's column, each
+    of ``losses``, both queues; the short and the long route forced on the
+    same column give the same bits, and so does a rerun.  Returns the route
+    each bucket took (from the kernel's own route counters)."""
     cpu_csr, cpu_cols, y_cpu = pcsr.to("cpu"), _ColumnsOnCPU(pcsc), y_t.cpu()
-    n = pcsr.shape[0]
-    scratch = coord_update_scratch(n, D, DEVICE)
+    n, d = pcsr.shape
+    scratch = coord_update_scratch(n, d, DEVICE)
     taken = {}
-    for loss in LOSSES:
+    for loss in losses:
         setup = fw_setup(pcsr, y_t, loss=loss, pcsc=pcsc)
         for private in (False, True):
             em = 30.0 if private else 1.0
-            carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0),
+            carry = fw_carry_init(d, torch.float32, *setup, em, prng.PRNGKey(0),
                                   private=private)
             base = _state_copy(carry)
             before = {k: (v.to("cpu"))
@@ -578,6 +594,19 @@ def private_window(prof: dict, steps: int) -> dict:
     return fields
 
 
+# the throwaway kernel a profiler session starts on (torch.cuda._sleep's)
+WARMUP_KERNEL = "spin_kernel"
+
+
+def _profiler_warmup() -> None:
+    """Run a few throwaway kernels at the start of a profiler session and
+    wait for them: a session can miss the first kernels after it starts
+    (seen as 99 of 100 launches of a window's first kernels)."""
+    for _ in range(3):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
     """Device time by kernel over ``window()``, a run of ``steps`` steps
     (torch.profiler); returns the device ms by kernel name (``quiet``: no
@@ -585,6 +614,7 @@ def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        _profiler_warmup()
         t0 = time.perf_counter()
         window()
         torch.cuda.synchronize()
@@ -593,7 +623,8 @@ def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
     by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                         for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA
-                        and e.self_device_time_total > 0), key=lambda r: -r[1])
+                        and e.self_device_time_total > 0 and WARMUP_KERNEL not in e.key),
+                       key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     if quiet:
         return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
@@ -685,7 +716,7 @@ def phase_alg1_step_times(pcsr, pcsc, y_t) -> tuple:
 
 def phase_parity(X, y, pcsr, pcsc, col_nnz):
     """Card against CPU (plain versions) at full width, T = 200; returns the
-    dense-matrix Alg 1 run (``phase_alg1_parity``)."""
+    dense-matrix Alg 1 run (``phase_alg1_parity``) and the CPU's padded pair."""
     t0 = time.perf_counter()
     cpu_pair = host_to_padded(X, device="cpu")
     t_pad = time.perf_counter() - t0
@@ -714,7 +745,7 @@ def phase_parity(X, y, pcsr, pcsc, col_nnz):
                           tiered_coords_equal=True,
                           tiered_max_abs_w=float((tr.w - card.w).abs().max()))
         emit("card_vs_cpu", **fields)
-    return phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair)
+    return phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair), cpu_pair
 
 
 def phase_alg1_parity(X, y, pcsr, pcsc, cpu_pair):
@@ -2076,6 +2107,559 @@ def flash_kernel_times(routes: dict, f32_routes: dict, errs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# DP screening (screen_every) and λ-paths (solve_path)
+# ---------------------------------------------------------------------------
+
+
+def _screen_config(run: str, steps: int, **kw) -> FWConfig:
+    """A screened config of ``SCREEN_RUNS[run]``: logistic, λ = 50, ε = 1,
+    δ = 1e-6, chunk 62, a round at every boundary."""
+    return FWConfig(**{**dict(lam=LAM, steps=steps, loss="logistic", epsilon=1.0, delta=1e-6,
+                              chunk_steps=SCREEN_CHUNK, screen_every=1, device=DEVICE),
+                       **SCREEN_RUNS[run], **kw})
+
+
+def _unscreened(cfg: FWConfig) -> FWConfig:
+    """The same config without screening, at the ε its selection runs at (a
+    private screened run selects at ``solve_epsilon``)."""
+    private = cfg.queue == "two_level" or cfg.selection in ("gumbel", "noisy_max")
+    return dataclasses.replace(cfg, screen_every=0, epsilon=screening.solve_epsilon(cfg)
+                               if private else cfg.epsilon)
+
+
+class _recorded_rounds:
+    """Within the block, each fired round's keep mask (over the columns the
+    round saw), survivors (original ids) and the launch counts so far, as
+    ``Screener.commit`` folds the round in (the new pair is in place: every
+    later launch runs on it until the next fired round)."""
+
+    def __enter__(self):
+        self.keeps, self.sels, self.counts = [], [], []
+        self._real = real = screening.Screener.commit
+
+        def commit(scr, keep, **kw):
+            out = real(scr, keep, **kw)
+            self.keeps.append(np.asarray(keep, bool).copy())
+            self.sels.append(scr.sel.copy())
+            self.counts.append(launch_counts())
+            return out
+
+        screening.Screener.commit = commit
+        return self
+
+    def __exit__(self, *exc):
+        screening.Screener.commit = self._real
+        return False
+
+
+class _keep_all:
+    """Within the block every round keeps every coordinate (and still repacks)."""
+
+    def __enter__(self):
+        self._real = screening.Screener.screen
+        screening.Screener.screen = lambda scr, scores, support: np.ones(scores.shape[0], bool)
+        return self
+
+    def __exit__(self, *exc):
+        screening.Screener.screen = self._real
+        return False
+
+
+def _host_csr(pcsr) -> HostCSR:
+    """The live entries of a padded CSR, as a ``HostCSR``."""
+    nnz = pcsr.nnz.cpu().numpy()
+    live = np.arange(pcsr.indices.shape[1])[None, :] < nnz[:, None]
+    return HostCSR(np.concatenate([[0], np.cumsum(nnz)]), pcsr.indices.cpu().numpy()[live],
+                   pcsr.values.cpu().numpy()[live].astype(np.float64), pcsr.shape)
+
+
+def _alg2_window(pair, y_t, cfg: FWConfig) -> tuple:
+    """Per-step ms (host clock, 100 steps after 50) of ``cfg``'s Alg 2 on
+    ``pair`` from a fresh carry, and the next 100 steps as a callable (for
+    ``_profiled_windows``)."""
+    p, q = pair
+    em = em_scale_for(cfg, N)
+    private = cfg.queue == "two_level"
+    setup = fw_setup(p, y_t, loss="logistic", pcsc=q)
+    carry = fw_carry_init(p.shape[1], torch.float32, *setup, em, prng.PRNGKey(cfg.seed),
+                          private=private)
+    kw = dict(loss="logistic", private=private)
+    fw_scan_chunk(p, q, carry, LAM, em, 0.0, 0, None, steps=WARMUP, **kw)
+    ms = sync_ms(lambda: fw_scan_chunk(p, q, carry, LAM, em, 0.0, WARMUP, None, steps=100,
+                                       **kw)) / 100
+    return dict(d=p.shape[1], per_step_ms=ms), (100, lambda: fw_scan_chunk(
+        p, q, carry, LAM, em, 0.0, WARMUP + 100, None, steps=100, **kw))
+
+
+def _alg1_window(X, y_t, cfg: FWConfig) -> tuple:
+    """Per-step ms (host clock, 50 steps after 20) of ``cfg``'s Alg 1 on the
+    design ``X``, and the next 50 steps as a callable."""
+    step = _dense_step(X, y_t, cfg, masked=False)
+    carry, _ = _dense_chunk(step, _carry0(X, X[0].shape[1], cfg), 0, 20, masked=False)
+    ms = sync_ms(lambda: _dense_chunk(step, carry, 20, 50, masked=False)) / 50
+    return dict(d=X[0].shape[1], per_step_ms=ms), (50, lambda: _dense_chunk(
+        step, carry, 70, 50, masked=False))
+
+
+def _profiled_windows(windows: dict) -> dict:
+    """Device busy ms a step, idle share and spmv kernels' ms a step of each
+    ``{name: (steps, fn)}`` window, all in one profiler session: each window
+    runs inside its own ``record_function`` range and ends synchronised, and
+    a kernel belongs to the window whose host-clock range holds its device
+    start (the profiler puts both on one clock)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _profiler_warmup()
+        for name, (_, fn) in windows.items():
+            with torch.profiler.record_function(f"window:{name}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the ranges' host side (a range may also show on the device as an annotation)
+    spans = {e.name[len("window:"):]: e.time_range for e in events
+             if e.name.startswith("window:") and e.device_type != cuda}
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith("window:")
+               and WARMUP_KERNEL not in e.name]
+    out = {}
+    for name, (steps, _) in windows.items():
+        span = spans[name]
+        mine = [e for e in kernels if span.start <= e.time_range.start <= span.end]
+        require(mine, f"profiled window {name}: no kernels in its range")
+        busy = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        out[name] = dict(device_busy_ms_per_step=busy / steps,
+                         device_idle_share=1.0 - busy * 1e3 / span.elapsed_us(),
+                         spmv_device_ms_per_step={
+                             k: sum(e.time_range.elapsed_us() for e in mine if k in e.name)
+                             / 1e3 / steps for k in ("ell_rmatvec", "ell_matvec")})
+    return out
+
+
+def _screened_launches(cfg: FWConfig, rounds: list) -> dict:
+    """The launches a screened run of T steps must make (``gap_tol`` = 0
+    never stops it): Alg 2 one a step and the two setup sweeps; Alg 1 one of
+    each product a step, the ȳ sweep of every pair it ran on, and α's two
+    products at every round's query."""
+    due, fired = len(rounds), sum(r["repacked"] for r in rounds)
+    want = dict.fromkeys(("ell_matvec", "ell_rmatvec", "coord_update", "two_level_draw",
+                          "flash_attention", "two_level_draw_lanes", "coord_update_lanes"), 0)
+    if cfg.backend == "torch_sparse":
+        want.update(coord_update=cfg.steps, ell_rmatvec=2,
+                    two_level_draw=cfg.steps if cfg.queue == "two_level" else 0)
+    else:
+        want.update(ell_matvec=cfg.steps + due, ell_rmatvec=cfg.steps + 1 + fired + due)
+    return want
+
+
+def _screened_run(run: str, pcsr, pcsc, y, steps: int) -> dict:
+    """One screened solve on the card through ``solve``, with its rounds."""
+    cfg = _screen_config(run, steps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with obs.session() as tel, _recorded_rounds() as rec:
+        t0 = time.perf_counter()
+        res = solve((pcsr, pcsc), y, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rounds = [e["attrs"] for e in tel.events if e["name"] == "screen.round"]
+    want = _screened_launches(cfg, rounds)
+    require(counts == want, f"screen {run}: launches {counts}, expected {want}")
+    # the launches on each repacked pair: from its round's commit to the next one's
+    marks = rec.counts + [counts]
+    pair_launches = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+    return dict(cfg=cfg, res=res, wall=wall, counts=counts, rounds=rounds, keeps=rec.keeps,
+                sels=rec.sels, pair_launches=pair_launches,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_screen(X, y, y_t, pcsr, pcsc, cpu_pair) -> dict:
+    """Screened solves at the rcv1.binary shape (T = 500, chunk 62, a round at
+    each of the 8 interior boundaries): Alg 2 private and non-private, Alg 1
+    ``argmax`` and ``gumbel``.  Each run's rounds (survivors, the new pair's
+    bytes, the repack's and the owner table's ms on the card, the launches on
+    each repacked pair), its per-step ms before and after the first round
+    (fresh carries on the full pair and on the round-1 survivors), its wall
+    against the unscreened config's and its peak memory.  Held: the
+    coordinates equal the unscreened run's until the first round fires; w is
+    D₀ long with ‖w‖₁ <= λ; at T = 200
+    the card takes the CPU's coordinates and survivor sets (Alg 1 ``gumbel``:
+    reported); a forced keep-all run equals its unscreened counterpart bit
+    for bit.  Returns the round-1 survivor pairs of the Alg 2 private and
+    Alg 1 ``argmax`` runs, for the kernels' repacked-pair times, and the
+    before/after windows, which ``screen_busy`` profiles after every other
+    profiled phase."""
+    out, windows = {}, {}
+    for run in SCREEN_RUNS:
+        s = _screened_run(run, pcsr, pcsc, y, T_MAIN)
+        cfg, res = s["cfg"], s["res"]
+        base = _unscreened(cfg)
+        t0 = time.perf_counter()
+        ref = solve((pcsr, pcsc), y, base)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        first = next((r["round"] for r in s["rounds"] if r["repacked"]), None)
+        require(first is not None, f"screen {run}: no round fired")
+        prefix = first * SCREEN_CHUNK
+        require(torch.equal(res.coords[:prefix], ref.coords[:prefix])
+                and torch.equal(res.gaps[:prefix], ref.gaps[:prefix]),
+                f"screen {run}: the run before its first round differs from the unscreened run")
+        require(res.w.shape == (D,) and bool(torch.isfinite(res.w).all())
+                and float(res.w.abs().sum()) <= LAM * (1 + 1e-5),
+                f"screen {run}: w not D0 long, not finite, or outside the ball")
+        support = set(torch.nonzero(res.w).flatten().tolist())
+        require(support <= set(res.coords[res.coords >= 0].tolist()),
+                f"screen {run}: supp(w) outside the selected coordinates")
+        keep1 = s["keeps"][0] if first == 1 else None
+        if keep1 is None:   # the first fired round came later: its survivors in original ids
+            keep1 = np.zeros(D, bool)
+            keep1[s["sels"][0]] = True
+        t0 = time.perf_counter()
+        survivors = screening.repack_pair(pcsr, pcsc, keep1)
+        torch.cuda.synchronize()
+        repack_ms = (time.perf_counter() - t0) * 1e3
+        window = _alg2_window if cfg.backend == "torch_sparse" else _alg1_window
+        before, windows[f"{run}/before"] = window((pcsr, pcsc), y_t, base)
+        after, windows[f"{run}/after"] = window(survivors, y_t, base)
+        rounds = [dict(round=r["round"], repacked=r["repacked"], survivors=r["survivors"],
+                       dropped=r["dropped"], pair_bytes=r.get("pair_bytes"),
+                       repack_ms=r.get("repack_seconds", 0.0) * 1e3,
+                       owner_table_ms=r["owner_table_seconds"] * 1e3
+                       if "owner_table_seconds" in r else None) for r in s["rounds"]]
+        fired = [r["survivors"] for r in s["rounds"] if r["repacked"]]
+        emit("screen", run=run, steps=T_MAIN, chunk=SCREEN_CHUNK, lam=LAM,
+             epsilon=cfg.epsilon, solve_epsilon=base.epsilon, rounds=rounds,
+             first_round=first, coords_equal_unscreened_until_step=prefix,
+             solve_s=s["wall"], unscreened_solve_s=ref_wall,
+             screened_over_unscreened=s["wall"] / ref_wall, launches=s["counts"],
+             nnz_w=len(support), gap_last=float(res.gaps[-1]),
+             round1_survivors=int(keep1.sum()),
+             round1_nnz_share=int(survivors[0].nnz.sum()) / X.nnz,
+             round1_repack_ms_sync=repack_ms,
+             before_first_round=before, after_first_round=after,
+             pair_launches=[dict(survivors=n, **{k: v for k, v in c.items() if v})
+                            for n, c in zip(fired, s["pair_launches"])],
+             max_memory_allocated=s["peak"], pair_bytes_full=screening.pair_bytes(
+                 (pcsr, pcsc)))
+        out[run] = dict(s, survivors=survivors, keep1=keep1)
+    for run in ("torch_sparse_non_private", "alg1_gumbel"):
+        out[run].pop("survivors")
+    phase_screen_parity(y, pcsr, pcsc, cpu_pair)
+    phase_screen_keep_all(pcsr, pcsc, y)
+    torch.cuda.empty_cache()   # the keep-all runs held three copies of the pair
+    return out, windows
+
+
+def screen_busy(windows: dict) -> None:
+    """Device busy a step and idle share of the ``screen`` phase's windows,
+    before and after the first round, in one profiler session that comes
+    after every other profiled phase (a session can cost later sessions
+    recorded kernels: PERF.md §7)."""
+    busy = _profiled_windows(windows)
+    for run in SCREEN_RUNS:
+        emit("screen_busy", run=run, before_first_round=busy[f"{run}/before"],
+             after_first_round=busy[f"{run}/after"])
+
+
+def phase_screen_parity(y, pcsr, pcsc, cpu_pair) -> None:
+    """Screened runs on the card against the CPU's at T = 200 (3 rounds):
+    coordinates and survivor sets equal, w and gaps within 1e-4, for Alg 2
+    (both queues) and Alg 1 ``argmax``; Alg 1 ``gumbel``'s noise goes through
+    torch's log/log1p, an ulp from the CPU's, so its differing steps are
+    reported, as ``phase_alg1_parity`` reports them."""
+    for run in SCREEN_RUNS:
+        card = _screened_run(run, pcsr, pcsc, y, T_PARITY)
+        cfg = _screen_config(run, T_PARITY, device="cpu")
+        with _recorded_rounds() as rec:
+            t0 = time.perf_counter()
+            cpu = solve(cpu_pair, y, cfg)
+            t_cpu = time.perf_counter() - t0
+        differ = (card["res"].coords.cpu() != cpu.coords).nonzero().flatten().tolist()
+        same_sets = len(card["sels"]) == len(rec.sels) and all(
+            np.array_equal(a, b) for a, b in zip(card["sels"], rec.sels))
+        fields = dict(run=f"screen_{run}", steps=T_PARITY, coords_equal=not differ,
+                      differing_steps=[i + 1 for i in differ[:10]], survivor_sets_equal=same_sets,
+                      survivors=[len(a) for a in card["sels"]], cpu_solve_s=t_cpu)
+        if not differ:
+            fields.update({f"max_abs_{k}": float((getattr(card["res"], k).cpu()
+                                                  - getattr(cpu, k)).abs().max())
+                           for k in ("w", "gaps")})
+        emit("card_vs_cpu", **fields)
+        if run != "alg1_gumbel":
+            require(not differ and same_sets,
+                    f"screen {run}: card/CPU coords or survivors differ: {fields}")
+            require(fields["max_abs_w"] <= 1e-4 and fields["max_abs_gaps"] <= 1e-4,
+                    f"screen {run}: card/CPU w or gaps differ: {fields}")
+
+
+def phase_screen_keep_all(pcsr, pcsc, y) -> None:
+    """Forced keep-all rounds at T = 200 (3 rounds, each repacking the whole
+    pair on the card): each run equals its unscreened counterpart bit for bit."""
+    for run in ("torch_sparse_private", "torch_sparse_non_private", "alg1_argmax"):
+        cfg = _screen_config(run, T_PARITY)
+        torch.cuda.reset_peak_memory_stats()
+        with _keep_all(), obs.session() as tel:
+            got = solve((pcsr, pcsc), y, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        ref = solve((pcsr, pcsc), y, _unscreened(cfg))
+        fired = [e["attrs"] for e in tel.events if e["name"] == "screen.round"]
+        require(len(fired) == 3 and all(r["repacked"] and r["survivors"] == D for r in fired),
+                f"screen keep-all {run}: rounds {fired}")
+        for k in ("coords", "w", "gaps"):
+            require(torch.equal(getattr(got, k), getattr(ref, k)),
+                    f"screen keep-all {run}: {k} differs from the unscreened run")
+        emit("screen_keep_all", run=run, steps=T_PARITY, rounds=len(fired),
+             repack_ms=[r["repack_seconds"] * 1e3 for r in fired],
+             owner_table_ms=[r.get("owner_table_seconds", 0.0) * 1e3 for r in fired],
+             bitwise_equal_unscreened=True, max_memory_allocated=peak)
+
+
+def repacked_kernel_times(y_t, screen: dict) -> dict:
+    """Rows 1-4 on the round-1 survivor pairs: ``coord_update`` over the
+    private screened run's columns of chunk 2 (which ran on that pair) and
+    its bitwise rule there, the draw at the survivors' (G, M), and the spmv
+    kernels on the Alg 1 ``argmax`` run's survivors; each with its plain
+    version's time, its bound from the survivors' entries and, for the
+    spmv kernels, ``torch.sparse.mm``'s.  Returns {kernel: fields}."""
+    out = {}
+    # ---- coord_update and the draw: the Alg 2 private run's survivors -------------
+    priv = screen["torch_sparse_private"]
+    p2, q2 = priv["survivors"]
+    d2 = p2.shape[1]
+    sel1 = np.flatnonzero(priv["keep1"])
+    host2 = _host_csr(p2)
+    csc2 = host2.tocsc()
+    first = next(r["round"] for r in priv["rounds"] if r["repacked"])
+    # the columns of the chunk after the first fired round, which ran on these survivors
+    coords = priv["res"].coords.cpu().numpy()[first * SCREEN_CHUNK:(first + 1) * SCREEN_CHUNK]
+    coords = np.searchsorted(sel1, coords[np.isin(coords, sel1)])
+    cfg = _unscreened(priv["cfg"])
+    em = em_scale_for(cfg, N)
+    setup = fw_setup(p2, y_t, loss="logistic", pcsc=q2)
+    group_size = tl_init(setup[2].abs() * em).group_size
+    gaps = torch.zeros(len(coords), device=DEVICE)
+    cds = torch.zeros(len(coords), dtype=torch.int32, device=DEVICE)
+    scratch = coord_update_scratch(N, d2, DEVICE)
+    js = torch.from_numpy(coords.astype(np.int32)).to(DEVICE)
+
+    def replay(fn):
+        st = _state_copy(fw_carry_init(d2, torch.float32, *setup, em, prng.PRNGKey(0),
+                                       private=True))
+        extra = {"scratch": scratch} if fn is coord_update else {}
+        return [(lambda i=i: fn(js[i:i + 1], p2, q2, None, st["w"], st["w_m"], st["g_tilde"],
+                                st["vbar"], st["qbar"], st["alpha"], st["queue"],
+                                **_step_kwargs(st, "logistic", em, gaps, cds, i, float(i + 1)),
+                                **extra)) for i in range(len(coords))]
+
+    ms = device_ms(replay(coord_update))
+    launches = replay(coord_update_ref)
+    plain = sync_ms(lambda: [f() for f in launches]) / len(coords)
+    # the kernel against its plain version on the same columns, each step from
+    # the kernel's own state before it (and each side's queue rebuild after)
+    st = _state_copy(fw_carry_init(d2, torch.float32, *setup, em, prng.PRNGKey(0), private=True))
+    gk = torch.zeros(len(coords), device=DEVICE)
+    ck = torch.zeros(len(coords), dtype=torch.int32, device=DEVICE)
+    keys_out = ("w", "w_m", "g_tilde", "vbar", "qbar", "alpha", "gaps", "coords", "prio",
+                "group")
+    worst = 0.0
+    for i in range(len(coords)):
+        sides = []
+        for fn, s_, g_, c_ in ((coord_update, st, gk, ck),
+                               (coord_update_ref, {k: v.clone() for k, v in st.items()},
+                                gk.clone(), ck.clone())):
+            _run_update(fn, js[i:i + 1], p2, q2, None, s_, "logistic", em, g_, c_, i, float(i + 1))
+            sides.append([s_[k] for k in keys_out[:6]]
+                         + [g_, c_.float(), s_["queue"].v, s_["queue"].c])
+        for key, a, b in zip(keys_out, *sides):
+            require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                    f"coord_update on the survivors, column {i}: {key} differs from plain")
+            worst = max(worst, float((a - b).abs().max()))
+    live = np.flatnonzero(np.diff(csc2.indptr) > 0)
+    nnz2 = np.diff(csc2.indptr)
+    buckets = {"head": int(np.argmax(nnz2)), "light": int(live[np.argmin(nnz2[live])])}
+    routes = coord_update_bitwise(y_t, p2, q2, buckets, losses=("logistic",))
+    b, by = bound(*_coord_update_bytes(host2, csc2, coords, group_size))
+    # every launch on this pair in the private screened run, read from the counters
+    on_pair = priv["pair_launches"][0]
+    out["coord_update"] = dict(d=d2, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                               library_ms=None, columns=len(coords), bitwise_rule=True,
+                               max_abs_err=worst, routes=routes,
+                               launches=on_pair["coord_update"])
+    # the draw at the survivors' (G, M), no touched groups
+    state = tl_init(setup[2].abs() * em)
+    _, keys = prng.key_chain(prng.PRNGKey(5), 200)
+    draw_err = max(abs(int(two_level_draw(state.c, state.v, k))
+                       - int(two_level_draw_ref(state.c, state.v, k))) for k in keys)
+    require(draw_err == 0, "two_level_draw on the survivors differs from plain")
+    j_out = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    ms = device_ms([lambda k=k: two_level_draw(state.c, state.v, k, out=j_out) for k in keys])
+    plain = sync_ms(lambda: [two_level_draw_ref(state.c, state.v, k) for k in keys]) / len(keys)
+    g, m = state.v.shape
+    b, by = bound(4.0 * (2 * g + m + 1), 125.0 * (g + m) + 230.0)
+    out["two_level_draw"] = dict(d=d2, groups=g, group_size=m, ms=ms, plain_ms=plain,
+                                 bound_ms=b, bound_by=by, library_ms=None,
+                                 max_abs_err=float(draw_err),
+                                 launches=on_pair["two_level_draw"])
+    # ---- the spmv kernels: the Alg 1 argmax run's survivors --------------------------
+    a1 = screen["alg1_argmax"]
+    p2, q2 = a1["survivors"]
+    d2, nnz2 = p2.shape[1], int(p2.nnz.sum())
+    q = torch.from_numpy(np.random.default_rng(2).normal(size=N).astype(np.float32)).to(DEVICE)
+    w = a1["res"].w[torch.from_numpy(np.flatnonzero(a1["keep1"])).to(DEVICE)]
+    host2 = _host_csr(p2)
+    csc2 = host2.tocsc()
+    on = lambda a, dt=None: torch.from_numpy(a if dt is None else a.astype(dt)).to(DEVICE)
+    xt = torch.sparse_csr_tensor(on(csc2.indptr), on(csc2.indices), on(csc2.data, np.float32),
+                                 size=(d2, N))
+    xr = torch.sparse_csr_tensor(on(host2.indptr), on(host2.indices),
+                                 on(host2.data, np.float32), size=(N, d2))
+    r_got, r_ref = ell_rmatvec(p2, q, q2), ell_rmatvec_ref(p2.indices, p2.values, q, segments(p2))
+    m_got, m_ref = ell_matvec(p2, w), ell_matvec_ref(p2.indices, p2.values, w)
+    errs = {"ell_rmatvec": float((r_got - r_ref).abs().max()),
+            "ell_matvec": float((m_got - m_ref).abs().max())}
+    require(torch.equal(r_got.cpu(), ell_rmatvec_ref(*(t.cpu() for t in (p2.indices, p2.values,
+                                                                        q)),
+                                                     segments(p2.to("cpu")))),
+            "ell_rmatvec on the survivors differs from its plain version on the CPU")
+    require(errs["ell_matvec"] <= 1e-4 * max(1.0, float(m_ref.abs().max())),
+            f"ell_matvec on the survivors differs from plain: {errs['ell_matvec']}")
+    require(torch.allclose(torch.sparse.mm(xt, q[:, None])[:, 0], r_got, rtol=1e-4, atol=1e-5),
+            "torch.sparse.mm disagrees with ell_rmatvec on the survivors")
+    require(torch.allclose(torch.sparse.mm(xr, w[:, None])[:, 0], m_got, rtol=1e-4, atol=1e-5),
+            "torch.sparse.mm disagrees with ell_matvec on the survivors")
+    on_pair = a1["pair_launches"][0]   # the Alg 1 argmax run's launches on this pair
+    for name, fn, plain_fn, lib_fn, nbytes in (
+            ("ell_rmatvec", lambda: ell_rmatvec(p2, q, q2),
+             lambda: ell_rmatvec_ref(p2.indices, p2.values, q, segments(p2)),
+             lambda: torch.sparse.mm(xt, q[:, None]), 8.0 * nnz2 + 4.0 * N + 8.0 * d2),
+            ("ell_matvec", lambda: ell_matvec(p2, w),
+             lambda: ell_matvec_ref(p2.indices, p2.values, w),
+             lambda: torch.sparse.mm(xr, w[:, None]), 8.0 * nnz2 + 8.0 * N + 4.0 * d2)):
+        b, by = bound(nbytes, 2.0 * nnz2)
+        out[name] = dict(d=d2, nnz=nnz2, ms=device_ms([fn] * 50),
+                         plain_ms=device_ms([plain_fn] * 20), bound_ms=b, bound_by=by,
+                         library_ms=device_ms([lib_fn] * 50), max_abs_err=errs[name],
+                         launches=on_pair[name])
+    emit("repacked_kernels", **out)
+    return out
+
+
+def phase_path(pcsr, pcsc, y) -> None:
+    """``solve_path`` over λ = 50, 30, 20, 10 at T = 500 (budgets 500, 125,
+    125, 125) for Alg 2 private and non-private and Alg 1 ``argmax``: per λ
+    the stop step, last gap, nnz(w) and segment wall; the path's wall
+    against four cold solves of the segments' configs, and against four
+    cold solves at the full T (what a user without paths runs); segment 0
+    equal to its
+    cold solve bit for bit; ``ell_rmatvec`` twice for a whole Alg 2 path.
+    Then a private path group of 8 configs (ε × seed) under ``plan="vmap"``
+    (lanes) and ``"sequential"``, each config equal across the modes bit for
+    bit."""
+    pair = (pcsr, pcsc)
+    for run in ("torch_sparse_private", "torch_sparse_non_private", "alg1_argmax"):
+        cfg = FWConfig(lam=PATH_LAMS[0], lambdas=PATH_LAMS, steps=T_MAIN, loss="logistic",
+                       epsilon=1.0, delta=1e-6, device=DEVICE, **SCREEN_RUNS[run])
+        reset_launch_counts()
+        with obs.session() as tel:
+            t0 = time.perf_counter()
+            path = solve_path(pair, y, config=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        plan = path.plan
+        total = plan.total_steps   # gap_tol = 0: every segment runs its budget
+        want = dict.fromkeys(counts, 0)
+        if cfg.backend == "torch_sparse":   # one setup: ell_rmatvec twice for the path
+            want.update(coord_update=total, ell_rmatvec=2,
+                        two_level_draw=total if cfg.queue == "two_level" else 0)
+        else:   # Alg 1 builds its step, and ȳ, once a segment
+            want.update(ell_matvec=total, ell_rmatvec=total + len(PATH_LAMS))
+        require(counts == want, f"path {run}: launches {counts}, expected {want}")
+        # four cold solves at the segments' budgets, and at the full T each
+        cold, cold_s, full_s = [], [], []
+        for k in range(len(PATH_LAMS)):
+            seg = segment_config(cfg, plan, k)
+            for out, c in ((cold_s, seg), (full_s, dataclasses.replace(seg, steps=T_MAIN))):
+                t0 = time.perf_counter()
+                res = solve(pair, y, c)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+                if c is seg:
+                    cold.append(res)
+        require(all(torch.equal(getattr(path[0], k), getattr(cold[0], k))
+                    for k in ("coords", "gaps", "w")),
+                f"path {run}: segment 0 differs from its standalone solve")
+        events = [e["attrs"] for e in tel.events if e["name"] == "path.lambda"]
+        per_lambda = [dict(lam=lam, budget=plan.budgets[k], offset=plan.offsets[k],
+                           eps_lambda=plan.eps_lambdas[k], stop_step=r.stop_step_or(),
+                           stop_reason=r.stop_reason, gap_last=float(r.gaps_valid[-1]),
+                           nnz_w=int((r.w != 0).sum()), segment_s=events[k]["seconds"],
+                           cold_solve_s=cold_s[k],
+                           cold_nnz_w=int((cold[k].w != 0).sum()),
+                           cold_gap_last=float(cold[k].gaps[-1]))
+                      for k, (lam, r) in enumerate(zip(PATH_LAMS, path))]
+        require(all(bool(torch.isfinite(r.w).all()) and float(r.w.abs().sum())
+                    <= PATH_LAMS[0] * (1 + 1e-5) for r in path), f"path {run}: bad w")
+        emit("path", run=run, lambdas=list(PATH_LAMS), budgets=list(plan.budgets),
+             total_steps=total, per_lambda=per_lambda, path_s=wall,
+             cold_solves_s=sum(cold_s), path_over_cold=wall / sum(cold_s),
+             cold_full_t_solves_s=sum(full_s), path_over_cold_full_t=wall / sum(full_s),
+             launches=counts, segment0_bitwise_equal=True)
+    cfgs = [FWConfig(backend="torch_sparse", queue="two_level", lam=PATH_LAMS[0],
+                     lambdas=PATH_LAMS, steps=T_MAIN, loss="logistic", epsilon=eps, delta=1e-6,
+                     seed=seed, device=DEVICE)
+            for eps in PATH_GROUP_EPS for seed in PATH_GROUP_SEEDS]
+    runs, results = {}, {}
+    for mode in ("vmap", "sequential") * 2:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with obs.session() as tel:
+            t0 = time.perf_counter()
+            res = solve_many(pair, y, cfgs, plan=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        total = res[0].plan.total_steps
+        span = [e["attrs"]["mode"] for e in tel.events
+                if e["ev"] == "span" and e["name"] == "group.path"]
+        require(span == ["fused" if mode == "vmap" else "sequential"],
+                f"path group {mode}: spans {span}")
+        want = dict.fromkeys(counts, 0)
+        per, sfx = (1, "_lanes") if mode == "vmap" else (len(cfgs), "")
+        want.update({"coord_update" + sfx: per * total, "two_level_draw" + sfx: per * total,
+                     "ell_rmatvec": 2})
+        require(counts == want, f"path group {mode}: launches {counts}, expected {want}")
+        runs.setdefault(mode, []).append(dict(
+            wall_s=wall, per_config_s=wall / len(cfgs),
+            per_config_step_ms=wall * 1e3 / (len(cfgs) * total), launches=counts,
+            wrapper_launches_per_step={k: v / total for k, v in counts.items() if v
+                                       and k != "ell_rmatvec"},
+            # coord_update is two kernels (rows, owners) a launch, the draw one
+            device_kernels_per_step=(2 * counts["coord_update" + sfx]
+                                     + counts["two_level_draw" + sfx]) / total,
+            rebuild_only_launches=two_level_draw_lanes.rebuilds + two_level_draw.rebuilds,
+            max_memory_allocated=torch.cuda.max_memory_allocated()))
+        results.setdefault(mode, res)
+    for i, (a, b) in enumerate(zip(results["vmap"], results["sequential"])):
+        for k in range(len(PATH_LAMS)):
+            _same_as_solve(a[k], b[k], f"path group config {i} segment {k}")
+    emit("path_group", configs=len(cfgs), lambdas=list(PATH_LAMS),
+         epsilons=list(PATH_GROUP_EPS), seeds=list(PATH_GROUP_SEEDS), vmap=runs["vmap"],
+         sequential=runs["sequential"],
+         lane_cost_ratio=runs["vmap"][-1]["wall_s"] / runs["sequential"][-1]["wall_s"],
+         bitwise_equal_across_modes=True)
+
+
+def add_repacked(kernels: list, repacked: dict) -> None:
+    """Each of rows 1-4 gets its times on the round-1 survivor pair, under
+    ``repacked_*`` keys marked by the survivors' D."""
+    for entry in kernels:
+        for key, val in repacked.get(entry["name"], {}).items():
+            entry[f"repacked_{key}"] = val
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2099,14 +2683,18 @@ def main() -> int:
         solve_s={**{f"dense_{k}": v["wall"] for k, v in alg1.items()},
                  **{f"torch_sparse_{k}": v["wall"] for k, v in runs.items()}},
         alg1_argmax_share_of_step=share)
-    dense = phase_parity(X, y, pcsr, pcsc, col_nnz)
+    dense, cpu_pair = phase_parity(X, y, pcsr, pcsc, col_nnz)
+    screen, screen_windows = phase_screen(X, y, y_t, pcsr, pcsc, cpu_pair)
+    del cpu_pair
     dup = phase_duplicates(X, csc, y, y_t, buckets)
     phase_gap_tol(pcsr, pcsc, y, runs, alg1)
+    phase_path(pcsr, pcsc, y)
     sweep = phase_sweep(pcsr, pcsc, y)
     kernels = phase_kernel_times(X, csc, y_t, pcsr, pcsc, runs, alg1, buckets, errs, share,
                                  window)
+    add_repacked(kernels, repacked_kernel_times(y_t, screen))
     kernels.extend(lane_kernel_times(X, csc, y_t, pcsr, pcsc, runs, sweep, buckets))
-    del sweep
+    del sweep, screen
     phase_autotune(pcsr, pcsc, y)
     phase_auto_backend(pcsr, pcsc, y)
     phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup)
@@ -2117,6 +2705,8 @@ def main() -> int:
     phase_lm_serve(api, params, api32, p32)
     del p32
     phase_lm_probe(api, params)
+    screen_busy(screen_windows)
+    del screen_windows
     kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)

@@ -20,6 +20,7 @@ outputs are the sentinels (0.0, -1, 0.0).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple, Union
 
 import numpy as np
@@ -28,7 +29,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.dp.accountant import fw_noise_scale, per_step_epsilon
 from repro_torch.core.solvers.config import STOP_MAX_STEPS, FWConfig, FWResult
-from repro_torch.core.solvers.torch_sparse import _div
+from repro_torch.core.solvers.torch_sparse import _div, _sync
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
 from repro_torch.kernels.spmv.ops import ell_matvec, ell_rmatvec
 
@@ -178,10 +179,79 @@ def dense_fw_stopping(X: Design, y: torch.Tensor, config: FWConfig) -> FWResult:
 
 
 def dense_fw_screened(X: Design, y: torch.Tensor, config: FWConfig) -> FWResult:
-    """Algorithm 1 with DP screening between chunks: not ported yet."""
-    raise NotImplementedError(
-        "screened Alg 1 (FWConfig.screen_every > 0) is not ported yet: "
-        "see ROADMAP.md item A8")
+    """Algorithm 1 with DP screening between chunks.
+
+    The chunk loop of :func:`dense_fw_stopping` over a design that lives in a
+    ``stopping.ChunkGeometry``: at every ``screen_every``-th boundary α is
+    computed from the current iterate on the device (``ell_matvec`` and
+    ``ell_rmatvec`` on a padded pair), only |α|/N and supp(w) go to the host
+    for the keep rule, and the design (both halves of a padded pair, or the
+    columns of a dense tensor) and w are cut to the survivors on the device.
+    The step is built again for the new design before the next chunk, so no
+    step reads the old one.  The selection runs at the solve share of ε
+    (``screening.solve_epsilon``); coordinates and the final w are mapped
+    back to the original feature ids.
+    """
+    import time
+
+    from repro_torch.core.solvers.screening import (Screener, pair_bytes, repack_dense,
+                                                    solve_epsilon)
+    from repro_torch.core.solvers.stopping import (ChunkGeometry, assemble_outputs,
+                                                   drive_chunks, resolve_chunk)
+    loss = config.loss_fn()
+    n, d0 = _shape(X)
+    private = config.selection in ("noisy_max", "gumbel")
+    run_cfg = (dataclasses.replace(config, epsilon=solve_epsilon(config))
+               if private else config)
+    em_scale = (per_step_epsilon(run_cfg.epsilon, run_cfg.delta, run_cfg.steps)
+                * n / (2.0 * loss.lipschitz) if private else 0.0)
+    row_width = int(X[0].indices.shape[1]) if isinstance(X, tuple) else d0
+    scr = Screener(config, d=d0, n_rows=n, row_width=row_width, em_scale=em_scale,
+                   private=private)
+    geom = ChunkGeometry(operands=(X,), d=d0, pad_row=row_width)
+    masked = run_cfg.gap_tol > 0
+    built = {}   # the step of the current design: {geometry version: step}
+
+    def advance(carry, t0, c):
+        if geom.version not in built:
+            built.clear()
+            built[geom.version] = _dense_step(geom.operands[0], y, run_cfg, masked)
+        return _dense_chunk(built[geom.version], carry, t0, c, masked=masked)
+
+    def out_map(out, t0):
+        gap, j, mean_loss = out
+        return gap, scr.map_coords(j), mean_loss
+
+    def alpha_now(Xc, w):
+        v = _matvec(Xc, w)
+        q = loss.split_grad(v) - y if loss.separable else loss.grad(v, y)
+        return _div(_rmatvec(Xc, q).abs(), n).cpu().numpy()
+
+    def respec(carry, t0, n_chunks):
+        if not scr.due(n_chunks):
+            return None
+        w = carry[0]
+        keep = scr.screen(alpha_now(geom.operands[0], w), (w != 0).cpu().numpy())
+        if keep is None:
+            return None
+        tw = time.perf_counter()
+        X2 = repack_dense(geom.operands[0], keep)
+        w2 = w.index_select(0, torch.from_numpy(np.flatnonzero(keep)).to(w.device))
+        _sync(w2.device)
+        repack_s = time.perf_counter() - tw
+        d2 = _shape(X2)[1]
+        geom.swap((X2,), d2, pad_row=int(X2[0].indices.shape[1]) if isinstance(X2, tuple)
+                  else d2)
+        info = scr.commit(keep, repack_seconds=repack_s, pair_bytes=pair_bytes(X2))
+        return (w2, carry[1], carry[2], carry[3]), info
+
+    carry, outs, stop_step, stop_reason = drive_chunks(
+        advance, _carry0(X, d0, config), steps=config.steps, chunk=resolve_chunk(config),
+        max_seconds=config.max_seconds, done_of=lambda cy: cy[2],
+        stop_at_of=lambda cy: cy[3], respec=respec, out_map=out_map)
+    gaps, coords, losses = assemble_outputs(outs, config.steps, (0.0, -1, 0.0))
+    return FWResult(w=scr.expand(carry[0]), gaps=gaps, coords=coords, losses=losses,
+                    stop_step=stop_step, stop_reason=stop_reason)
 
 
 def dense_fw_flops(n: int, d: int, nnz: int, steps: int) -> int:

@@ -9,7 +9,9 @@
 
 Each adapter maps its engine onto the shared ``(data, y, FWConfig) ->
 FWResult`` contract; ``gap_tol``/``max_seconds`` route to the chunked
-early-stopping loop (``stopping.drive_chunks``).  A dataset store reaches
+early-stopping loop (``stopping.drive_chunks``), ``screen_every`` to its
+screened form (``screening``).  Both backends support screening and λ-paths
+(``path``).  A dataset store reaches
 ``torch_sparse`` as a ``PreparedDataset``, whose cached setup state is
 replayed and whose tuning record, when one exists for the device's
 platform, picks the tiered CSC and the chunk length.
@@ -34,7 +36,7 @@ def _normalize_stop(res: FWResult, config: FWConfig) -> FWResult:
 
 
 @register("dense", data_format="dense", queues=QUEUE_ALIASES["selection"],
-          default_queue=None)
+          default_queue=None, supports_screening=True, supports_path=True)
 def _dense_backend(data, y, config: FWConfig) -> FWResult:
     from repro_torch.core.fw_dense import dense_fw, dense_fw_screened, dense_fw_stopping
     if config.queue is not None:  # queue name chosen → translate to selection
@@ -69,7 +71,7 @@ def torch_sparse_operands(data, y, config: FWConfig):
 
 
 @register("torch_sparse", data_format="padded", queues=QUEUE_ALIASES["device"],
-          default_queue="group_argmax")
+          default_queue="group_argmax", supports_screening=True, supports_path=True)
 def _torch_sparse_backend(data, y, config: FWConfig) -> FWResult:
     from repro_torch.core.solvers.torch_sparse import torch_sparse_fw
     pcsr, pcsc, setup, config = torch_sparse_operands(data, y, config)

@@ -34,8 +34,15 @@ repacks.  The one schedule-dependent knob is ``max_seconds``: in cohort
 mode it counts from the group's first chunk (the lanes run together), as
 in the JAX package.
 
-λ-path and screened configs (``lambdas``, ``screen_every``) and ``mesh``
-configs are refused before any compute, naming ROADMAP.md items A8 and A12.
+A screened group (``screen_every``) runs sequentially under the
+``group.screened`` span whatever the plan: once a round fires, each config's
+pair is its own.  A λ-path group (``lambdas``; a ``PathResult`` per config,
+at its position) runs, for ``torch_sparse`` and two or more configs, as
+**lanes** through the same fixed global step slots, segment by segment (each
+lane with its own EM scale and key, λ_k shared, the stop flags reset between
+segments, no lane retired mid-segment), or one path driver per config over
+the group's one setup; other backends run ``path.run_path`` per config.
+``mesh`` configs are refused before any compute, naming ROADMAP.md item A12.
 """
 from __future__ import annotations
 
@@ -44,7 +51,6 @@ import itertools
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from repro_torch import obs, prng
@@ -53,8 +59,10 @@ from repro_torch.core.solvers.config import (STOP_GAP_TOL, STOP_MAX_SECONDS, STO
                                              FWConfig, FWResult, check_gap_certificate,
                                              check_supported)
 from repro_torch.core.solvers.planner import SolvePlan, record_cost
-from repro_torch.core.solvers.registry import (check_device, get_backend, resolve_data,
-                                               resolve_queue)
+from repro_torch.core.solvers.registry import (check_device, check_path_support,
+                                               check_screening_support, get_backend,
+                                               labels_on, resolve_data, resolve_queue)
+from repro_torch.core.solvers.torch_sparse import _sync
 
 # FWConfig fields that must agree within one sweep group: they shape the
 # run or flip a branch.  The rest — lam / epsilon / delta / seed / gap_tol /
@@ -119,7 +127,6 @@ class _Group:
     pcsr: object
     pcsc: object
     setup: tuple
-    scalars: object        # coord_update.ops.LaneScalars of the configs, in order
     keys: List[torch.Tensor]
     y_scan: Optional[torch.Tensor]
     private: bool
@@ -134,18 +141,14 @@ def _group_labels(c0: FWConfig, y: torch.Tensor) -> Optional[torch.Tensor]:
 def _group_context(data, y: torch.Tensor, configs: Sequence[FWConfig]) -> _Group:
     """One setup for the whole group (a store's cached one, or one
     ``fw_setup``: ``ell_rmatvec`` runs once, not once per config), the
-    store's tuned layout, and the configs' stacked scalars and keys."""
+    store's tuned layout, and the configs' keys."""
     from repro_torch.core.solvers.backends import torch_sparse_operands
-    from repro_torch.core.solvers.torch_sparse import em_scale_for, fw_setup
-    from repro_torch.kernels.coord_update.ops import lane_scalars
+    from repro_torch.core.solvers.torch_sparse import fw_setup
     c0 = configs[0]
     pcsr, pcsc, setup, _ = torch_sparse_operands(data, y, c0)
     if setup is None:
         setup = fw_setup(pcsr, y, loss=c0.loss, pcsc=pcsc)
-    n = pcsr.shape[0]
-    scalars = lane_scalars([c.lam for c in configs], [em_scale_for(c, n) for c in configs],
-                           [c.gap_tol for c in configs], pcsr.device)
-    return _Group(pcsr, pcsc, tuple(setup), scalars, [prng.PRNGKey(c.seed) for c in configs],
+    return _Group(pcsr, pcsc, tuple(setup), [prng.PRNGKey(c.seed) for c in configs],
                   _group_labels(c0, y), c0.queue == "two_level", platform_of(pcsr.device))
 
 
@@ -154,9 +157,26 @@ def _group_stats(g: _Group):
     return data_stats((g.pcsr, g.pcsc))
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def _lane_chunk(g: _Group, stats, c0: FWConfig, cur, scalars, t_step: int, steps: int,
+                bufs: tuple, rows: Sequence[int], col: int, *, early_stop: bool, scratch):
+    """``steps`` lane steps of the group from global step ``t_step``: one
+    launch of each kernel a step for every lane.  The first ``len(rows)``
+    lanes' gaps and coordinates go to those rows of ``bufs`` from column
+    ``col``; the chunk's time goes to the cost book per lane-step.  Returns
+    the carry, every lane's ``done`` (the read synchronises) and the
+    chunk's seconds."""
+    from repro_torch.core.solvers.torch_sparse import fw_scan_chunk_lanes
+    tw = time.perf_counter()
+    cur, outs = fw_scan_chunk_lanes(g.pcsr, g.pcsc, cur, scalars, t_step, g.y_scan, steps=steps,
+                                    loss=c0.loss, private=g.private, early_stop=early_stop,
+                                    scratch=scratch)
+    dones = cur.done.tolist()
+    dt = time.perf_counter() - tw
+    record_cost(c0.backend, "vmap", g.platform, stats, dt / (steps * len(dones)), loss=c0.loss)
+    ids = torch.as_tensor(rows, dtype=torch.long, device=bufs[0].device)
+    for buf, out in zip(bufs, outs):
+        buf[ids, col:col + steps] = out[: len(rows)]
+    return cur, dones, dt
 
 
 def _solve_sequential(data, y, configs: Sequence[FWConfig]) -> List[FWResult]:
@@ -187,8 +207,8 @@ def _solve_lanes(data, y, configs: Sequence[FWConfig]) -> List[FWResult]:
     lane 0 whose outputs are dropped."""
     from repro_torch.core.solvers.planner import cohort_widths
     from repro_torch.core.solvers.stopping import resolve_chunk
-    from repro_torch.core.solvers.torch_sparse import fw_carry_init_lanes, fw_scan_chunk_lanes
-    from repro_torch.kernels.coord_update.ops import coord_update_scratch
+    from repro_torch.core.solvers.torch_sparse import em_scale_for, fw_carry_init_lanes
+    from repro_torch.kernels.coord_update.ops import coord_update_scratch, lane_scalars
     c0 = configs[0]
     g = _group_context(data, y, configs)
     stats = _group_stats(g)
@@ -197,7 +217,9 @@ def _solve_lanes(data, y, configs: Sequence[FWConfig]) -> List[FWResult]:
     chunk = resolve_chunk(c0) if cohort else steps
     n, d = g.pcsr.shape
     dev = g.pcsr.device
-    cur = fw_carry_init_lanes(d, g.pcsr.values.dtype, *g.setup, g.scalars.em_scale, g.keys,
+    scalars = lane_scalars([c.lam for c in configs], [em_scale_for(c, n) for c in configs],
+                           [c.gap_tol for c in configs], dev)
+    cur = fw_carry_init_lanes(d, g.pcsr.values.dtype, *g.setup, scalars.em_scale, g.keys,
                               private=g.private)
     scratch = coord_update_scratch(n, d, dev, lanes=n_cfg) if dev.type == "cuda" else None
     gaps_buf = torch.zeros((n_cfg, steps), dtype=torch.float32, device=dev)
@@ -224,22 +246,14 @@ def _solve_lanes(data, y, configs: Sequence[FWConfig]) -> List[FWResult]:
         lane_sel = list(range(len(active))) + [0] * (width - len(active))
         padded = cur if width == len(active) else cur.take(lane_sel)
         padded.done[len(active):] = True               # padding lanes stay frozen
-        tw = time.perf_counter()
-        padded, (gch, jch) = fw_scan_chunk_lanes(
-            g.pcsr, g.pcsc, padded, g.scalars.take([active[lane] for lane in lane_sel]), t0,
-            g.y_scan, steps=c, loss=c0.loss, private=g.private, early_stop=cohort,
-            scratch=scratch)
-        dones = padded.done.tolist()[: len(active)]   # synchronises: the chunk has run
+        padded, dones, dt = _lane_chunk(
+            g, stats, c0, padded, scalars.take([active[lane] for lane in lane_sel]), t0, c,
+            (gaps_buf, coords_buf), active, t0, early_stop=cohort, scratch=scratch)
         stops = padded.stop_at.tolist()[: len(active)]
-        dt = time.perf_counter() - tw
-        record_cost(c0.backend, "vmap", g.platform, stats, dt / (c * width), loss=c0.loss)
         if cohort:
             obs.observe("cohort.chunk.seconds", dt)
             obs.count("cohort.chunk.steps", c * len(active))
         cur = padded if width == len(active) else padded.take(range(len(active)))
-        ids = torch.as_tensor(active, dtype=torch.long, device=dev)
-        gaps_buf[ids, t0:t0 + c] = gch[: len(active)]
-        coords_buf[ids, t0:t0 + c] = jch[: len(active)]
         t0 += c
         elapsed = time.perf_counter() - t_start
         keep = []
@@ -272,6 +286,17 @@ def _as_plan(plan: Union[None, str, SolvePlan]) -> SolvePlan:
     return plan
 
 
+def _group_mode(data, member_cfgs: Sequence[FWConfig], plan: SolvePlan) -> str:
+    """The plan's mode, or the planner's pick for ``plan.mode == "auto"``."""
+    if plan.mode != "auto":
+        return plan.mode
+    from repro_torch.core.solvers.planner import data_stats, group_mode
+    pair = data.pair if hasattr(data, "pair") else data
+    return group_mode(data_stats(pair), len(member_cfgs), loss=member_cfgs[0].loss,
+                      backend=member_cfgs[0].backend,
+                      platform=platform_of(member_cfgs[0].device))
+
+
 def _run_torch_sparse_group(data, y, member_cfgs: Sequence[FWConfig],
                             plan: SolvePlan) -> List[FWResult]:
     """Dispatch one ``torch_sparse`` sweep group per the plan."""
@@ -285,13 +310,11 @@ def _run_torch_sparse_group(data, y, member_cfgs: Sequence[FWConfig],
         member_cfgs = [c if c.chunk_steps is not None
                        else dataclasses.replace(c, chunk_steps=plan.chunk_steps)
                        for c in member_cfgs]
-    mode = plan.mode
-    if mode == "auto":
-        from repro_torch.core.solvers.planner import data_stats, group_mode
-        pair = data.pair if hasattr(data, "pair") else data
-        mode = group_mode(data_stats(pair), len(member_cfgs), loss=member_cfgs[0].loss,
-                          backend=member_cfgs[0].backend,
-                          platform=platform_of(member_cfgs[0].device))
+    if member_cfgs[0].screen_every > 0:
+        # once a round fires each config's pair is its own: no lanes
+        with obs.span("group.screened", size=len(member_cfgs)):
+            return _solve_sequential(data, y, member_cfgs)
+    mode = _group_mode(data, member_cfgs, plan)
     if mode == "sequential":
         with obs.span("group.sequential", size=len(member_cfgs)):
             return _solve_sequential(data, y, member_cfgs)
@@ -300,15 +323,92 @@ def _run_torch_sparse_group(data, y, member_cfgs: Sequence[FWConfig],
         return _solve_lanes(data, y, member_cfgs)
 
 
-def _labels_on(y, device: torch.device) -> torch.Tensor:
-    if isinstance(y, torch.Tensor):
-        return y.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
+# ---------------------------------------------------------------------------
+# λ-path groups: sequential in λ, lanes across configs
+# ---------------------------------------------------------------------------
+
+
+def _solve_path_sequential(data, y, configs: Sequence[FWConfig]) -> list:
+    """One path driver per config over the group's one setup."""
+    from repro_torch.core.solvers.path import torch_sparse_path
+    g = _group_context(data, y, configs)
+    return [torch_sparse_path(g.pcsr, g.pcsc, y, cfg, setup=g.setup) for cfg in configs]
+
+
+def _solve_path_lanes(data, y, configs: Sequence[FWConfig]) -> list:
+    """The group's paths as lanes.  Every lane runs through the same fixed
+    global step slots (segment k holds [S_{k-1}, S_k) whether or not its
+    certificate landed early; a done lane is frozen, bit for bit), so one
+    lane launch of each kernel serves the whole group per step and each
+    lane equals its own path driver bit for bit.  ``lambdas`` and ``steps``
+    are group fields, so the budgets are shared; ε (hence the EM scale),
+    the seed and ``gap_tol`` are per lane."""
+    from repro_torch.core.solvers.path import PathResult, path_em_scale, path_plan
+    from repro_torch.core.solvers.stopping import resolve_chunk
+    from repro_torch.core.solvers.torch_sparse import fw_carry_init_lanes
+    from repro_torch.kernels.coord_update.ops import coord_update_scratch, lane_scalars
+    c0 = configs[0]
+    g = _group_context(data, y, configs)
+    stats = _group_stats(g)
+    n_cfg = len(configs)
+    n, d = g.pcsr.shape
+    dev = g.pcsr.device
+    plans = [path_plan(c, private=g.private) for c in configs]
+    plan0 = plans[0]
+    em_scales = [path_em_scale(c, p, n) for c, p in zip(configs, plans)]
+    cur = fw_carry_init_lanes(d, g.pcsr.values.dtype, *g.setup, em_scales, g.keys,
+                              private=g.private)
+    scratch = coord_update_scratch(n, d, dev, lanes=n_cfg) if dev.type == "cuda" else None
+    per_cfg: List[list] = [[] for _ in configs]
+    for k, lam_k in enumerate(plan0.lambdas):
+        budget, seg_off = plan0.budgets[k], plan0.offsets[k]
+        if k:   # warm restart per lane: un-freeze the stop flags, keep the rest
+            cur.done.fill_(False)
+            cur.stop_at.zero_()
+        scalars = lane_scalars([lam_k] * n_cfg, em_scales, [c.gap_tol for c in configs], dev)
+        chunk = resolve_chunk(dataclasses.replace(c0, steps=budget))
+        gaps_buf = torch.zeros((n_cfg, budget), dtype=torch.float32, device=dev)
+        coords_buf = torch.full((n_cfg, budget), -1, dtype=torch.int32, device=dev)
+        t0 = 0
+        while t0 < budget:
+            c = min(chunk, budget - t0)
+            cur, dones, _ = _lane_chunk(g, stats, c0, cur, scalars, seg_off + t0, c,
+                                        (gaps_buf, coords_buf), range(n_cfg), t0,
+                                        early_stop=True, scratch=scratch)
+            t0 += c
+            if all(dones):
+                break   # the rest stays sentinels, as the path driver pads them
+        dones, stops = cur.done.tolist(), cur.stop_at.tolist()
+        for i in range(n_cfg):
+            per_cfg[i].append(FWResult(
+                w=cur.w[i] * cur.w_m[i], gaps=gaps_buf[i], coords=coords_buf[i],
+                losses=torch.zeros(budget, dtype=torch.float32, device=dev),
+                stop_step=stops[i] - seg_off if dones[i] else budget,
+                stop_reason=STOP_GAP_TOL if dones[i] else STOP_MAX_STEPS))
+        if obs.enabled():
+            obs.event("path.lambda", index=k, lam=float(lam_k), budget=budget, offset=seg_off,
+                      lanes=n_cfg, converged=int(sum(dones)))
+    return [PathResult(plans[i].lambdas, per_cfg[i], plans[i]) for i in range(n_cfg)]
+
+
+def _run_path_group(backend, data, y, member_cfgs: Sequence[FWConfig], plan: SolvePlan) -> list:
+    """One λ-path group: lanes or one driver per config for ``torch_sparse``
+    groups of two or more, as the plan or the planner says; ``run_path`` per
+    config otherwise."""
+    if backend.name == "torch_sparse" and len(member_cfgs) > 1:
+        if _group_mode(data, member_cfgs, plan) == "vmap":
+            with obs.span("group.path", size=len(member_cfgs), mode="fused"):
+                return _solve_path_lanes(data, y, member_cfgs)
+        with obs.span("group.path", size=len(member_cfgs), mode="sequential"):
+            return _solve_path_sequential(data, y, member_cfgs)
+    from repro_torch.core.solvers.path import run_path
+    with obs.span("group.path", size=len(member_cfgs), mode="sequential"):
+        return [run_path(backend, data, y, cfg) for cfg in member_cfgs]
 
 
 def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
                prepared: Optional[Dict[tuple, object]] = None,
-               plan: Union[None, str, SolvePlan] = None) -> List[FWResult]:
+               plan: Union[None, str, SolvePlan] = None) -> list:
     """Solve many FW problems over one (X, y); results in input order.
 
     ``X`` may be anything ``solve`` takes, a ``DatasetStore``/``DatasetRef``
@@ -323,7 +423,7 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
 
     ``prepared``: an optional caller-owned ``{(data layout, device): coerced
     X}`` cache; pass the same dict across calls and each layout is coerced
-    once.
+    once.  A config with ``lambdas`` gives a ``PathResult`` at its position.
     """
     configs = list(configs)
     if not configs:
@@ -335,6 +435,12 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
             check_supported(c)
             check_gap_certificate(c)
             check_device(c.device)
+            if c.screen_every:
+                from repro_torch.core.solvers.screening import check_screen_config
+                check_screen_config(c)
+            if c.lambdas is not None:
+                from repro_torch.core.solvers.path import check_path_config
+                check_path_config(c)
         X, y = resolve_data(X, y)
         auto_stats = None             # derived once, only if a config asks
         for c in configs:
@@ -345,6 +451,8 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
                         auto_stats = data_stats(X)
                     c = dataclasses.replace(c, backend=choose_backend(auto_stats, c))
             backend = get_backend(c.backend)
+            check_screening_support(backend, c)
+            check_path_support(backend, c)
             resolved.append((backend, resolve_queue(backend,
                                                     dataclasses.replace(c, backend=backend.name))))
 
@@ -357,7 +465,7 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
                 with obs.span("solve_many.coerce", layout=backend.data_format):
                     prepared[key] = backend.prepare(X, cfg.device)
             if key[1] not in labels:
-                labels[key[1]] = _labels_on(y, torch.device(cfg.device))
+                labels[key[1]] = labels_on(y, torch.device(cfg.device))
 
         groups: Dict[Tuple, List[int]] = {}
         for i, (_, cfg) in enumerate(resolved):
@@ -372,7 +480,9 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
             y_dev = labels[device]
             member_cfgs = [resolved[i][1] for i in members]
             with obs.span("solve_many.group", backend=backend.name, size=len(members)):
-                if backend.name == "torch_sparse" and len(members) > 1:
+                if c0.lambdas is not None:
+                    out = _run_path_group(backend, data, y_dev, member_cfgs, plan)
+                elif backend.name == "torch_sparse" and len(members) > 1:
                     out = _run_torch_sparse_group(data, y_dev, member_cfgs, plan)
                 else:
                     out = [backend.fn(data, y_dev, cfg) for cfg in member_cfgs]

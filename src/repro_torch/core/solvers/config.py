@@ -58,8 +58,6 @@ class FWConfig:
 
 # field → (is it set?, the ROADMAP.md item that implements it)
 _UNSUPPORTED = (
-    ("screen_every", lambda c: c.screen_every > 0, "A8 (screening and λ-paths)"),
-    ("lambdas", lambda c: c.lambdas is not None, "A8 (screening and λ-paths)"),
     ("mesh", lambda c: c.mesh is not None, "A12 (sharded engine)"),
 )
 

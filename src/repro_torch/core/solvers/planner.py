@@ -278,7 +278,7 @@ class SolvePlan:
 
 
 # Warm λ-segments of a path re-solve from the previous λ's iterate and get
-# steps/4 (the JAX package's rule, read by the λ-path driver, ROADMAP A8).
+# steps/4 (the JAX package's rule, read by the λ-path drivers, ``path.py``).
 PATH_WARM_DIV = 4
 
 

@@ -39,6 +39,8 @@ class Backend:
     data_format: str  # "dense" | "padded": the layout solve() coerces X into
     queues: Mapping[str, str]
     default_queue: Optional[str]
+    supports_screening: bool = False  # a chunk loop whose pair may change (screen_every)
+    supports_path: bool = False       # a chunk loop a λ-path re-enters (lambdas)
 
     def prepare(self, X, device="cuda"):
         """Coerce ``X`` into this backend's data layout on ``device``."""
@@ -68,11 +70,14 @@ BACKEND_ALIASES: Mapping[str, str] = {"jax_sparse": "torch_sparse"}
 
 
 def register(name: str, *, data_format: str, queues: Mapping[str, str],
-             default_queue: Optional[str]) -> Callable:
+             default_queue: Optional[str], supports_screening: bool = False,
+             supports_path: bool = False) -> Callable:
     """Decorator: add ``fn(data, y, config) -> FWResult`` under ``name``."""
     def deco(fn: Callable) -> Callable:
         _REGISTRY[name] = Backend(name=name, fn=fn, data_format=data_format, queues=queues,
-                                  default_queue=default_queue)
+                                  default_queue=default_queue,
+                                  supports_screening=supports_screening,
+                                  supports_path=supports_path)
         return fn
     return deco
 
@@ -243,6 +248,35 @@ def resolve_queue(backend: Backend, config: FWConfig) -> FWConfig:
     return dataclasses.replace(config, queue=native)
 
 
+def check_screening_support(backend: Backend, config: FWConfig) -> None:
+    """Refuse ``screen_every`` on a backend without a chunk loop whose pair
+    may change between chunks, before any compute."""
+    if config.screen_every > 0 and not backend.supports_screening:
+        raise ValueError(
+            f"backend {backend.name!r} does not support chunk-boundary "
+            "screening (screen_every > 0): it has no host-driven chunk loop "
+            "with mutable problem geometry — use the dense or torch_sparse "
+            "backend, or set screen_every=0")
+
+
+def check_path_support(backend: Backend, config: FWConfig) -> None:
+    """Refuse ``lambdas`` on a backend without a chunk loop that a λ-path
+    can re-enter with its carry, before any compute."""
+    if config.lambdas is not None and not backend.supports_path:
+        raise ValueError(
+            f"backend {backend.name!r} does not support warm-started λ-path "
+            "(homotopy) solving (lambdas=...): it has no re-enterable chunked "
+            "driver that can carry the iterate across λ segments — use the "
+            "dense or torch_sparse backend, or solve each λ separately")
+
+
+def labels_on(y, device) -> torch.Tensor:
+    """Labels (numpy or torch) as a float32 tensor on ``device``."""
+    if isinstance(y, torch.Tensor):
+        return y.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
+
+
 def check_device(device: str) -> torch.device:
     """The run's device; a CUDA device must exist (no quiet CPU fallback)."""
     dev = torch.device(device)
@@ -263,17 +297,24 @@ def solve(X, y=None, config: Optional[FWConfig] = None, **overrides) -> FWResult
     labels); ``y``: (N,) labels in {0, 1}, numpy or torch.  Keyword
     overrides apply on top of ``config``.  ``backend="auto"`` lets the
     planner pick ``dense`` or ``torch_sparse`` from the problem's shape
-    (``planner.choose_backend``).  With telemetry on (``repro_torch.obs``)
-    the call records the JAX package's spans (``solve``, ``solve.plan``,
-    ``solve.coerce``, ``solve.run``) and counter (``solve.calls``); the
-    iterates are the same either way.
+    (``planner.choose_backend``).  A config with ``lambdas`` is a λ-path:
+    ``solve`` returns ``path.solve_path``'s ``PathResult``.  With telemetry
+    on (``repro_torch.obs``) the call records the JAX package's spans
+    (``solve``, ``solve.plan``, ``solve.coerce``, ``solve.run``) and counter
+    (``solve.calls``); the iterates are the same either way.
     """
     config = config or FWConfig()
     if overrides:
         config = dataclasses.replace(config, **overrides)
     check_supported(config)
+    if config.lambdas is not None:
+        from repro_torch.core.solvers.path import solve_path
+        return solve_path(X, y, config=config)
     with obs.span("solve", loss=config.loss, steps=config.steps) as sp:
         check_gap_certificate(config)
+        if config.screen_every:
+            from repro_torch.core.solvers.screening import check_screen_config
+            check_screen_config(config)
         device = check_device(config.device)
         X, y = resolve_data(X, y)
         if config.backend == "auto":
@@ -282,14 +323,12 @@ def solve(X, y=None, config: Optional[FWConfig] = None, **overrides) -> FWResult
                 config = dataclasses.replace(
                     config, backend=choose_backend(data_stats(X), config))
         backend = get_backend(config.backend)
+        check_screening_support(backend, config)
         config = resolve_queue(backend, config)
         sp.set(backend=backend.name, queue=config.queue)
         obs.count("solve.calls", backend=backend.name)
         with obs.span("solve.coerce", layout=backend.data_format):
             data = backend.prepare(X, device)
-            if isinstance(y, torch.Tensor):
-                y = y.to(device=device, dtype=torch.float32)
-            else:
-                y = torch.as_tensor(np.asarray(y, dtype=np.float32), device=device)
+            y = labels_on(y, device)
         with obs.span("solve.run", backend=backend.name):
             return backend.fn(data, y, config)

@@ -44,8 +44,8 @@ class ChunkGeometry:
     """The operands a chunked run advances over, swappable between chunks.
 
     ``advance`` closures read ``operands`` through this cell; a ``respec``
-    hook may replace them with :meth:`swap` (the screening repack of
-    ROADMAP.md item A8).  ``version`` counts swaps.
+    hook may replace them with :meth:`swap` (the screening repack,
+    ``screening.repack_pair``).  ``version`` counts swaps.
     """
 
     operands: tuple

@@ -352,11 +352,14 @@ def fw_scan(pcsr: PaddedCSR, pcsc: ColumnLayout, vbar0, qbar0, alpha0, lam, em_s
 
 def em_scale_for(config: FWConfig, n_rows: int) -> float:
     """EM log-weight scale ε'·N/(2L) when the queue is the DP two-level
-    sampler; 1.0 otherwise (priorities are then raw |α|)."""
+    sampler; 1.0 otherwise (priorities are then raw |α|).  A screened run's
+    selection gets only the solve share of ε (``screening.solve_epsilon``);
+    its screening rounds spend the rest."""
     if config.queue != "two_level":
         return 1.0
+    from repro_torch.core.solvers.screening import solve_epsilon
     return em_log_weight_scale(
-        epsilon=config.epsilon, delta=config.delta, steps=config.steps,
+        epsilon=solve_epsilon(config), delta=config.delta, steps=config.steps,
         n_rows=n_rows, lipschitz=config.loss_fn().lipschitz)
 
 
@@ -381,11 +384,102 @@ def _chunked_fw(pcsr, pcsc, setup, config: FWConfig, em_scale: float, private: b
                     stop_reason=stop_reason)
 
 
+def _sync(device) -> None:
+    """Wait for ``device``'s work (a no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _screened_chunked_fw(pcsr, pcsc, setup, config: FWConfig, em_scale: float, private: bool,
+                         y=None) -> FWResult:
+    """The chunk loop with a pair that changes between chunks (screening).
+
+    The pair lives in a ``stopping.ChunkGeometry`` that ``advance`` reads
+    per chunk.  At every ``screen_every``-th boundary ``respec`` releases
+    |α| through the keep rule, repacks the pair and the carry to the
+    survivors on their device and swaps them in; the next chunks run at the
+    smaller D, and the kernels build their per-matrix tables (``ell_rmatvec``'s
+    segments, ``coord_update``'s owners) for the new pair at first use.  The
+    outputs are mapped to the original feature ids per chunk (``out_map``,
+    before the boundary's repack) and the final w is expanded to D₀.  Each
+    chunk's time goes to the planner's cost book against the current pair's
+    stats.  The swapped-out pair is freed; the caller's pair stays.
+    """
+    import time
+
+    from repro_torch.core.solvers.autotune import platform_of
+    from repro_torch.core.solvers.planner import data_stats, record_cost
+    from repro_torch.core.solvers.screening import (Screener, pair_bytes, repack_carry,
+                                                    repack_pair)
+    from repro_torch.core.solvers.stopping import ChunkGeometry
+    from repro_torch.kernels.coord_update.ops import owner_table
+
+    n, d = pcsr.shape
+    geom = ChunkGeometry(operands=(pcsr, pcsc), d=d, pad_row=int(pcsr.indices.shape[1]),
+                         pad_col=pcsc.full_width)
+    scr = Screener(config, d=d, n_rows=n, row_width=int(pcsr.indices.shape[1]),
+                   em_scale=em_scale, private=private)
+    carry0 = fw_carry_init(d, pcsr.values.dtype, *setup, em_scale, prng.PRNGKey(config.seed),
+                           private=private)
+    platform = platform_of(pcsr.device)
+    stats = {}
+
+    def cur_stats():
+        if geom.version not in stats:
+            stats[geom.version] = data_stats(geom.operands)
+        return stats[geom.version]
+
+    def advance(carry, t0, c):
+        p, q = geom.operands
+        tw = time.perf_counter()
+        carry, out = fw_scan_chunk(p, q, carry, config.lam, em_scale, config.gap_tol, t0, y,
+                                   steps=c, loss=config.loss, private=private, early_stop=True)
+        _sync(out[0].device)
+        record_cost("torch_sparse", "sequential", platform, cur_stats(),
+                    (time.perf_counter() - tw) / c, loss=config.loss)
+        return carry, out
+
+    def out_map(out, t0):
+        gaps, coords = out
+        return gaps, scr.map_coords(coords)
+
+    def respec(carry, t0, n_chunks):
+        if not scr.due(n_chunks):
+            return None
+        keep = scr.screen(carry.alpha.abs().cpu().numpy(), (carry.w != 0).cpu().numpy())
+        if keep is None:
+            return None
+        tw = time.perf_counter()
+        p2, q2 = repack_pair(*geom.operands, keep)
+        carry2 = repack_carry(carry, keep, em_scale, private)
+        _sync(carry2.alpha.device)
+        repack_s = time.perf_counter() - tw
+        facts = {"pair_bytes": pair_bytes((p2, q2))}
+        if q2.device.type == "cuda":   # the next chunk's first launch needs it
+            tw = time.perf_counter()
+            owner_table(q2)
+            _sync(q2.device)
+            facts["owner_table_seconds"] = time.perf_counter() - tw
+        geom.swap((p2, q2), p2.shape[1], pad_row=int(p2.indices.shape[1]),
+                  pad_col=q2.full_width)
+        return carry2, scr.commit(keep, repack_seconds=repack_s, **facts)
+
+    carry, outs, stop_step, stop_reason = drive_chunks(
+        advance, carry0, steps=config.steps, chunk=resolve_chunk(config),
+        max_seconds=config.max_seconds, done_of=lambda cy: cy.done,
+        stop_at_of=lambda cy: cy.stop_at, respec=respec, out_map=out_map)
+    gaps, coords = assemble_outputs(outs, config.steps, (0.0, -1))
+    return FWResult(w=scr.expand(carry.w * carry.w_m), gaps=gaps, coords=coords,
+                    losses=torch.zeros_like(gaps), stop_step=stop_step,
+                    stop_reason=stop_reason)
+
+
 def torch_sparse_fw(pcsr: PaddedCSR, pcsc: ColumnLayout, y: torch.Tensor,
                     config: FWConfig, setup=None) -> FWResult:
     """One solve through the kernels: fixed T in one chunk, or the chunked
     chunk loop when the config can stop early — the same arithmetic per step,
-    so the iterates agree bit for bit at every prefix.
+    so the iterates agree bit for bit at every prefix.  A screened config
+    (``screen_every > 0``) runs ``_screened_chunked_fw``.
 
     ``setup`` injects a precomputed (v̄₀, q̄₀, α₀), which must be what
     ``fw_setup`` would compute for (X, y, loss).
@@ -396,6 +490,8 @@ def torch_sparse_fw(pcsr: PaddedCSR, pcsc: ColumnLayout, y: torch.Tensor,
     y_scan = None if config.loss_fn().separable else y
     if setup is None:
         setup = fw_setup(pcsr, y, loss=config.loss, pcsc=pcsc)
+    if config.screen_every > 0:   # the pair changes between chunks
+        return _screened_chunked_fw(pcsr, pcsc, setup, config, em_scale, private, y=y_scan)
     if config.early_stopping:
         return _chunked_fw(pcsr, pcsc, setup, config, em_scale, private, y=y_scan)
     w, gaps, coords, _ = fw_scan(

@@ -11,8 +11,9 @@ package's ``solve_many`` (``solvers/batched.py``).
 * It takes the JAX package's ``solve_many`` coordinates exactly, with w and
   gaps within atol 1e-4 (the North-star contract); a tiered layout against
   JAX's flat one is held to the same, not to bits (ROADMAP.md §C).
-* λ-path, screened and mesh configs raise naming A8/A12 before any compute;
-  a bogus plan raises; a ``SolvePlan``'s chunk overrides the default.
+* mesh configs raise naming A12 before any compute; a screened group and a
+  λ-path group run, each config equal to its own ``solve``; a bogus plan
+  raises; a ``SolvePlan``'s chunk overrides the default.
 """
 import dataclasses
 
@@ -216,9 +217,7 @@ def test_takes_the_jax_coordinates(problem, private, layout):
                                        err_msg=msg)
 
 
-@pytest.mark.parametrize("field,value,item", [("lambdas", (8.0, 4.0), "A8"),
-                                              ("screen_every", 5, "A8"),
-                                              ("mesh", (2, 2), "A12")])
+@pytest.mark.parametrize("field,value,item", [("mesh", (2, 2), "A12")])
 def test_unported_configs_refused_before_compute(problem, monkeypatch, field, value, item):
     _, host, y = problem
     monkeypatch.setattr(batched, "_run_torch_sparse_group", lambda *a: pytest.fail("ran"))
@@ -226,6 +225,22 @@ def test_unported_configs_refused_before_compute(problem, monkeypatch, field, va
                FWConfig(backend="torch_sparse", steps=5, device="cpu", **{field: value})]
     with pytest.raises(NotImplementedError, match=item):
         solve_many(host, y, configs)
+
+
+@pytest.mark.parametrize("field,value", [("lambdas", (8.0, 4.0)), ("screen_every", 1)])
+def test_screened_and_path_groups_run(problem, field, value):
+    """A screened group and a λ-path group run under ``solve_many`` and give
+    each config its own ``solve``'s result (a ``PathResult`` for a path)."""
+    _, host, y = problem
+    configs = [FWConfig(backend="torch_sparse", steps=24, chunk_steps=8, device="cpu",
+                        queue="two_level", epsilon=eps, seed=seed, lam=8.0, **{field: value})
+               for eps, seed in ((1.0, 0), (4.0, 3))]
+    for plan in PLANS:
+        got = solve_many(host, y, configs, plan=plan)
+        for i, (g, c) in enumerate(zip(got, configs)):
+            want = solve(host, y, c)
+            for a, b in (zip(g, want) if field == "lambdas" else [(g, want)]):
+                _same(a, b, f"{field} {plan} config {i}")
 
 
 def test_bogus_plan_raises(problem):

@@ -102,8 +102,15 @@ def test_dense_refuses_what_it_does_not_do(problem):
     _, host, y = problem
     with pytest.raises(ValueError, match="selection"):
         solve(host, y, FWConfig(backend="dense", steps=5, device="cpu", selection="softmax"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        dense_fw_screened(host.to_dense(), torch.from_numpy(y), FWConfig(screen_every=2))
+    with pytest.raises(ValueError, match="Screener requires screen_every > 0"):
+        dense_fw_screened(host.to_dense(), torch.from_numpy(y), FWConfig(screen_every=0))
+    # the JAX package's refusals of a screened config, before any compute
+    for bad, match in ((dict(screen_every=-1), "screen_every"),
+                       (dict(screen_every=2, screen_eps_frac=1.5), "screen_eps_frac"),
+                       (dict(screen_every=2, screen_eps_frac=0.0), "screen_eps_frac"),
+                       (dict(screen_every=2, lambdas=(8.0, 4.0)), "screen")):
+        with pytest.raises(ValueError, match=match):
+            solve(host, y, FWConfig(backend="dense", steps=5, device="cpu", **bad))
     with pytest.raises(TypeError):
         solve([[1.0]], y, FWConfig(backend="dense", steps=5, device="cpu"))
 

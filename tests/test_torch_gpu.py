@@ -27,7 +27,11 @@ kernel run on each lane bit for bit — lanes on different routes, a lane
 that is done — and meet the kernels' rules against the plain versions;
 every lane's arrival counter is 0 after each launch; ``solve_many`` on the
 card equals per-config ``solve`` bit for bit with one launch of each kernel
-per step for the whole group.
+per step for the whole group.  A screened solve on the card takes the CPU's
+coordinates and survivor sets (w and gaps within 1e-4), a forced keep-all
+round keeps the card's bits, ``coord_update`` on a repacked pair meets its
+bitwise rule on both routes, and a λ-path group as lanes equals the
+per-config path drivers bit for bit.
 """
 import dataclasses
 
@@ -840,3 +844,142 @@ def test_card_sweep_equals_per_config_solves(problem, private):
         ref = solve(pair, y, c)
         assert res.stop_step_or() == ref.stop_step_or() and res.stop_reason == ref.stop_reason
         assert torch.equal(res.w, ref.w) and torch.equal(res.coords, ref.coords)
+
+
+# ---------------------------------------------------------------------------
+# screening and λ-paths on the card
+# ---------------------------------------------------------------------------
+
+SCREENED = {"alg2_private": dict(backend="torch_sparse", queue="two_level", epsilon=4.0),
+            "alg2_nonprivate": dict(backend="torch_sparse", queue="group_argmax"),
+            "alg1_argmax": dict(backend="dense", selection="argmax")}
+
+
+def _recording_commits(monkeypatch) -> list:
+    """Each fired round's survivors (original ids), as ``Screener.commit``
+    folds them in."""
+    from repro_torch.core.solvers import screening
+    sets, real = [], screening.Screener.commit
+
+    def commit(self, keep, **kw):
+        out = real(self, keep, **kw)
+        sets.append(self.sel.copy())
+        return out
+
+    monkeypatch.setattr(screening.Screener, "commit", commit)
+    return sets
+
+
+@pytest.mark.parametrize("run", list(SCREENED))
+def test_card_screened_solve_matches_cpu(problem, monkeypatch, run):
+    """A screened solve on the card takes the CPU's coordinates and keeps the
+    CPU's survivor sets round by round; w and the gaps within 1e-4; the
+    repack runs on the card (the swapped-in pair lives there)."""
+    from repro_torch.core.solvers import screening
+    X, y, pair = problem
+    cfg = FWConfig(lam=8.0, steps=60, chunk_steps=12, screen_every=1, seed=2,
+                   **SCREENED[run])
+    sets = _recording_commits(monkeypatch)
+    placed = []
+    real_repack = screening.repack_pair
+    monkeypatch.setattr(screening, "repack_pair", lambda *a: placed.append(
+        a[0].device.type) or real_repack(*a))
+    card = solve(pair, y, cfg)
+    card_sets = [s.copy() for s in sets]
+    sets.clear()
+    cpu = solve(tuple(t.to("cpu") for t in pair), y, dataclasses.replace(cfg, device="cpu"))
+    assert card_sets and len(card_sets) == len(sets)
+    for a, b in zip(card_sets, sets):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(card.coords.cpu(), cpu.coords)
+    torch.testing.assert_close(card.w.cpu(), cpu.w, rtol=0, atol=1e-4)
+    torch.testing.assert_close(card.gaps.cpu(), cpu.gaps, rtol=0, atol=1e-4)
+    assert card.w.shape == (X.shape[1],) and card.w.device.type == "cuda"
+    assert set(placed) == {"cuda", "cpu"}   # the card's run repacked on the card
+
+
+@pytest.mark.parametrize("run", list(SCREENED))
+def test_card_keep_all_round_keeps_the_bits(problem, monkeypatch, run):
+    from repro_torch.core.solvers import screening
+    X, y, pair = problem
+    monkeypatch.setattr(screening.Screener, "screen",
+                        lambda self, scores, support: np.ones(scores.shape[0], bool))
+    cfg = FWConfig(lam=8.0, steps=60, chunk_steps=12, screen_every=1, seed=2,
+                   **SCREENED[run])
+    got = solve(pair, y, cfg)
+    eps = screening.solve_epsilon(cfg) if run == "alg2_private" else cfg.epsilon
+    ref = solve(pair, y, dataclasses.replace(cfg, screen_every=0, epsilon=eps))
+    for name in ("coords", "w", "gaps"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiered"])
+@pytest.mark.parametrize("private", [False, True])
+def test_coord_update_bitwise_rule_on_a_repacked_pair(long_problem, private, layout):
+    """After a repack (the survivors' pair, its own owner table and segment
+    order), the card's step meets the bitwise rule against the CPU on the
+    heaviest and a light surviving column, on both routes."""
+    from repro_torch.core.solvers.screening import repack_pair
+    X, y, (pcsr0, flat0) = long_problem
+    n, d0 = X.shape
+    col_nnz0 = flat0.nnz.cpu().numpy()
+    keep = np.random.default_rng(4).random(d0) < 0.3
+    keep[int(np.argmax(col_nnz0))] = True
+    pcsc0 = flat0 if layout == "flat" else tiered_from_padded(flat0, 8)
+    pcsr, pcsc = repack_pair(pcsr0, pcsc0, keep)
+    assert pcsc.device.type == "cuda" and pcsr.shape == (n, int(keep.sum()))
+    assert cu_ops.owner_table(pcsc) is not cu_ops.owner_table(pcsc0)
+    d = pcsr.shape[1]
+    y_t = torch.from_numpy(y.astype(np.float32)).cuda()
+    vbar, qbar, alpha = fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc)
+    em = 30.0 if private else 1.0
+    base = dict(w=torch.zeros(d, device="cuda"), w_m=torch.tensor(0.8, device="cuda"),
+                g_tilde=torch.tensor(0.5, device="cuda"), vbar=vbar, qbar=qbar, alpha=alpha,
+                queue=tl_init(alpha.abs() * em) if private else ga_init(alpha.abs()))
+    before = {k: v.to("cpu") for k, v in base.items()}
+    step = dict(t=4.0, lam=8.0, inv_n=1.0 / n, em_scale=em, loss="logistic")
+    cpu_csr, cpu_csc = pcsr.to("cpu"), pcsc.to("cpu")
+    col_nnz = pcsc.nnz.cpu().numpy()
+    live = np.flatnonzero(col_nnz > 0)
+    scratch = coord_update_scratch(n, d, "cuda")
+    for j in (int(np.argmax(col_nnz)), int(live[np.argmin(col_nnz[live])])):
+        card = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, "auto")
+        after = {key: v.to("cpu") for key, v in card.items()}
+        bad = bitwise_rule_mismatches(j, cpu_csr, cpu_csc, y_t.cpu(), before, after,
+                                      scratch.gs[:int(col_nnz[j])].cpu(), **step)
+        assert bad == [], (j, bad)
+        for route in ("short", "long"):
+            again = _card_step(j, pcsr, pcsc, y_t, base, step, scratch, route)
+            assert _same_bits(_bits(card), _bits(again)), (j, route)
+
+
+@pytest.mark.parametrize("queue", ["two_level", "group_argmax"])
+def test_card_path_group_lanes_equal_sequential(problem, queue):
+    """A λ-path group as lanes on the card equals the per-config path drivers
+    bit for bit, segment by segment, with one lane launch of each kernel a
+    step for the whole group and one setup."""
+    from repro_torch.core.solvers import solve_path
+    X, y, pair = problem
+    lambdas = (16.0, 8.0, 4.0)
+    cfgs = [FWConfig(backend="torch_sparse", steps=40, chunk_steps=10, queue=queue,
+                     lam=lambdas[0], lambdas=lambdas, epsilon=eps, seed=seed)
+            for eps, seed in ((0.5, 0), (1.0, 1), (2.0, 2))]
+    reset_launch_counts()
+    lanes = solve_many(pair, y, cfgs, plan="vmap")
+    counts = launch_counts()
+    total = sum(lanes[0].plan.budgets)
+    assert counts["coord_update_lanes"] == total and counts["coord_update"] == 0
+    assert counts["two_level_draw_lanes"] == (total if queue == "two_level" else 0)
+    assert counts["ell_rmatvec"] == 2
+    seq = solve_many(pair, y, cfgs, plan="sequential")
+    for c, a, b in zip(cfgs, lanes, seq):
+        own = solve_path(pair, y, config=c)
+        for k in range(len(lambdas)):
+            for name in ("w", "gaps", "coords"):
+                assert torch.equal(getattr(a[k], name), getattr(b[k], name)), (k, name)
+                assert torch.equal(getattr(a[k], name), getattr(own[k], name)), (k, name)
+            assert a[k].stop_step_or() == b[k].stop_step_or()
+    cpu = solve_path(X, y, config=dataclasses.replace(cfgs[0], device="cpu"))
+    for k in range(len(lambdas)):
+        assert torch.equal(lanes[0][k].coords.cpu(), cpu[k].coords)
+        torch.testing.assert_close(lanes[0][k].w.cpu(), cpu[k].w, rtol=0, atol=1e-4)

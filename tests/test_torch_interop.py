@@ -115,6 +115,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "mods = ['repro_torch', 'repro_torch.interop', 'repro_torch.prng',\n"
         "        'repro_torch.core.solvers.torch_sparse', 'repro_torch.core.solvers.backends',\n"
         "        'repro_torch.core.solvers.stopping', 'repro_torch.core.fw_dense',\n"
+        "        'repro_torch.core.solvers.screening', 'repro_torch.core.solvers.path',\n"
         "        'repro_torch.kernels', 'repro_torch.data.synthetic',\n"
         "        'repro_torch.configs', 'repro_torch.configs.tinyllama_1_1b',\n"
         "        'repro_torch.configs.llama3_2_1b', 'repro_torch.models.config',\n"

@@ -94,9 +94,7 @@ def test_privacy_accountant_equal():
         ta.per_step_epsilon(0.0, 1e-6, 10)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("screen_every", 2, "A8"), ("lambdas", (3.0, 2.0), "A8"), ("mesh", (2, 2), "A12"),
-])
+@pytest.mark.parametrize("field,value,item", [("mesh", (2, 2), "A12")])
 def test_unported_config_fields_refused(field, value, item):
     cfg = dataclasses.replace(tc.FWConfig(device="cpu"), **{field: value})
     with pytest.raises(NotImplementedError, match=item):
@@ -105,6 +103,7 @@ def test_unported_config_fields_refused(field, value, item):
 
 @pytest.mark.parametrize("field,value", [
     ("gap_tol", 1e-3), ("max_seconds", 5.0), ("chunk_steps", 8), ("selection", "gumbel"),
+    ("screen_every", 2), ("lambdas", (3.0, 2.0)),
 ])
 def test_ported_config_fields_accepted(field, value):
     cfg = dataclasses.replace(tc.FWConfig(device="cpu"), **{field: value})

@@ -77,9 +77,12 @@ def test_solve_refuses_missing_card_and_unported_backends(sweep_problem):
     host = HostCSR(X.indptr, X.indices, X.data, X.shape)
     with pytest.raises(NotImplementedError, match="A9"):
         solve(host, y, FWConfig(backend="jax_dense", device="cpu", steps=5))
-    with pytest.raises(NotImplementedError, match="A8"):
-        solve(host, y, FWConfig(backend="torch_sparse", device="cpu", steps=5,
-                                screen_every=2))
+    for bad, match in ((dict(screen_every=-1), "screen_every"),
+                       (dict(screen_every=2, screen_eps_frac=1.0), "screen_eps_frac"),
+                       (dict(screen_every=2, screen_eps_frac=-0.2), "screen_eps_frac"),
+                       (dict(screen_every=2, lambdas=(8.0, 4.0)), "screen")):
+        with pytest.raises(ValueError, match=match):
+            solve(host, y, FWConfig(backend="torch_sparse", device="cpu", steps=5, **bad))
     with pytest.raises(ValueError, match="queue"):
         solve(host, y, FWConfig(backend="torch_sparse", device="cpu", steps=5,
                                 queue="noisy_max"))
