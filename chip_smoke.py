@@ -18,7 +18,14 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
   rounds, and the kernels timed on the survivors' pair (``screen``);
 * ``solve_path`` over λ = 50, 30, 20, 10 (both, against cold solves of the
   segments) and a private path group of 8 configs as lanes and
-  sequentially (``path``).
+  sequentially (``path``);
+* Alg 2's other engines: ``torch_dense`` (``backend="jax_dense"``, dense
+  vector updates in torch ops) against ``torch_sparse`` and the CPU, both
+  tiles timed (``engines``); the eager oracle ``reference_fw``
+  (``reference``); ``host_sparse``'s float64 host loop (``host_sparse``);
+* a ``FitService`` on the matrix: three tenants, a private grid of 8 as one
+  lane batch, non-private fits on three backends, a ``gap_tol`` fit, two
+  refusals charged nothing (``fit_service``).
 
 It holds the card's runs against CPU runs of the plain versions and the
 stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
@@ -80,6 +87,10 @@ from repro_torch.core.samplers.two_level import (rebuild_groups_, tl_init,  # no
 from repro_torch.core.solvers import planner, screening, solve_path  # noqa: E402
 from repro_torch.core.solvers.path import segment_config  # noqa: E402
 from repro_torch.core.solvers.autotune import autotune  # noqa: E402
+from repro_torch.core.dp.accountant import PrivacyAccountant  # noqa: E402
+from repro_torch.core.fw_sparse import sparse_fw  # noqa: E402
+from repro_torch.core.fw_torch import TILES, default_tile, sparse_fw_torch  # noqa: E402
+from repro_torch.core.solvers.reference import reference_fw  # noqa: E402
 from repro_torch.core.solvers.torch_sparse import (em_scale_for, fw_carry_init,  # noqa: E402
                                                    fw_carry_init_lanes, fw_scan_chunk,
                                                    fw_scan_chunk_lanes, fw_setup)
@@ -107,6 +118,7 @@ from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_re
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serve import FitRequest, FitService, FitServiceConfig  # noqa: E402
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine  # noqa: E402
 
 # rcv1.binary training set (LIBSVM): rows, features, nnz per row
@@ -127,6 +139,16 @@ SCREEN_RUNS = {"torch_sparse_private": dict(backend="torch_sparse", queue="two_l
                "torch_sparse_non_private": dict(backend="torch_sparse", queue="group_argmax"),
                "alg1_argmax": dict(backend="dense", selection="argmax"),
                "alg1_gumbel": dict(backend="dense", selection="gumbel")}
+# the other engines and the fit service: host_sparse's T (its fib_heap queue
+# updates each touched coordinate in Python); the service's three tenants' budgets
+T_HOST = 500
+# torch_dense and the oracle scatter-add on the card in PyTorch's sorted order, not the
+# CPU's input order (ROADMAP.md §C, C2): a run may leave the CPU's coordinates only
+# where its two picks tie within this relative margin (about 1,700 float32 spacings;
+# set at 10x the first such tie seen, 1.01e-5)
+TIE_REL = 1e-4
+SVC_BUDGETS = {"acme": (8.0, T_MAIN), "globex": (1.0, T_MAIN),   # (ε, pool steps), δ = 1e-6
+               "initech": (1.0, T_MAIN)}
 LOSSES = ("logistic", "squared", "lad", "huber", "smoothed_hinge")
 SELECTIONS = ("argmax", "gumbel", "noisy_max")
 # H100 SXM datasheet peaks: HBM bytes/s, float32 outside tensor cores,
@@ -859,6 +881,32 @@ def phase_duplicates(X, csc, y, y_t, buckets) -> tuple:
     return Xd, cpu_runs
 
 
+def _stopped_prefix(res, full, tol: float, name: str) -> dict:
+    """``res`` (run with ``gap_tol=tol``) stops at ``full``'s first gap <= tol
+    and is a bitwise prefix of it, with sentinels after the stop."""
+    gaps = full.gaps.cpu().numpy()
+    k = int(np.argmax(gaps <= np.float32(tol)))
+    stop = res.stop_step_or()
+    require(res.stop_reason == "gap_tol" and stop == k + 1 < T_MAIN,
+            f"{name}: stopped at {stop} ({res.stop_reason}), expected {k + 1}")
+    require(torch.equal(res.coords[:stop], full.coords[:stop])
+            and torch.equal(res.gaps[:stop], full.gaps[:stop]),
+            f"{name}: the stopped run is not a prefix of the fixed-T run")
+    require(bool((res.coords[stop:] == -1).all() and (res.gaps[stop:] == 0).all()),
+            f"{name}: no sentinels after the stop")
+    return dict(gap_tol=tol, expected_stop_step=k + 1, stop_step=stop, prefix_bitwise_equal=True)
+
+
+def _least_positive_half(res) -> float:
+    """The least positive gap of the first T/2 steps of ``res``, so the stop
+    lands in the first half even on a private trace, which is read at
+    DP-drawn coordinates, need not fall and may dip below zero (the gap at
+    step T/2 itself can lie above the first step's); the expected stop is
+    the fixed run's first step at or below it."""
+    half = res.gaps.cpu().numpy()[: T_MAIN // 2]
+    return float(half[half > 0].min())
+
+
 def phase_gap_tol(pcsr, pcsc, y, runs, alg1) -> None:
     """gap_tol runs through the chunk loop: each stops before T and is a
     bitwise prefix of its fixed-T run, with sentinels after the stop."""
@@ -868,31 +916,14 @@ def phase_gap_tol(pcsr, pcsc, y, runs, alg1) -> None:
             backend="torch_sparse", lam=LAM, steps=T_MAIN, epsilon=1.0, delta=1e-6,
             queue="two_level" if name == "private" else "group_argmax", device=DEVICE))
     for name, (full, cfg) in fixed.items():
-        gaps = full.gaps.cpu().numpy()
-        # the least positive gap of the first T/2 steps, so the stop lands in
-        # the first half even on a private trace, which is read at DP-drawn
-        # coordinates, need not fall and may dip below zero (the gap at step
-        # T/2 itself can lie above the first step's); the expected stop is
-        # the fixed run's first step at or below it
-        half = gaps[: T_MAIN // 2]
-        tol = float(half[half > 0].min())
-        k = int(np.argmax(gaps <= np.float32(tol)))
+        tol = _least_positive_half(full)
         reset_launch_counts()
         t0 = time.perf_counter()
         res = solve((pcsr, pcsc), y, dataclasses.replace(cfg, gap_tol=tol))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        stop = res.stop_step_or()
-        require(res.stop_reason == "gap_tol" and stop == k + 1 < T_MAIN,
-                f"{name}: stopped at {stop} ({res.stop_reason}), expected {k + 1}")
-        require(torch.equal(res.coords[:stop], full.coords[:stop])
-                and torch.equal(res.gaps[:stop], full.gaps[:stop]),
-                f"{name}: the stopped run is not a prefix of the fixed-T run")
-        require(bool((res.coords[stop:] == -1).all() and (res.gaps[stop:] == 0).all()),
-                f"{name}: no sentinels after the stop")
-        emit("gap_tol", run=name, expected_stop_step=k + 1, gap_tol=tol, stop_step=stop,
-             stop_reason=res.stop_reason, prefix_bitwise_equal=True, solve_s=wall,
-             launches=launch_counts())
+        emit("gap_tol", run=name, stop_reason=res.stop_reason, solve_s=wall,
+             launches=launch_counts(), **_stopped_prefix(res, full, tol, name))
 
 
 def _store_disk_need(X, pcsr, pcsc) -> int:
@@ -2652,6 +2683,303 @@ def phase_path(pcsr, pcsc, y) -> None:
          bitwise_equal_across_modes=True)
 
 
+# ---------------------------------------------------------------------------
+# the other engines (torch_dense, the oracle, host_sparse) and the fit service
+
+
+def _alg2_config(backend: str, private: bool, **kw) -> FWConfig:
+    base = dict(backend=backend, lam=LAM, steps=T_MAIN, loss="logistic", epsilon=1.0,
+                delta=1e-6, queue="two_level" if private else "group_argmax", device=DEVICE)
+    return FWConfig(**{**base, **kw})
+
+
+def _tie_margin(pcsr, pcsc, y_t, private: bool, step: int, picks: tuple) -> float:
+    """How near a tie the two coordinates ``picks`` were at ``step`` of
+    ``torch_sparse``'s run (its card state after step - 1): the relative gap
+    between their scores in the selection that split them — |α| for the exact
+    argmax; for the private draw the group scores c + Gumbel, or, in one
+    group, the members' v + Gumbel, with the step's noise."""
+    cfg = _alg2_config("torch_sparse", private)
+    em = em_scale_for(cfg, N)
+    carry = fw_carry_init(D, torch.float32, *fw_setup(pcsr, y_t, loss="logistic", pcsc=pcsc),
+                          em, prng.PRNGKey(0), private=private)
+    fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0, 0, None, steps=step - 1, loss="logistic",
+                  private=private)
+    if private:
+        q = carry.sampler
+        kg, km = prng.split2(prng.key_chain(prng.PRNGKey(0), step)[1][-1])
+        m = q.group_size
+        groups = [p // m for p in picks]
+        if groups[0] != groups[1]:
+            scores, at = q.c + prng.gumbel(kg, q.c.shape, DEVICE), groups
+        else:
+            scores, at = q.v[groups[0]] + prng.gumbel(km, (m,), DEVICE), [p % m for p in picks]
+    else:
+        scores, at = carry.alpha.abs(), list(picks)
+    a, b = (float(scores[i]) for i in at)
+    return abs(a - b) / max(abs(a), abs(b))
+
+
+def _agree(coords, w, gaps, ref, name: str, tie=None) -> dict:
+    """``coords`` equal to ``ref``'s first len(coords); w (when given) and the
+    gaps within 1e-4 (the cross-engine contract).  ``tie(step, picks)``, where
+    given, admits a divergence that ``ROADMAP.md`` §C records (the card's
+    scatter order against the CPU's): the first differing step must be a tie
+    of its two picks within ``TIE_REL``, and the steps before it agree."""
+    steps = coords.shape[0]
+    differ = (coords.cpu() != ref.coords[:steps].cpu()).nonzero().flatten().tolist()
+    upto = differ[0] if differ else steps
+    fields = dict(steps=steps, coords_equal=not differ,
+                  max_abs_gaps=float((gaps[:upto].cpu().double()
+                                      - ref.gaps[:upto].cpu().double()).abs().max()))
+    if differ:
+        k = differ[0] + 1
+        require(tie is not None, f"{name}: coords differ at steps {[i + 1 for i in differ[:5]]}")
+        picks = (int(coords[k - 1]), int(ref.coords[k - 1]))
+        margin = tie(k, picks)
+        require(margin <= TIE_REL, f"{name}: diverges at step {k} where {picks} are no tie "
+                f"(relative margin {margin})")
+        fields.update(first_differing_step=k, picks=picks, tie_relative_margin=margin,
+                      differing_steps=len(differ))
+    elif w is not None:
+        fields["max_abs_w"] = float((w.cpu().double() - ref.w.cpu().double()).abs().max())
+    require(all(v <= 1e-4 for k, v in fields.items() if k.startswith("max_abs")),
+            f"{name}: w or gaps differ: {fields}")
+    return fields
+
+
+def phase_engines(pcsr, pcsc, y, y_t, runs, cpu_pair) -> dict:
+    """``torch_dense`` through ``solve(backend="jax_dense")`` at full width,
+    private and non-private, T = 500: only ``ell_rmatvec`` launches (2, the
+    setup) and, private, the draw kernel's rebuild-only form once a step;
+    coordinates equal to ``torch_sparse``'s card runs and to a CPU run of
+    ``torch_dense`` (T = 500), w and gaps within 1e-4, or split from them
+    only at a tie (``_agree``); the CPU's run equal to ``torch_sparse``'s
+    coordinates; a rerun equal bit for bit (the card's scatter order is
+    fixed); per-step ms of both tiles; ``gap_tol`` runs stopped at the
+    fixed-T run's first gap <= tol.  (Its profiled steps: ``engines_busy``.)"""
+    t_phase = time.perf_counter()
+    pair = (pcsr, pcsc)
+    out = {}
+    for private in (True, False):
+        name = "private" if private else "non_private"
+        cfg = _alg2_config("jax_dense", private)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve(pair, y, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, rebuilds = launch_counts(), two_level_draw.rebuilds
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(counts, 0)
+        want["ell_rmatvec"] = 2
+        require(counts == want, f"torch_dense {name}: launches {counts}, expected {want}")
+        require(rebuilds == (T_MAIN if private else 0),
+                f"torch_dense {name}: {rebuilds} rebuild-only launches")
+        require(res.stop_step == T_MAIN and res.stop_reason == "max_steps",
+                f"torch_dense {name}: stop {res.stop_step} {res.stop_reason}")
+        tie = lambda k, picks, p=private: _tie_margin(pcsr, pcsc, y_t, p, k, picks)
+        vs_sparse = _agree(res.coords, res.w, res.gaps, runs[name]["res"],
+                           f"torch_dense {name} against torch_sparse", tie)
+        again = solve(pair, y, cfg)
+        require(all(torch.equal(getattr(again, k), getattr(res, k))
+                    for k in ("w", "gaps", "coords")),
+                f"torch_dense {name}: two runs differ (the scatter order is not fixed)")
+        t0 = time.perf_counter()
+        cpu = solve(cpu_pair, y, dataclasses.replace(cfg, device="cpu"))
+        t_cpu = time.perf_counter() - t0
+        vs_cpu = _agree(res.coords, res.w, res.gaps, cpu, f"torch_dense {name}: card against CPU",
+                        tie)
+        # the CPU's torch_dense against torch_sparse: one state machine, one order
+        cpu_vs_sparse = _agree(cpu.coords, cpu.w, cpu.gaps, runs[name]["res"],
+                               f"torch_dense {name} on the CPU against torch_sparse")
+        vs_cpu.update(cpu_solve_s=t_cpu, w_bitwise_equal=bool(torch.equal(cpu.w, res.w.cpu())),
+                      gaps_bitwise_equal=bool(torch.equal(cpu.gaps, res.gaps.cpu())))
+        tile_ms = {tile: sync_ms(lambda: sparse_fw_torch(pcsr, pcsc, y_t, cfg, tile=tile))
+                   / T_MAIN for tile in TILES}
+        tol = _least_positive_half(res)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        stopped = solve(pair, y, dataclasses.replace(cfg, gap_tol=tol))
+        torch.cuda.synchronize()
+        stop_fields = _stopped_prefix(stopped, res, tol, f"torch_dense {name} gap_tol")
+        stop_fields.update(solve_s=time.perf_counter() - t0, launches=launch_counts())
+        emit("engines", run=name, backend="torch_dense", requested="jax_dense", steps=T_MAIN,
+             solve_s=wall, per_step_ms=wall * 1e3 / T_MAIN, launches=counts,
+             rebuild_only_launches=rebuilds, max_memory_allocated=peak,
+             vs_torch_sparse=vs_sparse, bitwise_equal_rerun=True, vs_cpu=vs_cpu,
+             cpu_vs_torch_sparse=cpu_vs_sparse,
+             per_step_ms_by_tile=tile_ms, default_tile=default_tile(private, DEVICE),
+             gap_tol_run=stop_fields)
+        out[name] = dict(counts=counts, rebuilds=rebuilds)
+    emit("engines_done", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def engines_busy(pcsr, pcsc, y_t) -> None:
+    """Device busy ms a step and idle share of 100 ``torch_dense`` steps
+    (default tile) under the profiler, the run's last window."""
+    for name in ("private", "non_private"):
+        cfg = _alg2_config("torch_dense", name == "private", steps=100)
+        prof = profile_steps(f"torch_dense_{name}", 100,
+                             lambda: sparse_fw_torch(pcsr, pcsc, y_t, cfg), quiet=True)
+        busy = sum(prof["by_kernel"].values())
+        require(busy > 0, f"torch_dense {name}: the profiler recorded no device time")
+        emit("engines_profile", run=name, steps=100, profiled_wall_ms=prof["wall_ms"],
+             device_busy_ms_per_step=busy / 100, device_idle_share=1.0 - busy / prof["wall_ms"],
+             kernels_per_step=sum(prof["calls"].values()) / 100,
+             top_device=sorted(((k[:60], v) for k, v in prof["by_kernel"].items()),
+                               key=lambda r: -r[1])[:6])
+
+
+def phase_reference(pcsr, pcsc, y_t, runs) -> None:
+    """The port's eager oracle ``reference_fw`` on the card at full width,
+    T = 500, private and non-private: no kernel launches, coordinates equal
+    to ``torch_sparse``'s card runs, w and gaps within 1e-4."""
+    t_phase = time.perf_counter()
+    for private in (True, False):
+        name = "private" if private else "non_private"
+        em = em_scale_for(_alg2_config("torch_sparse", private), N)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        w, gaps, coords = reference_fw(pcsr, pcsc, y_t, lam=LAM, steps=T_MAIN, private=private,
+                                       em_scale=em, seed=0, loss="logistic")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        require(not any(counts.values()) and two_level_draw.rebuilds == 0,
+                f"reference {name}: the oracle launched kernels: {counts}")
+        fields = _agree(coords, w, gaps, runs[name]["res"], f"reference {name}",
+                        lambda k, picks, p=private: _tie_margin(pcsr, pcsc, y_t, p, k, picks))
+        emit("reference", run=name, solve_s=wall, per_step_ms=wall * 1e3 / T_MAIN,
+             launches=counts, **fields)
+    emit("reference_done", seconds=time.perf_counter() - t_phase)
+
+
+def phase_host_sparse(X, y, pcsr, pcsc, y_t, runs) -> None:
+    """``host_sparse``'s float64 host loop, non-private ``fib_heap``, on the
+    host CSR: coordinates equal to ``torch_sparse``'s non-private card run,
+    gaps within 1e-4; its wall and FLOP audit.  Then ``solve`` through the
+    backend (50 steps): float32/int32 tensors on the card, the engine's."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    res = sparse_fw(X, y.astype(np.float64), lam=LAM, steps=T_HOST, queue="fib_heap")
+    wall = time.perf_counter() - t0
+    # float64 against float32 arithmetic: a tie may split them too (ROADMAP.md §C)
+    fields = _agree(torch.from_numpy(res.coords), torch.from_numpy(res.w) if T_HOST == T_MAIN
+                    else None, torch.from_numpy(res.gaps), runs["non_private"]["res"],
+                    "host_sparse against torch_sparse",
+                    lambda k, picks: _tie_margin(pcsr, pcsc, y_t, False, k, picks))
+    reset_launch_counts()
+    back = solve(X, y, FWConfig(backend="host_sparse", lam=LAM, steps=50, device=DEVICE))
+    require(back.w.device.type == torch.device(DEVICE).type and back.coords.dtype == torch.int32
+            and torch.equal(back.coords.cpu(), torch.from_numpy(res.coords[:50]).int()),
+            "host_sparse through solve: not the engine's coords as int32 on the card")
+    require(not any(launch_counts().values()), "host_sparse launched a kernel")
+    emit("host_sparse", queue="fib_heap", wall_s=wall,
+         per_step_ms=wall * 1e3 / T_HOST, flops=res.flops, queue_work=res.queue_work,
+         pops=res.pops, nnz_w=int((res.w != 0).sum()), result_device=str(back.w.device),
+         **fields)
+    emit("host_sparse_done", seconds=time.perf_counter() - t_phase)
+
+
+def _service_requests(runs) -> list:
+    """(tenant, config) of the service phase, in submission order: a private
+    λ × ε grid of 8 (acme), four non-private ``torch_sparse`` fits, one
+    ``torch_dense``, one ``dense`` and one ``gap_tol`` fit (initech), then
+    one fit over its tenant's budget (globex) and one ``max_seconds`` fit on
+    ``torch_dense``: the last two are refused."""
+    reqs = [("acme", c) for c in grid(_alg2_config("torch_sparse", True), lam=SWEEP_LAMS,
+                                      epsilon=SWEEP_EPS)]
+    reqs += [("initech", _alg2_config("torch_sparse", False, lam=lam)) for lam in SWEEP_LAMS]
+    reqs += [("initech", _alg2_config("torch_dense", False)),
+             ("initech", _alg1_config("argmax", T_MAIN)),
+             ("initech", _alg2_config("torch_sparse", False,
+                                      gap_tol=_least_positive_half(runs["non_private"]["res"]))),
+             ("globex", _alg2_config("torch_sparse", True, epsilon=2.0)),
+             ("initech", _alg2_config("torch_dense", False, max_seconds=60.0))]
+    return reqs
+
+
+def _accountants() -> dict:
+    return {t: PrivacyAccountant(epsilon=e, delta=1e-6, total_steps=n)
+            for t, (e, n) in SVC_BUDGETS.items()}
+
+
+def phase_fit_service(pcsr, pcsc, y, runs) -> dict:
+    """One ``FitService`` on the card's pair (slots 8, three tenants) drains
+    the ``_service_requests`` stream: the two last refused and charged
+    nothing, acme charged its grid's ε²-equivalent steps, the ledger exact,
+    every answered request equal to its own ``solve`` bit for bit.  Requests/s,
+    latency, and the launches of the run (a lane batch: one launch of each
+    lane kernel a step)."""
+    t_phase = time.perf_counter()
+    pair = (pcsr, pcsc)
+    reqs = _service_requests(runs)
+    t0 = time.perf_counter()
+    svc = FitService(pair, y, _accountants(), FitServiceConfig(slots=8, device=DEVICE))
+    start_s = time.perf_counter() - t0
+    for uid, (tenant, cfg) in enumerate(reqs):
+        svc.submit(FitRequest(uid=uid, tenant=tenant, config=cfg))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rebuilds = {"two_level_draw": two_level_draw.rebuilds,
+                "two_level_draw_lanes": two_level_draw_lanes.rebuilds}
+    peak = torch.cuda.max_memory_allocated()
+    status = [r.status for r in done]
+    last = len(reqs) - 2
+    require(status == ["done"] * last + ["rejected"] * 2, f"fit service statuses {status}")
+    require("budget exhausted" in done[last].reason and "max_seconds" in done[last + 1].reason,
+            f"fit service refusals: {[done[last].reason, done[last + 1].reason]}")
+    want_acme = sum(FitService._charged_steps(_accountants()["acme"], r.config)
+                    for r in done[:8])
+    spent = {t: a.spent_steps for t, a in svc.accountants.items()}
+    require(spent == {"acme": want_acme, "globex": 0, "initech": 0},
+            f"fit service charges {spent}, expected acme {want_acme}, the others 0")
+    # the private grid is one batch of 8: one draw launch a step as lanes, or 8 in sequence
+    require(counts["two_level_draw_lanes"] == T_MAIN or counts["two_level_draw"] == 8 * T_MAIN,
+            f"fit service: the private batch launched {counts}")
+    audit = svc.verify_ledger()
+    require(all(rec["exact"] for rec in audit.values()), f"ledger audit {audit}")
+    charges = [(e["tenant"], e["uid"], e["steps"]) for e in svc.ledger.entries
+               if e["kind"] == "charge"]
+    stats = svc.stats()
+    for r in done[:last]:
+        _same_as_solve(r.result, solve(pair, y, r.config), f"fit service request {r.uid}")
+    emit("fit_service", requests=len(reqs), slots=8, tenants=sorted(SVC_BUDGETS),
+         statuses=status, refusals={r.uid: r.reason[:90] for r in done if r.status == "rejected"},
+         backends=[r.config.backend for r in done], charges=charges, spent_steps=spent,
+         ledger=audit, batch_sizes=stats["batch_sizes"], service_start_s=start_s,
+         drain_s=wall, requests_per_s=stats["throughput_fits_per_s"],
+         latency_s=stats["latency_s"], launches=counts, rebuild_only_launches=rebuilds,
+         lane_launches_per_step={k: counts[k] / T_MAIN for k in ("two_level_draw_lanes",
+                                                                  "coord_update_lanes")},
+         coerced_layouts=sorted(f"{k[0]}@{k[1]}" for k in svc._coerced),
+         max_memory_allocated=peak, bitwise_equal_own_solve=True)
+    emit("fit_service_done", seconds=time.perf_counter() - t_phase)
+    return dict(counts=counts, rebuilds=rebuilds)
+
+
+def add_path_launches(kernels: list, engines: dict, service: dict) -> None:
+    """The launches of this slice's paths beside each kernel's main-path
+    count: ``torch_dense``'s (its setup's ``ell_rmatvec``, the draw kernel's
+    rebuild-only form) and the fit service's run."""
+    for entry in kernels:
+        name = entry["name"]
+        paths = {f"torch_dense_{run}": engines[run]["counts"].get(name, 0)
+                 + (engines[run]["rebuilds"] if name == "two_level_draw" else 0)
+                 for run in ("private", "non_private")}
+        paths["fit_service"] = service["counts"].get(name, 0) + \
+            service["rebuilds"].get(name, 0)
+        entry["launches_by_path"] = paths
+
+
 def add_repacked(kernels: list, repacked: dict) -> None:
     """Each of rows 1-4 gets its times on the round-1 survivor pair, under
     ``repacked_*`` keys marked by the survivors' D."""
@@ -2698,15 +3026,29 @@ def main() -> int:
     phase_autotune(pcsr, pcsc, y)
     phase_auto_backend(pcsr, pcsc, y)
     phase_store(X, y, y_t, pcsr, pcsc, runs, dense, pad_s, dup)
-    del X, csc, pcsr, pcsc, runs, alg1, dense, dup
+    refs = {name: dict(res=run["res"]) for name, run in runs.items()}
+    del csc, pcsr, pcsc, runs, alg1, dense, dup
     torch.cuda.empty_cache()
     flash_errs = phase_flash_vs_plain()
     api, params, api32, p32, routes, f32_routes = phase_lm_forward()
     phase_lm_serve(api, params, api32, p32)
     del p32
     phase_lm_probe(api, params)
+    del api, params
     screen_busy(screen_windows)
     del screen_windows
+    # the other engines and the fit service, last: on a pair padded anew, after
+    # every profiled window of the older phases (two runs with these phases
+    # before the sweep dropped a lane window's first step from its profile)
+    torch.cuda.empty_cache()
+    pcsr, pcsc = host_to_padded(X, device=DEVICE)
+    engines = phase_engines(pcsr, pcsc, y, y_t, refs, host_to_padded(X, device="cpu"))
+    phase_reference(pcsr, pcsc, y_t, refs)
+    phase_host_sparse(X, y, pcsr, pcsc, y_t, refs)
+    service = phase_fit_service(pcsr, pcsc, y, refs)
+    add_path_launches(kernels, engines, service)
+    engines_busy(pcsr, pcsc, y_t)
+    del X, pcsr, pcsc
     kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)

@@ -85,10 +85,19 @@ def ga_scatter_(state: GroupArgmaxState, idx: torch.Tensor, vals: torch.Tensor) 
 
 def ga_update(state: GroupArgmaxState, idx: torch.Tensor,
               priorities: torch.Tensor) -> GroupArgmaxState:
-    """Scatter live priorities (idx >= d dropped); bounds only ratchet upward."""
-    valid = idx < state.d
+    """Scatter live priorities; bounds only ratchet upward.  An entry with
+    idx >= d is dropped as the JAX package drops it (it rewrites ``p[0]``'s
+    current value and raises no bound), without a boolean mask."""
     out = state.clone()
-    ga_scatter_(out, idx[valid], priorities[valid])
+    idx = idx.long()
+    valid = idx < out.d
+    safe = torch.where(valid, idx, 0)
+    flat = out.p.view(-1)
+    vals = torch.where(valid, priorities, flat[safe])
+    flat[safe] = vals
+    out.bound.scatter_reduce_(0, safe // out.group_size,
+                              torch.where(valid, vals, torch.full_like(vals, NEG_INF)),
+                              reduce="amax")
     return out
 
 

@@ -13,7 +13,8 @@ splits an update in two: the coordinate-update kernel scatters ``v`` and
 raises ``touched`` in place (``tl_scatter_`` is its plain form), then the
 next step's draw launch rebuilds the touched groups' ``c`` before it draws;
 ``tl_rebuild_`` rebuilds alone (after a chunk's last step).  ``tl_update``
-is the functional form of both, with the JAX package's signature.
+is the functional form of both, with the JAX package's signature and its
+treatment of dropped entries (``torch_dense``'s step runs it).
 
 Stacked state (a sweep group's lanes): ``tl_init`` on a (B, D) matrix of
 log-weights gives ``v`` (B, G, M), ``c`` (B, G) and ``touched`` (B, G), each
@@ -132,10 +133,17 @@ def tl_rebuild_(state: TwoLevelSamplerState) -> None:
 
 def tl_update(state: TwoLevelSamplerState, idx: torch.Tensor,
               new_log_weights: torch.Tensor) -> TwoLevelSamplerState:
-    """Scatter new log-weights for ``idx`` (entries with idx >= d are
-    dropped) and rebuild the affected group sums exactly."""
-    valid = idx < state.d
+    """Scatter new log-weights for ``idx`` and rebuild the affected group
+    sums exactly.  An entry with idx >= d is dropped as the JAX package drops
+    it: it rewrites ``v[0]``'s current value and marks no group.  No boolean
+    mask, so a CUDA state is updated without a host synchronisation."""
     out = state.clone()
-    tl_scatter_(out, idx[valid], new_log_weights[valid])
+    idx = idx.long()
+    valid = idx < out.d
+    safe = torch.where(valid, idx, 0)
+    flat = out.v.view(-1)
+    flat[safe] = torch.where(valid, new_log_weights, flat[safe])
+    out.touched.scatter_reduce_(0, safe // out.group_size, valid.to(out.touched.dtype),
+                                reduce="amax")
     tl_rebuild_(out)
     return out

@@ -25,7 +25,7 @@ STOP_MAX_SECONDS = "max_seconds"  # wall-clock budget exhausted
 class FWConfig:
     """One Frank-Wolfe run, declaratively (see ``repro.core.solvers.config``)."""
 
-    backend: str = "dense"       # dense | torch_sparse (alias jax_sparse)
+    backend: str = "dense"       # dense | torch_dense | host_sparse | torch_sparse
     lam: float = 50.0            # L1 radius λ
     steps: int = 4000            # T
     loss: str = "logistic"

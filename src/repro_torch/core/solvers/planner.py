@@ -144,7 +144,8 @@ def data_stats(X) -> ProblemStats:
 
 def step_costs(stats: ProblemStats, backend: str) -> Tuple[float, float]:
     """(flops, bytes) of one FW step: Alg 1 O(nnz + N + D); Alg 2 the
-    K_c×K_r tile, the two-level selection O(√D) and the O(K_c) refresh."""
+    K_c×K_r tile, the two-level selection O(√D) and the O(K_c) refresh;
+    ``torch_dense`` (``jax_dense``) also touches the D-wide sampler state."""
     n, d, nnz = stats.n, stats.d, stats.nnz
     if backend == "dense":
         flops = 4.0 * nnz + 4.0 * n + 6.0 * d
@@ -154,6 +155,9 @@ def step_costs(stats: ProblemStats, backend: str) -> Tuple[float, float]:
     sqrt_d = math.sqrt(max(d, 1))
     flops = 6.0 * tile + 4.0 * stats.kc + 3.0 * sqrt_d
     bytes_ = 4.0 * (3.0 * tile + 4.0 * stats.kc + 2.0 * sqrt_d)
+    if _backend_name(backend) == "torch_dense":   # the D-wide sampler state
+        flops += 2.0 * d
+        bytes_ += 8.0 * d
     return flops, bytes_
 
 

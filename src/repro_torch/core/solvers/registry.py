@@ -4,14 +4,17 @@
     result = solve(X, y, FWConfig(lam=30.0, steps=500))          # on cuda
     result = solve(X, y, FWConfig(lam=30.0, steps=500, device="cpu"))
 
-Two backends are registered (``backends.py``): ``dense`` (Alg 1, the
-default, as in the JAX package) and ``torch_sparse`` (Alg 2; the JAX name
-``jax_sparse`` is accepted for it).  :func:`solve` refuses what the port
-does not implement, coerces ``X`` — a ``HostCSR``, a dense numpy matrix, a
-padded pair, or a ``repro_torch.data.store`` ``DatasetStore``/``DatasetRef``
-(whose labels stand in for ``y``) — into the backend's data format on
-``config.device``, and translates queue names through ``QUEUE_ALIASES`` as
-the JAX registry does.  A store reaches ``torch_sparse`` as a
+Four backends are registered (``backends.py``), every single-device engine
+of the JAX package: ``dense`` (Alg 1, the default), ``torch_dense`` (Alg 2,
+dense vector updates; the JAX name ``jax_dense`` selects it),
+``host_sparse`` (Alg 2, the faithful float64 host loop) and
+``torch_sparse`` (Alg 2 through the kernels; ``jax_sparse`` selects it).
+:func:`solve` refuses what the port does not implement, coerces ``X`` — a
+``HostCSR``, a dense numpy matrix, a padded pair, or a
+``repro_torch.data.store`` ``DatasetStore``/``DatasetRef`` (whose labels
+stand in for ``y``) — into the backend's data format (``dense``,
+``padded`` on ``config.device``, or ``host``) and translates queue names
+through ``QUEUE_ALIASES`` as the JAX registry does.  A store reaches ``torch_sparse`` as a
 ``PreparedDataset``: its cached padded layout and setup state.
 """
 from __future__ import annotations
@@ -36,9 +39,13 @@ class Backend:
 
     name: str
     fn: Callable  # (data, y, config) -> FWResult
-    data_format: str  # "dense" | "padded": the layout solve() coerces X into
+    data_format: str  # "dense" | "padded" | "host": the layout solve() coerces X into
     queues: Mapping[str, str]
     default_queue: Optional[str]
+    # an engine that runs T steps without looking at a clock refuses
+    # max_seconds; declared so that admission (the fit service) refuses such
+    # a config before it charges any budget
+    supports_max_seconds: bool = True
     supports_screening: bool = False  # a chunk loop whose pair may change (screen_every)
     supports_path: bool = False       # a chunk loop a λ-path re-enters (lambdas)
 
@@ -52,6 +59,11 @@ _REGISTRY: Dict[str, Backend] = {}
 # fib_heap ≡ group_argmax ≡ argmax: exact max of |α|.
 # bsls ≡ two_level ≡ gumbel: the DP exponential mechanism.
 QUEUE_ALIASES: Mapping[str, Mapping[str, str]] = {
+    "host": {
+        "fib_heap": "fib_heap", "argmax": "argmax", "noisy_max": "noisy_max",
+        "bsls": "bsls", "group_argmax": "fib_heap", "two_level": "bsls",
+        "gumbel": "bsls",
+    },
     "device": {
         "two_level": "two_level", "group_argmax": "group_argmax",
         "bsls": "two_level", "gumbel": "two_level",
@@ -66,16 +78,18 @@ QUEUE_ALIASES: Mapping[str, Mapping[str, str]] = {
 }
 
 # the JAX package's backend names that a port backend serves
-BACKEND_ALIASES: Mapping[str, str] = {"jax_sparse": "torch_sparse"}
+BACKEND_ALIASES: Mapping[str, str] = {"jax_sparse": "torch_sparse",
+                                       "jax_dense": "torch_dense"}
 
 
 def register(name: str, *, data_format: str, queues: Mapping[str, str],
-             default_queue: Optional[str], supports_screening: bool = False,
-             supports_path: bool = False) -> Callable:
+             default_queue: Optional[str], supports_max_seconds: bool = True,
+             supports_screening: bool = False, supports_path: bool = False) -> Callable:
     """Decorator: add ``fn(data, y, config) -> FWResult`` under ``name``."""
     def deco(fn: Callable) -> Callable:
         _REGISTRY[name] = Backend(name=name, fn=fn, data_format=data_format, queues=queues,
                                   default_queue=default_queue,
+                                  supports_max_seconds=supports_max_seconds,
                                   supports_screening=supports_screening,
                                   supports_path=supports_path)
         return fn
@@ -93,14 +107,13 @@ def available_backends() -> Tuple[str, ...]:
 
 # the JAX package's backends the port does not have yet → their ROADMAP.md item
 UNPORTED_BACKENDS: Mapping[str, str] = {
-    "host_sparse": "A9 (the other engines)",
-    "jax_dense": "A9 (the other engines)",
     "jax_shard": "A12 (sharded engine)",
 }
 
 
 def get_backend(name: str) -> Backend:
-    """The registered backend ``name`` (``jax_sparse`` is ``torch_sparse``).
+    """The registered backend ``name`` (``jax_sparse`` is ``torch_sparse``,
+    ``jax_dense`` is ``torch_dense``).
 
     A JAX backend the port lacks raises ``NotImplementedError`` naming its
     ROADMAP.md item; any other unknown name, ``ValueError``.  ``"auto"`` is
@@ -232,7 +245,9 @@ def as_dense(X, device="cuda"):
                     f"TieredCSC) pair, or a DatasetStore/DatasetRef; got {type(X).__name__}")
 
 
-_COERCE = {"dense": as_dense, "padded": as_padded}
+_COERCE = {"dense": as_dense, "padded": as_padded,
+           # the host engine computes on the host whatever the device
+           "host": lambda X, device: as_host_csr(X)}
 
 
 def resolve_queue(backend: Backend, config: FWConfig) -> FWConfig:

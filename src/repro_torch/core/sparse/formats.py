@@ -63,6 +63,14 @@ class HostCSR:
             out[i] = val @ w[idx]
         return out
 
+    def rmatvec(self, q: np.ndarray) -> np.ndarray:
+        # row by row, as the JAX package sums it (the host engine's setup)
+        out = np.zeros(self.shape[1])
+        for i in range(self.shape[0]):
+            idx, val = self.row(i)
+            out[idx] += val * q[i]
+        return out
+
     def to_dense(self) -> np.ndarray:
         out = np.zeros(self.shape)
         out[self.row_ids(), self.indices] = self.data
@@ -90,6 +98,10 @@ class HostCSC:
     @property
     def nnz(self) -> int:
         return int(self.indices.shape[0])
+
+    def col(self, j: int) -> Tuple[np.ndarray, np.ndarray]:
+        lo, hi = self.indptr[j], self.indptr[j + 1]
+        return self.indices[lo:hi], self.data[lo:hi]
 
     def to_dense(self) -> np.ndarray:
         out = np.zeros(self.shape)

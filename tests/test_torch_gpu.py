@@ -31,7 +31,13 @@ per step for the whole group.  A screened solve on the card takes the CPU's
 coordinates and survivor sets (w and gaps within 1e-4), a forced keep-all
 round keeps the card's bits, ``coord_update`` on a repacked pair meets its
 bitwise rule on both routes, and a λ-path group as lanes equals the
-per-config path drivers bit for bit.
+per-config path drivers bit for bit.  ``torch_dense`` on the card (both
+tiles, five losses) launches only its setup's ``ell_rmatvec`` and, private,
+the draw kernel's rebuild once a step, repeats its bits run to run, and
+takes the CPU's and ``torch_sparse``'s coordinates (w and gaps within 1e-4);
+the eager oracle launches nothing and takes ``torch_sparse``'s coordinates;
+``host_sparse`` returns the CPU's result as tensors on the card; the fit
+service's answers equal their own ``solve`` bit for bit.
 """
 import dataclasses
 
@@ -983,3 +989,103 @@ def test_card_path_group_lanes_equal_sequential(problem, queue):
     for k in range(len(lambdas)):
         assert torch.equal(lanes[0][k].coords.cpu(), cpu[k].coords)
         torch.testing.assert_close(lanes[0][k].w.cpu(), cpu[k].w, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the other engines and the fit service on the card
+
+
+@pytest.mark.parametrize("tile", ["full", "live"])
+@pytest.mark.parametrize("private", [False, True])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_card_torch_dense_matches_cpu_and_torch_sparse(problem, loss, private, tile):
+    from repro_torch.core.fw_torch import sparse_fw_torch
+    X, y, (pcsr, pcsc) = problem
+    cfg = FWConfig(backend="torch_dense", lam=8.0, steps=60, loss=loss, device="cuda",
+                   queue="two_level" if private else "group_argmax")
+    y_t = torch.from_numpy(y.astype(np.float32))
+    reset_launch_counts()
+    card = sparse_fw_torch(pcsr, pcsc, y_t.cuda(), cfg, tile=tile)
+    counts = launch_counts()
+    assert counts["ell_rmatvec"] == (2 if loss in ("logistic", "squared") else 1)
+    assert two_level_draw.rebuilds == (60 if private else 0)
+    assert sum(counts.values()) == counts["ell_rmatvec"]
+    again = sparse_fw_torch(pcsr, pcsc, y_t.cuda(), cfg, tile=tile)
+    for name in ("w", "gaps", "coords"):                        # the fixed scatter order
+        assert torch.equal(getattr(card, name), getattr(again, name)), name
+    cpu = sparse_fw_torch(*host_to_padded(X, device="cpu"), y_t,
+                          dataclasses.replace(cfg, device="cpu"), tile=tile)
+    sparse = solve((pcsr, pcsc), y, dataclasses.replace(cfg, backend="torch_sparse"))
+    for ref in (cpu, sparse):
+        assert torch.equal(card.coords.cpu(), ref.coords.cpu())
+        assert float((card.w.cpu() - ref.w.cpu()).abs().max()) <= 1e-4
+        assert float((card.gaps.cpu() - ref.gaps.cpu()).abs().max()) <= 1e-4
+
+
+def test_card_scatter_order_is_fixed(cuda):
+    from repro_torch.core.fw_torch import scatter_add
+    g = np.random.default_rng(0)
+    idx = torch.from_numpy(g.integers(0, 40, size=4000)).cuda()
+    src = torch.from_numpy(g.normal(size=4000).astype(np.float32)).cuda()
+    live = torch.from_numpy(g.random(4000) < 0.8).cuda()
+    dst = torch.from_numpy(g.normal(size=40).astype(np.float32)).cuda()
+    first = scatter_add(dst, idx, src, live)
+    for _ in range(5):
+        assert torch.equal(first, scatter_add(dst, idx, src, live))
+    plain = scatter_add(dst.cpu(), idx.cpu(), src.cpu(), live.cpu())    # input order
+    torch.testing.assert_close(first.cpu(), plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("private", [False, True])
+def test_card_reference_fw_matches_torch_sparse(problem, private):
+    from repro_torch.core.solvers.reference import reference_fw
+    from repro_torch.core.solvers.torch_sparse import em_scale_for
+    X, y, (pcsr, pcsc) = problem
+    cfg = FWConfig(backend="torch_sparse", lam=8.0, steps=60, device="cuda",
+                   queue="two_level" if private else "group_argmax")
+    reset_launch_counts()
+    w, gaps, coords = reference_fw(pcsr, pcsc, torch.from_numpy(y.astype(np.float32)).cuda(),
+                                   lam=8.0, steps=60, private=private,
+                                   em_scale=em_scale_for(cfg, X.shape[0]))
+    assert not any(launch_counts().values()) and two_level_draw.rebuilds == 0
+    ref = solve((pcsr, pcsc), y, cfg)
+    assert torch.equal(coords, ref.coords)
+    assert float((w - ref.w).abs().max()) <= 1e-4 and float((gaps - ref.gaps).abs().max()) <= 1e-4
+
+
+def test_card_host_sparse_returns_card_tensors(problem):
+    X, y, _ = problem
+    card = solve(X, y, FWConfig(backend="host_sparse", lam=8.0, steps=30))
+    cpu = solve(X, y, FWConfig(backend="host_sparse", lam=8.0, steps=30, device="cpu"))
+    assert card.w.device.type == "cuda" and card.coords.dtype == torch.int32
+    for name in ("w", "gaps", "coords"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+
+
+def test_card_fit_service_answers_equal_own_solves(problem):
+    from repro_torch.core.dp.accountant import PrivacyAccountant
+    from repro_torch.serve import FitRequest, FitService, FitServiceConfig
+    X, y, pair = problem
+    svc = FitService(pair, y, {"acme": PrivacyAccountant(epsilon=8.0, delta=1e-6,
+                                                         total_steps=400)},
+                     FitServiceConfig(slots=4))
+    reqs = list(grid(FWConfig(backend="torch_sparse", steps=40, queue="two_level"),
+                     lam=(4.0, 8.0), epsilon=(0.5, 1.0)))
+    reqs += [FWConfig(backend="jax_dense", lam=8.0, steps=40),
+             FWConfig(backend="dense", lam=8.0, steps=40),
+             FWConfig(backend="host_sparse", lam=8.0, steps=40),
+             FWConfig(backend="torch_dense", steps=40, max_seconds=1.0)]
+    for uid, cfg in enumerate(reqs):
+        svc.submit(FitRequest(uid=uid, tenant="acme", config=cfg))
+    reset_launch_counts()
+    done = svc.run()
+    assert [r.status for r in done] == ["done"] * 7 + ["rejected"]
+    assert launch_counts()["two_level_draw_lanes"] in (0, 40)
+    for r in done[:7]:
+        ref = solve(pair, y, r.config)
+        for name in ("w", "gaps", "coords"):
+            assert torch.equal(getattr(r.result, name).cpu(), getattr(ref, name).cpu()), r.uid
+    assert all(rec["exact"] for rec in svc.verify_ledger().values())
+    assert svc.accountants["acme"].spent_steps == sum(
+        FitService._charged_steps(PrivacyAccountant(epsilon=8.0, delta=1e-6, total_steps=400),
+                                  r.config) for r in done[:4])

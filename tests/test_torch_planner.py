@@ -223,13 +223,17 @@ def test_solve_auto_backend_equals_its_pick(problem, queue, fresh_book):
 
 
 @pytest.mark.parametrize("name,item,exc", [
-    ("host_sparse", "A9", NotImplementedError), ("jax_dense", "A9", NotImplementedError),
+    ("host_sparse", "A9", None), ("jax_dense", "A9", None),
     ("jax_shard", "A12", NotImplementedError), ("auto", "resolved", ValueError),
     ("no_such_engine", "unknown", ValueError)])
 def test_get_backend_names_each_unported_item(name, item, exc):
-    with pytest.raises(exc, match=item):
-        get_backend(name)
+    if exc is None:   # ported (A9): the JAX name resolves to the port's engine
+        assert get_backend(name).name == {"jax_dense": "torch_dense"}.get(name, name)
+    else:
+        with pytest.raises(exc, match=item):
+            get_backend(name)
     assert get_backend("jax_sparse") is get_backend("torch_sparse")
+    assert get_backend("jax_dense") is get_backend("torch_dense")
 
 
 def test_new_modules_import_without_jax():

@@ -75,8 +75,8 @@ def test_port_generator_equals_jax_generator():
 def test_solve_refuses_missing_card_and_unported_backends(sweep_problem):
     X, y = sweep_problem
     host = HostCSR(X.indptr, X.indices, X.data, X.shape)
-    with pytest.raises(NotImplementedError, match="A9"):
-        solve(host, y, FWConfig(backend="jax_dense", device="cpu", steps=5))
+    with pytest.raises(NotImplementedError, match="A12"):
+        solve(host, y, FWConfig(backend="jax_shard", device="cpu", steps=5))
     for bad, match in ((dict(screen_every=-1), "screen_every"),
                        (dict(screen_every=2, screen_eps_frac=1.0), "screen_eps_frac"),
                        (dict(screen_every=2, screen_eps_frac=-0.2), "screen_eps_frac"),
@@ -88,6 +88,6 @@ def test_solve_refuses_missing_card_and_unported_backends(sweep_problem):
                                 queue="noisy_max"))
     if torch.cuda.is_available():
         return   # the card is there: the default device is legitimately usable
-    for backend in ("dense", "torch_sparse"):
+    for backend in ("dense", "torch_sparse", "torch_dense", "host_sparse"):
         with pytest.raises(RuntimeError, match="CUDA"):   # default device is cuda: never a CPU run
             solve(host, y, FWConfig(backend=backend, steps=5))
