@@ -20,12 +20,22 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
   segments) and a private path group of 8 configs as lanes and
   sequentially (``path``);
 * Alg 2's other engines: ``torch_dense`` (``backend="jax_dense"``, dense
-  vector updates in torch ops) against ``torch_sparse`` and the CPU, both
-  tiles timed (``engines``); the eager oracle ``reference_fw``
-  (``reference``); ``host_sparse``'s float64 host loop (``host_sparse``);
+  vector updates in torch ops, its scatter-adds in input order) against
+  ``torch_sparse`` and the CPU, both tiles timed (``engines``); the eager
+  oracle ``reference_fw`` (``reference``); ``host_sparse``'s float64 host
+  loop (``host_sparse``);
 * a ``FitService`` on the matrix: three tenants, a private grid of 8 as one
   lane batch, non-private fits on three backends, a ``gap_tol`` fit, two
-  refusals charged nothing (``fit_service``).
+  refusals charged nothing (``fit_service``);
+* the sharded engine ``jax_shard`` on a 1×1 grid under an NCCL process
+  group of one rank, T = 500, private and non-private, against its CPU run,
+  its oracle ``distributed/reference.py`` and ``torch_sparse``
+  (``shard_1x1``); the in-order scatter kernel ``scatter_add_ordered`` at
+  three shapes against its plain version on the CPU, bit for bit
+  (``scatter_vs_plain``); flash attention at head dims outside its table
+  (``flash_head_dims``); and ``jax_shard`` on a 2×2 grid, four processes on
+  the card over gloo at a cut size, against the same grid on the CPU
+  (``shard_2x2_gloo``).
 
 It holds the card's runs against CPU runs of the plain versions and the
 stopped runs against the fixed-T runs; ``ell_rmatvec`` must equal its plain
@@ -78,7 +88,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import FWConfig, grid, obs, plan_for, prng, solve, solve_many  # noqa: E402
+from repro_torch import (FWConfig, FWResult, grid, obs, plan_for, prng, solve,  # noqa: E402
+                         solve_many)
 from repro_torch.core.fw_dense import _carry0, _dense_chunk, _dense_step  # noqa: E402
 from repro_torch.core.samplers.group_argmax import ga_get_next, ga_init  # noqa: E402
 from repro_torch.core import fw_dense  # noqa: E402
@@ -114,6 +125,16 @@ from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # no
                                                   same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import pad_head_dims  # noqa: E402
+from repro_torch.kernels.scatter import scatter_add_ordered  # noqa: E402
+from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref  # noqa: E402
+from repro_torch.core.solvers.jax_shard import shard_em_scale  # noqa: E402
+from repro_torch.distributed.collectives import make_mesh  # noqa: E402
+from repro_torch.distributed.fw_shard import (DistFWConfig, distributed_fw,  # noqa: E402
+                                              shard_scan, shard_setup)
+from repro_torch.distributed.ingest import ShardSource  # noqa: E402
+from repro_torch.distributed import reference as shard_reference  # noqa: E402
+from repro_torch.launch.shard import free_port, run_ranks, solve_rank  # noqa: E402
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
@@ -142,10 +163,10 @@ SCREEN_RUNS = {"torch_sparse_private": dict(backend="torch_sparse", queue="two_l
 # the other engines and the fit service: host_sparse's T (its fib_heap queue
 # updates each touched coordinate in Python); the service's three tenants' budgets
 T_HOST = 500
-# torch_dense and the oracle scatter-add on the card in PyTorch's sorted order, not the
-# CPU's input order (ROADMAP.md §C, C2): a run may leave the CPU's coordinates only
-# where its two picks tie within this relative margin (about 1,700 float32 spacings;
-# set at 10x the first such tie seen, 1.01e-5)
+# engines that round α differently (host_sparse in float64; jax_shard's α₀ as one fused
+# Xᵀ((q̄ − y)/n) against Xᵀq̄/n − Xᵀy/n) may leave torch_sparse's coordinates only where its
+# two picks tie within this relative margin (about 1,700 float32 spacings; set at 10x
+# the first such tie seen, 1.01e-5)
 TIE_REL = 1e-4
 SVC_BUDGETS = {"acme": (8.0, T_MAIN), "globex": (1.0, T_MAIN),   # (ε, pool steps), δ = 1e-6
                "initech": (1.0, T_MAIN)}
@@ -167,6 +188,15 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.06}
 # while a row off by a relative r reads about r / eps + 1)
 FLASH_BF16_ULPS = 4.0
 LOGITS_ATOL = 1e-3
+# flash head dims outside the kernel's table: (hd, hdv) of minicpm-2b's and
+# nemotron-4-15b's smoke widths, kimi-k2's, and MLA's q·k against v
+FLASH_PAD_DIMS = ((18, 18), (24, 24), (112, 112), (192, 128))
+# the sharded engine on a 2x2 grid over gloo: the rcv1.binary generator cut to fit
+# four processes on one card and a CPU replay of the same grid in the time limit
+SHARD2_N, SHARD2_D, SHARD2_T = 4096, 8192, 200
+# the error-feedback top-k α exchange at the full width (distributed_fw only):
+# k kept lanes, T steps, private
+TOPK_K, TOPK_T = 8, 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -523,7 +553,7 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
         counts = launch_counts()
         want = {"coord_update": T_MAIN, "two_level_draw": T_MAIN if private else 0,
                 "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0,
-                "two_level_draw_lanes": 0, "coord_update_lanes": 0}
+                "two_level_draw_lanes": 0, "coord_update_lanes": 0, "scatter_add_ordered": 0}
         require(counts == want, f"launch counts {counts}, expected {want}")
         require(two_level_draw.rebuilds == int(private),
                 f"rebuild-only launches {two_level_draw.rebuilds}, expected {int(private)}")
@@ -582,9 +612,10 @@ def phase_step_times(pcsr, pcsc, y_t) -> dict:
     carry = fw_carry_init(D, torch.float32, *setup, em, prng.PRNGKey(0), private=True)
     kw = dict(loss="logistic", private=True)
     fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0, 0, None, steps=WARMUP, **kw)
+    reset_launch_counts()
     prof = profile_steps("private", 100, lambda: fw_scan_chunk(pcsr, pcsc, carry, LAM, em, 0.0,
                                                                 WARMUP, None, steps=100, **kw))
-    return per_step, private_window(prof, 100)
+    return per_step, private_window(prof, 100, launch_counts())
 
 
 # the kernels of a private step: coord_update's two and the rebuilding draw
@@ -597,18 +628,33 @@ def _device_ms_of(prof: dict, name: str) -> tuple:
             sum(c for k, c in prof["calls"].items() if name in k))
 
 
-def private_window(prof: dict, steps: int) -> dict:
+def window_calls(prof: dict, steps: int, counts: dict, wrappers: tuple, run: str) -> dict:
+    """Profiled launches of each of ``PRIVATE_STEP_KERNELS`` in a window of
+    ``steps`` steps. The wrappers' counters over the same window (``counts``)
+    must show each of ``wrappers`` launched once a step, exactly. The
+    profiler may drop a record of a window (seen as 99 of 100 draw launches
+    in a window whose wrappers launch one a step), so it must hold each
+    kernel's launches but at most one."""
+    want = {name: steps for name in wrappers}
+    got = {name: counts[name] for name in wrappers}
+    require(got == want, f"{run}: wrapper launches {got}, expected {want}")
+    calls = {name: _device_ms_of(prof, name)[1] for name in PRIVATE_STEP_KERNELS}
+    require(all(steps - 1 <= c <= steps for c in calls.values()),
+            f"{run}: profiled {calls}, expected {steps} calls of each (one may be dropped)")
+    return calls
+
+
+def private_window(prof: dict, steps: int, counts: dict) -> dict:
     """The private step runs the rows, owners and draw kernels once each and
     no other device kernel once a step or more (the rebuild's torch ops are
     gone: the draw launch rebuilds)."""
-    calls = {name: _device_ms_of(prof, name)[1] for name in PRIVATE_STEP_KERNELS}
-    require(all(c == steps for c in calls.values()),
-            f"private window: {calls}, expected {steps} calls of each")
+    calls = window_calls(prof, steps, counts, ("coord_update", "two_level_draw"),
+                         "private window")
     others = {k[:80]: c for k, c in prof["calls"].items()
               if c >= steps and not any(name in k for name in PRIVATE_STEP_KERNELS)}
     require(not others, f"private window: other kernels launched every step: {others}")
     fields = dict(steps=steps, calls=calls, kernels_per_step=sum(prof["calls"].values()) / steps,
-                  device_ms_per_step={name: _device_ms_of(prof, name)[0] / steps
+                  device_ms_per_step={name: _device_ms_of(prof, name)[0] / calls[name]
                                       for name in PRIVATE_STEP_KERNELS},
                   other_kernels={k[:80]: c for k, c in prof["calls"].items()
                                  if not any(name in k for name in PRIVATE_STEP_KERNELS)})
@@ -641,6 +687,7 @@ def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
         window()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _profiler_warmup()     # the window's last kernels are not the session's
     # device-side events only: CPU ops also carry the device time of their kernels
     by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                         for e in prof.key_averages()
@@ -679,7 +726,7 @@ def phase_alg1(pcsr, pcsc, y) -> dict:
         counts = launch_counts()
         want = {"ell_matvec": T_MAIN, "ell_rmatvec": T_MAIN + 1, "coord_update": 0,
                 "two_level_draw": 0, "flash_attention": 0, "two_level_draw_lanes": 0,
-                "coord_update_lanes": 0}
+                "coord_update_lanes": 0, "scatter_add_ordered": 0}
         require(counts == want, f"Alg 1 {sel}: launch counts {counts}, expected {want}")
         gaps, losses = res.gaps.cpu().numpy(), res.losses.cpu().numpy()
         require(bool(np.isfinite(gaps).all() and np.isfinite(losses).all()
@@ -1504,17 +1551,17 @@ def _lane_window(pcsr, pcsc, y, cfgs) -> dict:
     kw = dict(loss="logistic", private=True,
               scratch=coord_update_scratch(N, D, DEVICE, lanes=len(cfgs)))
     fw_scan_chunk_lanes(pcsr, pcsc, carry, sc, 0, None, steps=WARMUP, **kw)
+    reset_launch_counts()
     prof = profile_steps("sweep_private_lanes", 100, lambda: fw_scan_chunk_lanes(
         pcsr, pcsc, carry, sc, WARMUP, None, steps=100, **kw))
-    calls = {name: _device_ms_of(prof, name)[1] for name in PRIVATE_STEP_KERNELS}
-    require(all(c == 100 for c in calls.values()),
-            f"sweep window: {calls}, expected 100 calls of each")
+    calls = window_calls(prof, 100, launch_counts(),
+                         ("coord_update_lanes", "two_level_draw_lanes"), "sweep window")
     busy = sum(prof["by_kernel"].values())
     fields = dict(lanes=len(cfgs), steps=100, calls=calls,
                   kernels_per_step=sum(prof["calls"].values()) / 100,
                   wall_ms_per_step=prof["wall_ms"] / 100, device_busy_ms_per_step=busy / 100,
                   device_idle_share=1.0 - busy / prof["wall_ms"],
-                  device_ms_per_step={n: _device_ms_of(prof, n)[0] / 100
+                  device_ms_per_step={n: _device_ms_of(prof, n)[0] / calls[n]
                                       for n in PRIVATE_STEP_KERNELS})
     emit("sweep_window", **fields)
     return fields
@@ -1979,14 +2026,19 @@ def phase_lm_forward():
     peak = torch.cuda.max_memory_allocated()
     ms = sync_ms(fwd, reps=3)
     require(bool(torch.isfinite(out.float()).all()), "bf16 logits not finite")
+    reset_launch_counts()
     prof = profile_steps("lm_forward_bf16", 1, fwd)
+    require(launch_counts()["flash_attention"] == api.cfg.n_layers,
+            f"profiled bf16 forward: {launch_counts()['flash_attention']} flash launches")
     # both routes' kernels are named flash_fwd_*; the bf16 forward runs the mma one
     flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
     flash_dev = sum(flash.values())
     require(flash_dev > 0 and all("mma" in k for k in flash),
             f"bf16 forward: flash kernels in the profile {list(flash)}")
     flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
-    require(flash_calls == api.cfg.n_layers, f"profiled flash launches {flash_calls}")
+    # the wrappers launched one a layer (above); the profiler may drop a record
+    require(api.cfg.n_layers - 1 <= flash_calls <= api.cfg.n_layers,
+            f"profiled flash launches {flash_calls}")
     emit("lm_forward", run="timing_bfloat16", arch=LM_ARCH, batch=LM_B, seq=LM_S,
          forward_ms=ms, first_forward_ms=first_ms, launches=counts, routes=routes,
          tokens_per_s=LM_B * LM_S / ms * 1e3, max_memory_allocated=peak,
@@ -2275,7 +2327,8 @@ def _screened_launches(cfg: FWConfig, rounds: list) -> dict:
     products at every round's query."""
     due, fired = len(rounds), sum(r["repacked"] for r in rounds)
     want = dict.fromkeys(("ell_matvec", "ell_rmatvec", "coord_update", "two_level_draw",
-                          "flash_attention", "two_level_draw_lanes", "coord_update_lanes"), 0)
+                          "flash_attention", "two_level_draw_lanes", "coord_update_lanes",
+                          "scatter_add_ordered"), 0)
     if cfg.backend == "torch_sparse":
         want.update(coord_update=cfg.steps, ell_rmatvec=2,
                     two_level_draw=cfg.steps if cfg.queue == "two_level" else 0)
@@ -2723,8 +2776,8 @@ def _tie_margin(pcsr, pcsc, y_t, private: bool, step: int, picks: tuple) -> floa
 def _agree(coords, w, gaps, ref, name: str, tie=None) -> dict:
     """``coords`` equal to ``ref``'s first len(coords); w (when given) and the
     gaps within 1e-4 (the cross-engine contract).  ``tie(step, picks)``, where
-    given, admits a divergence that ``ROADMAP.md`` §C records (the card's
-    scatter order against the CPU's): the first differing step must be a tie
+    given, admits a divergence that ``ROADMAP.md`` §C records (engines that
+    round α differently): the first differing step must be a tie
     of its two picks within ``TIE_REL``, and the steps before it agree."""
     steps = coords.shape[0]
     differ = (coords.cpu() != ref.coords[:steps].cpu()).nonzero().flatten().tolist()
@@ -2750,14 +2803,16 @@ def _agree(coords, w, gaps, ref, name: str, tie=None) -> dict:
 
 def phase_engines(pcsr, pcsc, y, y_t, runs, cpu_pair) -> dict:
     """``torch_dense`` through ``solve(backend="jax_dense")`` at full width,
-    private and non-private, T = 500: only ``ell_rmatvec`` launches (2, the
-    setup) and, private, the draw kernel's rebuild-only form once a step;
+    private and non-private, T = 500: only ``ell_rmatvec`` (2, the setup),
+    ``scatter_add_ordered`` (v̄, q̄ and α, three a step) and, private, the
+    draw kernel's rebuild-only form once a step launch;
     coordinates equal to ``torch_sparse``'s card runs and to a CPU run of
     ``torch_dense`` (T = 500), w and gaps within 1e-4, or split from them
-    only at a tie (``_agree``); the CPU's run equal to ``torch_sparse``'s
-    coordinates; a rerun equal bit for bit (the card's scatter order is
-    fixed); per-step ms of both tiles; ``gap_tol`` runs stopped at the
-    fixed-T run's first gap <= tol.  (Its profiled steps: ``engines_busy``.)"""
+    with no tie admitted (the in-order scatter kernel adds as the CPU does),
+    and w equal to the CPU's bit for bit; the CPU's run equal to
+    ``torch_sparse``'s coordinates; a rerun equal bit for bit; per-step ms
+    of both tiles; ``gap_tol`` runs stopped at the fixed-T run's first gap
+    <= tol.  (Its profiled steps: ``engines_busy``.)"""
     t_phase = time.perf_counter()
     pair = (pcsr, pcsc)
     out = {}
@@ -2773,15 +2828,15 @@ def phase_engines(pcsr, pcsc, y, y_t, runs, cpu_pair) -> dict:
         counts, rebuilds = launch_counts(), two_level_draw.rebuilds
         peak = torch.cuda.max_memory_allocated()
         want = dict.fromkeys(counts, 0)
-        want["ell_rmatvec"] = 2
-        require(counts == want, f"torch_dense {name}: launches {counts}, expected {want}")
+        want.update(ell_rmatvec=2, scatter_add_ordered=counts["scatter_add_ordered"])
+        require(counts == want and 0 < counts["scatter_add_ordered"] <= 3 * T_MAIN,
+                f"torch_dense {name}: launches {counts}, expected {want}")
         require(rebuilds == (T_MAIN if private else 0),
                 f"torch_dense {name}: {rebuilds} rebuild-only launches")
         require(res.stop_step == T_MAIN and res.stop_reason == "max_steps",
                 f"torch_dense {name}: stop {res.stop_step} {res.stop_reason}")
-        tie = lambda k, picks, p=private: _tie_margin(pcsr, pcsc, y_t, p, k, picks)
         vs_sparse = _agree(res.coords, res.w, res.gaps, runs[name]["res"],
-                           f"torch_dense {name} against torch_sparse", tie)
+                           f"torch_dense {name} against torch_sparse")
         again = solve(pair, y, cfg)
         require(all(torch.equal(getattr(again, k), getattr(res, k))
                     for k in ("w", "gaps", "coords")),
@@ -2789,8 +2844,8 @@ def phase_engines(pcsr, pcsc, y, y_t, runs, cpu_pair) -> dict:
         t0 = time.perf_counter()
         cpu = solve(cpu_pair, y, dataclasses.replace(cfg, device="cpu"))
         t_cpu = time.perf_counter() - t0
-        vs_cpu = _agree(res.coords, res.w, res.gaps, cpu, f"torch_dense {name}: card against CPU",
-                        tie)
+        vs_cpu = _agree(res.coords, res.w, res.gaps, cpu, f"torch_dense {name}: card against CPU")
+        require(torch.equal(cpu.w, res.w.cpu()), f"torch_dense {name}: card w != CPU w")
         # the CPU's torch_dense against torch_sparse: one state machine, one order
         cpu_vs_sparse = _agree(cpu.coords, cpu.w, cpu.gaps, runs[name]["res"],
                                f"torch_dense {name} on the CPU against torch_sparse")
@@ -2812,7 +2867,7 @@ def phase_engines(pcsr, pcsc, y, y_t, runs, cpu_pair) -> dict:
              cpu_vs_torch_sparse=cpu_vs_sparse,
              per_step_ms_by_tile=tile_ms, default_tile=default_tile(private, DEVICE),
              gap_tol_run=stop_fields)
-        out[name] = dict(counts=counts, rebuilds=rebuilds)
+        out[name] = dict(counts=counts, rebuilds={"two_level_draw": rebuilds})
     emit("engines_done", seconds=time.perf_counter() - t_phase)
     return out
 
@@ -2833,11 +2888,16 @@ def engines_busy(pcsr, pcsc, y_t) -> None:
                                key=lambda r: -r[1])[:6])
 
 
-def phase_reference(pcsr, pcsc, y_t, runs) -> None:
+def phase_reference(pcsr, pcsc, y_t, runs, cpu_pair) -> dict:
     """The port's eager oracle ``reference_fw`` on the card at full width,
-    T = 500, private and non-private: no kernel launches, coordinates equal
-    to ``torch_sparse``'s card runs, w and gaps within 1e-4."""
+    T = 500, private and non-private: no kernel launches but the in-order
+    scatter's; coordinates equal to its CPU run with no tie admitted and w
+    equal bit for bit (the card's scatter adds as the CPU does); against
+    ``torch_sparse``'s card runs, coordinates equal with no tie admitted,
+    w and gaps within 1e-4 (one state machine and one α₀ formula; the
+    oracle adds α₀ in row order, ``ell_rmatvec`` in segments of 256)."""
     t_phase = time.perf_counter()
+    out = {}
     for private in (True, False):
         name = "private" if private else "non_private"
         em = em_scale_for(_alg2_config("torch_sparse", private), N)
@@ -2848,13 +2908,23 @@ def phase_reference(pcsr, pcsc, y_t, runs) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        require(not any(counts.values()) and two_level_draw.rebuilds == 0,
-                f"reference {name}: the oracle launched kernels: {counts}")
-        fields = _agree(coords, w, gaps, runs[name]["res"], f"reference {name}",
-                        lambda k, picks, p=private: _tie_margin(pcsr, pcsc, y_t, p, k, picks))
+        require(sum(counts.values()) == counts["scatter_add_ordered"] > 0
+                and two_level_draw.rebuilds == 0,
+                f"reference {name}: the oracle launched {counts}")
+        t0 = time.perf_counter()
+        cpu = FWResult(*reference_fw(*cpu_pair, y_t.cpu(), lam=LAM, steps=T_MAIN,
+                                     private=private, em_scale=em, seed=0, loss="logistic"),
+                       losses=None)
+        cpu_s = time.perf_counter() - t0
+        vs_cpu = _agree(coords, w, gaps, cpu, f"reference {name}: card against CPU")
+        require(torch.equal(cpu.w, w.cpu()), f"reference {name}: card w != CPU w")
+        vs_cpu.update(cpu_solve_s=cpu_s, w_bitwise_equal=True)
+        fields = _agree(coords, w, gaps, runs[name]["res"], f"reference {name}")
         emit("reference", run=name, solve_s=wall, per_step_ms=wall * 1e3 / T_MAIN,
-             launches=counts, **fields)
+             launches=counts, vs_cpu=vs_cpu, **fields)
+        out[name] = dict(counts=counts, rebuilds={})
     emit("reference_done", seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def phase_host_sparse(X, y, pcsr, pcsc, y_t, runs) -> None:
@@ -2966,18 +3036,358 @@ def phase_fit_service(pcsr, pcsc, y, runs) -> dict:
     return dict(counts=counts, rebuilds=rebuilds)
 
 
-def add_path_launches(kernels: list, engines: dict, service: dict) -> None:
-    """The launches of this slice's paths beside each kernel's main-path
-    count: ``torch_dense``'s (its setup's ``ell_rmatvec``, the draw kernel's
-    rebuild-only form) and the fit service's run."""
+# ---------------------------------------------------------------------------
+# the in-order scatter-add (C2), flash's padded head dims (C3), the sharded engine
+
+
+def _ell_rows(X: HostCSR) -> tuple:
+    """(indices (N, Kr) int64, values (N, Kr) float32, live (N, Kr) bool) of
+    ``X``'s padded rows, on the host: the lanes of an Xᵀq scatter."""
+    nnz = np.diff(X.indptr)
+    kr = int(nnz.max())
+    live = np.arange(kr)[None, :] < nnz[:, None]
+    idx = np.zeros((X.shape[0], kr), np.int64)
+    val = np.zeros((X.shape[0], kr), np.float32)
+    idx[live], val[live] = X.indices, X.data.astype(np.float32)
+    return torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(live)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _scatter_case(dst, idx, src, live) -> dict:
+    """The kernel on the card against the plain version on the CPU, bit for
+    bit, and the device ms of the kernel's wrapper (its sort included) and of
+    ``index_put_(accumulate=True)`` over the live lanes (the library call)."""
+    want = scatter_add_ordered_ref(dst, idx, src, live)
+    t0 = time.perf_counter()
+    scatter_add_ordered_ref(dst, idx, src, live)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    on = [t.to(DEVICE) for t in (dst, idx, src, live)]
+    got = scatter_add_ordered(*on)
+    bitwise = _bits_equal(got, want)
+    require(bitwise, f"scatter_add_ordered: {int((got.cpu() != want).sum())} targets differ "
+            "from the plain version")
+    ms = device_ms([lambda: scatter_add_ordered(*on)] * 20)
+    at, terms = on[1].reshape(-1)[on[3].reshape(-1)], on[2].reshape(-1)[on[3].reshape(-1)]
+    lib = device_ms([lambda: on[0].clone().index_put_((at,), terms, accumulate=True)] * 20)
+    lanes, n = idx.numel(), dst.numel()
+    live_n = int(live.sum())
+    b, by = bound(lanes * (idx.element_size() + src.element_size() + 1) + 8.0 * n, live_n)
+    return dict(targets=n, lanes=lanes, live_lanes=live_n,
+                longest_chain=int(torch.bincount(idx.reshape(-1)[live.reshape(-1)]).max()),
+                bitwise_equal=bitwise, ms=ms, plain_cpu_ms=plain_ms, library_ms=lib,
+                bound_ms=b, bound_by=by)
+
+
+def phase_scatter_vs_plain(X: HostCSR) -> None:
+    """``scatter_add_ordered`` on the card against its plain version on the
+    CPU, bit for bit, at three shapes: the oracle's setup Xᵀq at the
+    rcv1.binary shape, the head column's full tile (every row's lanes onto
+    α), and random repeated targets."""
+    g = np.random.default_rng(21)
+    idx, val, live = _ell_rows(X)
+    q = torch.from_numpy(g.standard_normal(N).astype(np.float32))
+    gamma = torch.from_numpy((g.standard_normal(N) / N).astype(np.float32))
+    alpha = torch.from_numpy(g.standard_normal(D).astype(np.float32) * 1e-3)
+    k = 1 << 20
+    rep = torch.from_numpy(np.minimum((g.pareto(0.7, size=k) * 2).astype(np.int64), 999))
+    cases = {"setup_xtq": (torch.zeros(D), idx, val * q[:, None], live),
+             "head_column_tile": (alpha, idx, gamma[:, None] * val, live),
+             "random_repeated": (torch.from_numpy(g.standard_normal(1000).astype(np.float32)),
+                                 rep, torch.from_numpy(g.standard_normal(k).astype(np.float32)),
+                                 torch.from_numpy(g.random(k) < 0.9))}
+    for name, args in cases.items():
+        emit("scatter_vs_plain", case=name, **_scatter_case(*args))
+
+
+def phase_flash_head_dims() -> None:
+    """The card's flash kernel at head dims outside its table (zero-padded in
+    the wrapper, the true scale passed in): hd 18, 24, 112 and (hd, hdv) =
+    (192, 128), both dtypes, against the plain version within the current
+    bounds; and the sha256 of hd 64's outputs on seeded inputs (unpadded: the
+    same launch as before the padding existed)."""
+    import hashlib
+    for hd, hdv in FLASH_PAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(DEVICE).manual_seed(hd + hdv)
+            kvh = 16 if hd != hdv else 4          # MLA: no GQA; the dense configs: G = 4
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                       for shape in ((2, 1024, 16, hd), (2, 1024, kvh, hd), (2, 1024, kvh, hdv)))
+            reset_launch_counts()
+            got = flash_attention(q, k, v)
+            require(launch_counts()["flash_attention"] == 1 and got.shape == (2, 1024, 16, hdv),
+                    f"flash ({hd}, {hdv}): {launch_counts()}, shape {tuple(got.shape)}")
+            want = flash_attention_plain(q, k, v).float()
+            diff = (got.float() - want).abs()
+            tol = FLASH_TOL[dtype]
+            ok = bool((diff <= tol + tol * want.abs()).all()) and bool(torch.isfinite(got).all())
+            ulps = float(bf16_ulps(diff, want).max()) if dtype == torch.bfloat16 else None
+            ok = ok and (ulps is None or ulps <= FLASH_BF16_ULPS)
+            require(ok, f"flash ({hd}, {hdv}) {dtype}: max |d| {float(diff.max())}, "
+                    f"bf16 ulps {ulps}")
+            emit("flash_head_dims", hd=hd, hdv=hdv, dtype=str(dtype).replace("torch.", ""),
+                 kernel_head_dim=pad_head_dims(q, k, v)[0].shape[-1],
+                 max_abs_err=float(diff.max()), tolerance=tol,
+                 max_bf16_ulps_of_scale=ulps)
+    hashes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(LM_B, 512, 32, 4, 64, dtype, seed=64)
+        hashes[str(dtype).replace("torch.", "")] = hashlib.sha256(
+            flash_attention(q, k, v).cpu().view(torch.int16 if dtype == torch.bfloat16
+                                                else torch.int32).numpy().tobytes()).hexdigest()
+    emit("flash_head_dims", hd=64, unpadded=True, sha256=hashes)
+
+
+def _shard_config(private: bool, **kw) -> FWConfig:
+    return FWConfig(**{**dict(backend="jax_shard", mesh=(1, 1), lam=LAM, steps=T_MAIN,
+                              loss="logistic", epsilon=1.0, delta=1e-6, device=DEVICE,
+                              queue="gumbel" if private else "argmax"), **kw})
+
+
+def _spans(tel) -> dict:
+    return {e["name"]: e["dur_s"] for e in tel.events if e["ev"] == "span"}
+
+
+def _alpha_scatter_row(src: ShardSource, res, launches: int) -> dict:
+    """The kernels line's row of ``scatter_add_ordered``: its device ms over
+    the α-delta scatters of 40 of the 1×1 run's steps (the full padded tile,
+    Kc × Kr lanes, live where the column's rows hold entries), against the
+    plain version's CPU ms on the same inputs (copied to the host first, so
+    only the plain scatters are timed), ``index_put_``'s ms and the bound of
+    those inputs; ``max_abs_err`` is the largest |card − plain| over all 40,
+    each of which must be equal bit for bit."""
+    blk = src.local(1, 1, 0, 0, DEVICE)
+    g = torch.Generator(DEVICE).manual_seed(5)
+    cases = []
+    for j in res.coords[:40].tolist():
+        rows = blk.csc_rows[j].long()
+        ok = blk.csc_vals[j] != 0
+        cols = blk.csr_cols[rows].long()
+        vals = torch.where(ok[:, None], blk.csr_vals[rows], 0.0)
+        gsc = torch.randn(rows.shape[0], generator=g, device=DEVICE) / N
+        cases.append((torch.zeros(D, device=DEVICE), cols, gsc[:, None] * vals, vals != 0))
+    ms = device_ms([lambda c=c: scatter_add_ordered(*c) for c in cases])
+    host = [tuple(t.cpu() for t in c) for c in cases]
+    t0 = time.perf_counter()
+    wants = [scatter_add_ordered_ref(*c) for c in host]
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    gots = [scatter_add_ordered(*c).cpu() for c in cases]
+    differ = sum(not _bits_equal(got, want) for got, want in zip(gots, wants))
+    err = max(float((got - want).abs().max()) for got, want in zip(gots, wants))
+    require(differ == 0, f"scatter_add_ordered: {differ} of {len(cases)} α-delta scatters "
+            f"differ from plain (max |d| {err})")
+    live = [(c[1].reshape(-1)[c[3].reshape(-1)], c[2].reshape(-1)[c[3].reshape(-1)])
+            for c in cases]
+    lib = device_ms([lambda c=c, lv=lv: c[0].clone().index_put_((lv[0],), lv[1],
+                                                                 accumulate=True)
+                     for c, lv in zip(cases, live)])
+    lanes = cases[0][1].numel()
+    live_n = sum(int(lv[0].numel()) for lv in live) / len(live)
+    b, by = bound(lanes * (8.0 + 4.0 + 1.0) + 8.0 * D, live_n)
+    return dict(name="scatter_add_ordered", route="cuda",
+                source="src/repro_torch/kernels/scatter/csrc/scatter_add_ordered.cu",
+                replaces="none: no Pallas counterpart (the C2 repair; the order of "
+                         "src/repro/distributed/fw_shard.py:228 .at[cols].add on the CPU)",
+                launches=launches, max_abs_err=err, bitwise_equal_cases=len(cases) - differ,
+                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib,
+                lanes=lanes, mean_live_lanes=live_n)
+
+
+def phase_shard_1x1(X: HostCSR, y, refs, tie) -> dict:
+    """``jax_shard`` at the rcv1.binary shape, T = 500, private and
+    non-private, through ``solve(..., FWConfig(backend="jax_shard",
+    mesh=(1, 1)))`` under an NCCL process group of one rank (every
+    collective through ``torch.distributed``): setup ms, per-step ms over
+    450 steps, solve wall, peak memory, launches a step by kernel, the idle
+    share of 100 profiled steps; coordinates equal to the port's CPU run of
+    the engine (w and gaps within 1e-4, bits reported), to the card's
+    oracle ``distributed/reference.py`` (private), and to ``torch_sparse``'s
+    card run (non-private; a split only at a ``TIE_REL`` tie: the engines
+    round α₀ differently, ``jax_shard`` as one fused scatter of
+    Xᵀ((q̄ − y)/n), ``torch_sparse`` as Xᵀq̄/n − Xᵀy/n).  Then
+    ``compress_topk`` (which only ``distributed_fw`` reaches), private,
+    T = ``TOPK_T``, on the card under the NCCL mesh against the CPU.
+    Returns the kernels line's row of ``scatter_add_ordered``."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    y_pad = torch.from_numpy(y.astype(np.float32))       # N_pad = N on a 1×1 grid
+    t0 = time.perf_counter()
+    src = ShardSource.from_any(X)
+    blocks = src.blocks(1, 1)
+    build_s = time.perf_counter() - t0
+    # the CPU runs first, with no process group (NCCL takes no host tensors)
+    cpu_runs = {}
+    for private in (True, False):
+        t0 = time.perf_counter()
+        cpu_runs[private] = (solve(src, y, _shard_config(private, device="cpu")),
+                             time.perf_counter() - t0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        require(mesh.distributed and mesh.backend == "nccl", f"not an NCCL mesh: {mesh}")
+        t0 = time.perf_counter()
+        blk = src.local(1, 1, 0, 0, DEVICE)
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        emit("shard_layout", grid=[1, 1], kc=blocks.csc_rows.shape[-1],
+             kr=blocks.csr_cols.shape[-1], tile_lanes=blocks.csc_rows.shape[-1]
+             * blocks.csr_cols.shape[-1], block_bytes=sum(t.numel() * t.element_size()
+                                                          for t in blk),
+             host_build_s=build_s, copy_to_card_s=layout_s)
+        y_loc = y_pad.to(DEVICE)
+        setup = lambda: shard_setup(blk, y_loc, n=N, loss="logistic", mesh=mesh)
+        setup()                                  # the NCCL communicators start here
+        setup_ms = sync_ms(setup, reps=5)
+        out, counts_by_run = {}, {}
+        for private in (True, False):
+            name = "private" if private else "non_private"
+            cfg = _shard_config(private)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with obs.session() as tel:
+                t0 = time.perf_counter()
+                res = solve(src, y, cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            spans = _spans(tel)
+            with obs.session() as tel:
+                solve(src, y, dataclasses.replace(cfg, steps=WARMUP))
+            per_step = (spans["shard.scan"] - _spans(tel)["shard.scan"]) * 1e3 / (T_MAIN - WARMUP)
+            require(counts["scatter_add_ordered"] == 1 + 3 * T_MAIN
+                    and sum(counts.values()) == counts["scatter_add_ordered"],
+                    f"jax_shard {name}: launches {counts}")
+            require(res.stop_step == T_MAIN and bool(torch.isfinite(res.gaps).all()),
+                    f"jax_shard {name}: stop {res.stop_step}, gaps finite "
+                    f"{bool(torch.isfinite(res.gaps).all())}")
+            cpu, cpu_s = cpu_runs[private]
+            vs_cpu = _agree(res.coords, res.w, res.gaps, cpu, f"jax_shard {name}: card vs CPU")
+            vs_cpu.update(cpu_solve_s=cpu_s, w_bitwise_equal=_bits_equal(res.w, cpu.w),
+                          gaps_bitwise_equal=_bits_equal(res.gaps, cpu.gaps))
+            fields = dict(vs_cpu=vs_cpu)
+            if private:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                w_o, gaps_o, coords_o = shard_reference.reference_fw(
+                    blocks, y_pad, lam=LAM, steps=T_MAIN, selection="gumbel",
+                    em_scale=shard_em_scale(cfg, N), seed=0, device=DEVICE)
+                torch.cuda.synchronize()
+                fields["vs_reference"] = _agree(
+                    coords_o, w_o[:D], gaps_o, res, f"jax_shard {name}: card vs the oracle")
+                fields["vs_reference"].update(oracle_s=time.perf_counter() - t0,
+                                              oracle_launches=launch_counts())
+            else:
+                fields["vs_torch_sparse"] = _agree(
+                    res.coords, res.w, res.gaps, refs[name]["res"],
+                    f"jax_shard {name} against torch_sparse", tie)
+            emit("shard_1x1", run=name, mesh=[1, 1], process_group="nccl", world_size=1,
+                 steps=T_MAIN, setup_ms=setup_ms, per_step_ms=per_step,
+                 window_steps=T_MAIN - WARMUP, solve_s=wall, spans_s=spans,
+                 max_memory_allocated=peak, launches=counts,
+                 launches_per_step={k: v / T_MAIN for k, v in counts.items() if v}, **fields)
+            out[name] = res
+            counts_by_run[name] = counts
+        # the error-feedback top-k exchange: the card under the NCCL mesh, then the CPU
+        tk_cfg = DistFWConfig(lam=LAM, steps=TOPK_T, selection="gumbel", compress_topk=TOPK_K,
+                              epsilon=1.0, delta=1e-6)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        w_k, gaps_k, coords_k, stop_k = distributed_fw(blocks, y_pad, tk_cfg, mesh)
+        torch.cuda.synchronize()
+        tk_wall = time.perf_counter() - t0
+        tk_counts = launch_counts()
+        require(tk_counts["scatter_add_ordered"] == 1 + 4 * TOPK_T
+                and sum(tk_counts.values()) == tk_counts["scatter_add_ordered"]
+                and int(stop_k) == TOPK_T and bool(torch.isfinite(gaps_k).all()),
+                f"compress_topk: launches {tk_counts}, stop {int(stop_k)}")
+        t0 = time.perf_counter()
+        cw, cg, cc, _ = distributed_fw(blocks, y_pad, tk_cfg, device="cpu")
+        tk_cpu_s = time.perf_counter() - t0
+        vs_cpu = _agree(coords_k, w_k[:D], gaps_k, FWResult(cw[:D], cg, cc, losses=None),
+                        "jax_shard compress_topk: card vs CPU")
+        vs_cpu.update(cpu_solve_s=tk_cpu_s, w_bitwise_equal=_bits_equal(w_k, cw),
+                      gaps_bitwise_equal=_bits_equal(gaps_k, cg))
+        emit("shard_1x1_topk", mesh=[1, 1], process_group="nccl", compress_topk=TOPK_K,
+             selection="gumbel", steps=TOPK_T, solve_s=tk_wall, launches=tk_counts,
+             distinct_coords=len(set(coords_k.tolist())), vs_cpu=vs_cpu)
+        # 100 profiled steps of the private run (the setup outside the window)
+        cfg = _shard_config(True)
+        state0 = setup()
+        window = lambda: shard_scan(blk, y_loc, state0, lams=[LAM],
+                                    em_scales=[shard_em_scale(cfg, N)], gap_tols=[0.0],
+                                    keys=[prng.PRNGKey(0)], steps=100, shape=(N, D),
+                                    selection="gumbel", mesh=mesh)
+        window()
+        prof = profile_steps("jax_shard_private", 100, window, quiet=True)
+        busy = sum(prof["by_kernel"].values())
+        require(busy > 0, "jax_shard: the profiler recorded no device time")
+        emit("shard_profile", run="private", steps=100, profiled_wall_ms=prof["wall_ms"],
+             device_busy_ms_per_step=busy / 100, device_idle_share=1.0 - busy / prof["wall_ms"],
+             kernels_per_step=sum(prof["calls"].values()) / 100,
+             top_device=sorted(((k[:60], v) for k, v in prof["by_kernel"].items()),
+                               key=lambda r: -r[1])[:8])
+        row = _alpha_scatter_row(src, out["non_private"],
+                                 counts_by_run["private"]["scatter_add_ordered"])
+    finally:
+        dist.destroy_process_group()
+    emit("shard_1x1_done", seconds=time.perf_counter() - t_phase)
+    return dict(row=row, counts=counts_by_run)
+
+
+def phase_shard_2x2_gloo() -> None:
+    """``jax_shard`` on a 2×2 grid: four processes on the one card over gloo
+    (NCCL takes one card a rank), at the rcv1.binary generator cut to
+    N = 4,096, D = 8,192 and T = 200, private and non-private, held to the
+    same grid run by four CPU processes: coordinates equal, w and gaps within
+    1e-4, the four ranks' results equal.  Each rank builds its block, copies
+    it to its device and joins the grid's subgroups before any solve
+    (``prep_s``) and starts with a 2-step solve; ``per_step_ms`` is rank 0's
+    ``shard.scan`` span over T, the setup its ``shard.setup`` span."""
+    t_phase = time.perf_counter()
+    opts = dict(mesh=(2, 2), backend="gloo", device="cuda", n=SHARD2_N, d=SHARD2_D,
+                nnz=NNZ_PER_ROW, informative=INFORMATIVE, lam=LAM, steps=SHARD2_T,
+                queues=["gumbel", "argmax"], seed=SEED)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outs = run_ranks(solve_rank, 4, backend="gloo", timeout_s=400,
+                         args=({**opts, "device": device},))
+        bits = [{q: {k: v for k, v in r.items() if not k.endswith("_s")}
+                 for q, r in o["runs"].items()} for o in outs]
+        require(all(b == bits[0] for b in bits), f"2x2 {device}: the ranks' results differ")
+        runs[device] = (outs[0]["runs"], time.perf_counter() - t0,
+                        [o["prep_s"] for o in outs])
+    for queue in opts["queues"]:
+        card, cpu = runs["cuda"][0][queue], runs["cpu"][0][queue]
+        require(card["coords"] == cpu["coords"], f"2x2 {queue}: card and CPU coordinates differ")
+        dw = float(np.abs(np.asarray(card["w"]) - np.asarray(cpu["w"])).max())
+        dg = float(np.abs(np.asarray(card["gaps"]) - np.asarray(cpu["gaps"])).max())
+        require(dw <= 1e-4 and dg <= 1e-4, f"2x2 {queue}: w {dw}, gaps {dg} over 1e-4")
+        emit("shard_2x2_gloo", run=queue, mesh=[2, 2], ranks=4, process_group="gloo",
+             n=SHARD2_N, d=SHARD2_D, steps=SHARD2_T, coords_equal_cpu=True, max_abs_w=dw,
+             max_abs_gaps=dg, w_bitwise_equal=card["w"] == cpu["w"],
+             solve_s=card["wall_s"], setup_ms=card["setup_s"] * 1e3,
+             per_step_ms=card["scan_s"] * 1e3 / SHARD2_T, prep_s_by_rank=runs["cuda"][2],
+             cpu_solve_s=cpu["wall_s"], cpu_per_step_ms=cpu["scan_s"] * 1e3 / SHARD2_T,
+             nccl_world_over_1="not run: NCCL takes one card a "
+             f"rank and {torch.cuda.device_count()} is visible")
+    emit("shard_2x2_done", seconds=time.perf_counter() - t_phase,
+         spawn_and_run_s={d: r[1] for d, r in runs.items()})
+
+
+def add_path_launches(kernels: list, paths: dict) -> None:
+    """The launches of the later slices' paths beside each kernel's
+    main-path count, a path's rebuild-only draws included: ``torch_dense``,
+    the oracle, the fit service's run and ``jax_shard`` at 1×1."""
     for entry in kernels:
         name = entry["name"]
-        paths = {f"torch_dense_{run}": engines[run]["counts"].get(name, 0)
-                 + (engines[run]["rebuilds"] if name == "two_level_draw" else 0)
-                 for run in ("private", "non_private")}
-        paths["fit_service"] = service["counts"].get(name, 0) + \
-            service["rebuilds"].get(name, 0)
-        entry["launches_by_path"] = paths
+        entry["launches_by_path"] = {
+            path: run["counts"].get(name, 0) + run["rebuilds"].get(name, 0)
+            for path, run in paths.items()}
 
 
 def add_repacked(kernels: list, repacked: dict) -> None:
@@ -3042,14 +3452,29 @@ def main() -> int:
     # before the sweep dropped a lane window's first step from its profile)
     torch.cuda.empty_cache()
     pcsr, pcsc = host_to_padded(X, device=DEVICE)
-    engines = phase_engines(pcsr, pcsc, y, y_t, refs, host_to_padded(X, device="cpu"))
-    phase_reference(pcsr, pcsc, y_t, refs)
+    cpu_pair = host_to_padded(X, device="cpu")
+    engines = phase_engines(pcsr, pcsc, y, y_t, refs, cpu_pair)
+    reference = phase_reference(pcsr, pcsc, y_t, refs, cpu_pair)
+    del cpu_pair
     phase_host_sparse(X, y, pcsr, pcsc, y_t, refs)
     service = phase_fit_service(pcsr, pcsc, y, refs)
-    add_path_launches(kernels, engines, service)
     engines_busy(pcsr, pcsc, y_t)
-    del X, pcsr, pcsc
+    # this slice's phases, last: the in-order scatter, the sharded engine, flash's head dims
+    shard = phase_shard_1x1(X, y, refs, lambda k, picks: _tie_margin(pcsr, pcsc, y_t, False,
+                                                                     k, picks))
+    del pcsr, pcsc
+    torch.cuda.empty_cache()
+    phase_scatter_vs_plain(X)
+    phase_flash_head_dims()
+    phase_shard_2x2_gloo()
+    del X
     kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
+    kernels.append(shard["row"])
+    add_path_launches(kernels, {
+        **{f"torch_dense_{r}": engines[r] for r in engines},
+        **{f"reference_{r}": reference[r] for r in reference},
+        "fit_service": service,
+        **{f"jax_shard_{r}": dict(counts=c, rebuilds={}) for r, c in shard["counts"].items()}})
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,16 +23,13 @@ halves the step at the rcv1.binary shape; a private step on the card would
 pay a synchronisation for it and gains nothing measurable, so it walks the
 full tile there (``PERF.md`` §6).  On the CPU a host read costs nothing and
 the live rows are far fewer lanes, so every CPU run walks them.  Lanes
-outside the live entries add nothing; they are sent to trash slots past the
-vector's end, so the scatters never pile onto index 0.
+outside the live entries add nothing: the scatters drop them.
 
-The scatter-adds go through ``index_put_(accumulate=True)``: on the CPU it
-adds in input order, the JAX package's order, so the CPU takes JAX's bits.
-On the card PyTorch sorts the lanes by target (stably) and adds each
-target's terms in its kernel's own order: one fixed order from run to run
-(``tests/test_torch_gpu.py`` holds it), but not the CPU's, so α drifts from
-the CPU's in the last bits and a near-tie of two coordinates can go the
-other way (``ROADMAP.md`` §C, C2).
+The scatter-adds go through ``kernels/scatter``'s ``scatter_add_ordered``:
+each target's terms are added in input order, the JAX package's order, on
+the CPU (its plain version, ``index_add_``) and on the card (its kernel, one
+chain per target), so the card takes the CPU's bits and the CPU takes
+JAX's.
 
 Private steps keep everything on the device: no host read of ``j`` or of
 ``done``.  With ``gap_tol`` the run is masked as in
@@ -58,6 +55,7 @@ from repro_torch.core.samplers.two_level import (TwoLevelSamplerState, tl_init, 
 from repro_torch.core.solvers.config import FWConfig, FWResult
 from repro_torch.core.solvers.torch_sparse import _div, fw_setup
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR
+from repro_torch.kernels.scatter import scatter_add_ordered
 
 TILES = ("full", "live")
 
@@ -76,15 +74,10 @@ class SparseTorchConfig(FWConfig):
 
 def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
                 live: torch.Tensor) -> torch.Tensor:
-    """``dst`` with ``src`` added at ``idx`` (functional): the live lanes in
-    input order on the CPU, in the stable sort's order on the card; a dead
-    lane lands in a trash slot of its own past ``dst``'s end."""
-    n, k = dst.shape[0], idx.numel()
-    ext = torch.cat([dst, dst.new_zeros(k)])
-    trash = torch.arange(n, n + k, device=dst.device)
-    at = torch.where(live.reshape(-1), idx.reshape(-1).long(), trash)
-    ext.index_put_((at,), src.reshape(-1), accumulate=True)
-    return ext[:n]
+    """``dst`` with ``src`` added at ``idx`` (functional): each target's live
+    lanes in input order, on the CPU and on the card; a dead lane adds
+    nothing (``kernels/scatter``)."""
+    return scatter_add_ordered(dst, idx, src, live)
 
 
 def _where(done: torch.Tensor, old, new):

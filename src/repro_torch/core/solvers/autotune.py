@@ -22,8 +22,9 @@ its per-step time also feeds the planner's cost book (``record_measured``).
 The port's platform keys are ``torch-cuda`` and ``torch-cpu``
 (``platform_of``), so a record that the JAX package wrote for ``cpu``,
 ``gpu`` or ``tpu`` never steers the port, nor the port's the JAX package.
-The record's JSON form is the JAX package's.  The sharded engine's search
-(``tune_jax_shard``) waits for that engine (ROADMAP.md item A12).
+The record's JSON form is the JAX package's.  For the sharded engine
+(``tune_jax_shard``) the search is over the (a × b) grids that the default
+process group allows, by time alone (every grid takes the same coordinates).
 """
 from __future__ import annotations
 
@@ -272,10 +273,45 @@ def tune_torch_sparse(pcsr, pcsc, y, *, loss: str = "logistic", steps: int = 24,
 tune_jax_sparse = tune_torch_sparse   # the JAX package's name
 
 
-def tune_jax_shard(*args, **kwargs) -> TuningRecord:
-    """The sharded engine's block-geometry search: not ported yet."""
-    raise NotImplementedError("the sharded engine and its autotune are not ported yet: "
-                              "see ROADMAP.md item A12 (sharded engine)")
+def shard_grids() -> List[Tuple[int, int]]:
+    """The grids ``jax_shard`` can run here: 1×1 (every rank alone), and
+    every (a, b) with a·b = the default process group's world size."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return sorted({(1, 1)} | {(a, world // a) for a in range(1, world + 1) if world % a == 0})
+
+
+def tune_jax_shard(src, y, *, loss: str = "logistic", steps: int = 24, lam: float = 20.0,
+                   content_hash: str = "", platform: Optional[str] = None,
+                   device: str = "cuda") -> TuningRecord:
+    """Search (a, b) block grids for the sharded engine (``shard_grids``: just
+    1×1 in one process).  Every grid takes the same coordinates, so only
+    time decides; the winner also feeds the planner's cost book under the
+    ``jax_shard`` key.  Every rank of the group runs the search together."""
+    from repro_torch.core.solvers.jax_shard import shard_fw
+    from repro_torch.core.solvers.planner import data_stats
+    dev = torch.device(device)
+    plat = platform or platform_of(dev)
+    timings = {}
+    for a, b in shard_grids():
+        cfg = FWConfig(backend="jax_shard", steps=steps, lam=lam, loss=loss, queue="gumbel",
+                       epsilon=1.0, delta=1e-6, mesh=(a, b), device=str(dev))
+        timings[(a, b)] = _time_per_iter_ms(lambda cfg=cfg: shard_fw(src, y, cfg), steps)
+        obs.event("autotune.candidate", backend="jax_shard", loss=loss, candidate=f"{a}x{b}",
+                  per_iter_ms=timings[(a, b)], parity=True)
+    best = min(timings, key=timings.get)
+    default_ms = timings[(1, 1)]
+    obs.event("autotune.winner", backend="jax_shard", loss=loss,
+              candidate=f"{best[0]}x{best[1]}", per_iter_ms=timings[best],
+              speedup=default_ms / max(timings[best], 1e-12))
+    stats = data_stats(src.csr) if src.csr is not None else data_stats(src.store)
+    _feed_planner("jax_shard", stats, timings[best], loss=loss, platform=plat,
+                  modes=("sequential", "vmap"))
+    return TuningRecord(content_hash=content_hash, platform=plat, backend="jax_shard",
+                        loss=loss, ell_width=None, chunk_steps=None,
+                        mesh=best if best != (1, 1) else None,
+                        per_iter_default_ms=default_ms, per_iter_tuned_ms=timings[best],
+                        pass_parity=True)
 
 
 def autotune(data, y=None, *, backend: str = "torch_sparse", loss: str = "logistic",
@@ -293,13 +329,13 @@ def autotune(data, y=None, *, backend: str = "torch_sparse", loss: str = "logist
     ``autotune.replayed`` counter.
     """
     from repro_torch.core.solvers.prepared import PreparedDataset
-    from repro_torch.core.solvers.registry import (BACKEND_ALIASES, as_padded, check_device,
+    from repro_torch.core.solvers.registry import (BACKEND_ALIASES, as_padded,
+                                                   as_shard_source, check_device,
                                                    resolve_data)
     backend = BACKEND_ALIASES.get(backend, backend)
-    if backend == "jax_shard":
-        return tune_jax_shard()
-    if backend != "torch_sparse":
-        raise ValueError(f"autotune supports torch_sparse (jax_sparse), got {backend!r}")
+    if backend not in ("torch_sparse", "jax_shard"):
+        raise ValueError(f"autotune supports torch_sparse (jax_sparse) and jax_shard, "
+                         f"got {backend!r}")
     dev = check_device(device)
     plat = platform_of(dev)
     data, y = resolve_data(data, y)
@@ -309,6 +345,13 @@ def autotune(data, y=None, *, backend: str = "torch_sparse", loss: str = "logist
         if rec is not None:
             obs.count("autotune.replayed", backend=backend)
             return rec
+    if backend == "jax_shard":
+        rec = tune_jax_shard(as_shard_source(data), y, loss=loss, steps=steps, lam=lam,
+                             content_hash=getattr(store, "content_hash", ""), platform=plat,
+                             device=dev)
+        if store is not None:
+            store.autotune_save(rec)
+        return rec
     prepared = as_padded(data, dev)
     if isinstance(prepared, PreparedDataset):
         pcsr, pcsc = prepared.pair

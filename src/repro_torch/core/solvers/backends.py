@@ -11,6 +11,11 @@
   torch_sparse  Alg 2 through the port's CUDA kernels (spmv / coord_update /
                 bsls_draw), or their plain PyTorch versions on the CPU.  The
                 JAX package's name ``jax_sparse`` selects it too.
+  jax_shard     Alg 2 over an (a × b) grid of ranks (``FWConfig.mesh``):
+                the collective schedule of ``repro_torch.distributed`` over
+                ``BlockSparse`` blocks, its scatters through the in-order
+                scatter kernel; a 1×1 mesh takes the single-device engines'
+                coordinates.
 
 Each adapter maps its engine onto the shared ``(data, y, FWConfig) ->
 FWResult`` contract; on ``dense`` and ``torch_sparse``,
@@ -104,6 +109,13 @@ def _torch_dense_backend(data, y, config: FWConfig) -> FWResult:
         data = data.pair
     pcsr, pcsc = data
     return _normalize_stop(sparse_fw_torch(pcsr, pcsc, y, config, setup=setup), config)
+
+
+@register("jax_shard", data_format="blocks", queues=QUEUE_ALIASES["shard"],
+          default_queue="argmax", supports_max_seconds=False)
+def _jax_shard_backend(data, y, config: FWConfig) -> FWResult:
+    from repro_torch.core.solvers.jax_shard import shard_fw
+    return shard_fw(data, y, config)
 
 
 @register("host_sparse", data_format="host", queues=QUEUE_ALIASES["host"],

@@ -42,7 +42,9 @@ at its position) runs, for ``torch_sparse`` and two or more configs, as
 lane with its own EM scale and key, λ_k shared, the stop flags reset between
 segments, no lane retired mid-segment), or one path driver per config over
 the group's one setup; other backends run ``path.run_path`` per config.
-``mesh`` configs are refused before any compute, naming ROADMAP.md item A12.
+A ``jax_shard`` group of two or more shares one block layout and setup and
+runs as lanes on a 1×1 mesh, one config after another on a larger one
+(``jax_shard.solve_shard_group``).
 """
 from __future__ import annotations
 
@@ -484,6 +486,9 @@ def solve_many(X, y=None, configs: Sequence[FWConfig] = (), *,
                     out = _run_path_group(backend, data, y_dev, member_cfgs, plan)
                 elif backend.name == "torch_sparse" and len(members) > 1:
                     out = _run_torch_sparse_group(data, y_dev, member_cfgs, plan)
+                elif backend.name == "jax_shard" and len(members) > 1:
+                    from repro_torch.core.solvers.jax_shard import solve_shard_group
+                    out = solve_shard_group(data, y_dev, member_cfgs)
                 else:
                     out = [backend.fn(data, y_dev, cfg) for cfg in member_cfgs]
             for i, res in zip(members, out):

@@ -25,7 +25,7 @@ STOP_MAX_SECONDS = "max_seconds"  # wall-clock budget exhausted
 class FWConfig:
     """One Frank-Wolfe run, declaratively (see ``repro.core.solvers.config``)."""
 
-    backend: str = "dense"       # dense | torch_dense | host_sparse | torch_sparse
+    backend: str = "dense"       # dense | torch_dense | host_sparse | torch_sparse | jax_shard
     lam: float = 50.0            # L1 radius λ
     steps: int = 4000            # T
     loss: str = "logistic"
@@ -35,6 +35,7 @@ class FWConfig:
     delta: float = 1e-6
     seed: int = 0
     device: str = "cuda"         # where the solve runs; "cpu" runs the plain versions
+    # jax_shard only: (row shards, feature shards) of the rank grid
     mesh: Optional[Tuple[int, int]] = None
     gap_tol: float = 0.0
     max_seconds: Optional[float] = None
@@ -56,10 +57,9 @@ class FWConfig:
         return self.gap_tol > 0.0 or self.max_seconds is not None
 
 
-# field → (is it set?, the ROADMAP.md item that implements it)
-_UNSUPPORTED = (
-    ("mesh", lambda c: c.mesh is not None, "A12 (sharded engine)"),
-)
+# field → (is it set?, the ROADMAP.md item that implements it); every field
+# of the JAX package's FWConfig is ported
+_UNSUPPORTED = ()
 
 
 def check_supported(config: FWConfig) -> None:

@@ -158,6 +158,10 @@ def step_costs(stats: ProblemStats, backend: str) -> Tuple[float, float]:
     if _backend_name(backend) == "torch_dense":   # the D-wide sampler state
         flops += 2.0 * d
         bytes_ += 8.0 * d
+    if backend == "jax_shard":
+        # the blocked schedule's per-shard lanes; the collective term is
+        # charged by callers that know the mesh
+        bytes_ += 4.0 * stats.kc
     return flops, bytes_
 
 
@@ -318,12 +322,10 @@ def choose_backend(stats: ProblemStats, config: FWConfig,
     model.  On the card both steps must be measured: the roofline there
     holds no host time and runs ~1,000× under a measured step, so against a
     model the pick stays ``torch_sparse``, the step the card runs fastest
-    where both were measured (PERF.md §6).  A config that names a mesh would
-    want the sharded engine, which is not ported."""
+    where both were measured (PERF.md §6).  A config that names a mesh other
+    than 1×1 wants the sharded engine, ``jax_shard``."""
     if config.mesh is not None and tuple(config.mesh) != (1, 1):
-        raise NotImplementedError(
-            f"FWConfig.mesh={config.mesh!r} wants the sharded engine, which is not "
-            "ported yet: see ROADMAP.md item A12 (sharded engine)")
+        return "jax_shard"
     plat = _platform(platform, config.device)
     per_step = {b: measured_cost(b, "sequential", plat, stats, loss=config.loss)
                 for b in ("dense", "torch_sparse")}

@@ -15,10 +15,12 @@ sampler refreshes exactly the coordinates whose α changed each step (line
 priorities always equal ``em_scale·|α|`` on real coordinates and the pad
 value on padding — what this oracle rebuilds from scratch.
 
-The scatter-adds (setup and line 26) take ``fw_torch.scatter_add``'s fixed
-order: input order on the CPU, the stable sort's sums on the card (not the
-kernel's order, so on the card a near-tie can go the other way:
-``ROADMAP.md`` §C, C2).
+The scatter-adds (setup and line 26) take ``fw_torch.scatter_add``'s
+order, each target's terms in input order on the CPU and on the card (the
+card's in-order scatter kernel, ``kernels/scatter``, is the oracle's only
+launch), not the engine's ``ell_rmatvec`` segments or ``coord_update``
+owner order; so the oracle is independently rounded and only its
+coordinates must equal the engine's.
 """
 from __future__ import annotations
 

@@ -4,16 +4,17 @@
     result = solve(X, y, FWConfig(lam=30.0, steps=500))          # on cuda
     result = solve(X, y, FWConfig(lam=30.0, steps=500, device="cpu"))
 
-Four backends are registered (``backends.py``), every single-device engine
-of the JAX package: ``dense`` (Alg 1, the default), ``torch_dense`` (Alg 2,
-dense vector updates; the JAX name ``jax_dense`` selects it),
-``host_sparse`` (Alg 2, the faithful float64 host loop) and
-``torch_sparse`` (Alg 2 through the kernels; ``jax_sparse`` selects it).
+Five backends are registered (``backends.py``), every engine of the JAX
+package: ``dense`` (Alg 1, the default), ``torch_dense`` (Alg 2, dense
+vector updates; the JAX name ``jax_dense`` selects it), ``host_sparse``
+(Alg 2, the faithful float64 host loop), ``torch_sparse`` (Alg 2 through
+the kernels; ``jax_sparse`` selects it) and ``jax_shard`` (Alg 2 over an
+(a × b) rank grid on ``torch.distributed``, ``FWConfig.mesh``).
 :func:`solve` refuses what the port does not implement, coerces ``X`` — a
 ``HostCSR``, a dense numpy matrix, a padded pair, or a
 ``repro_torch.data.store`` ``DatasetStore``/``DatasetRef`` (whose labels
 stand in for ``y``) — into the backend's data format (``dense``,
-``padded`` on ``config.device``, or ``host``) and translates queue names
+``padded`` on ``config.device``, ``host``, or ``blocks``) and translates queue names
 through ``QUEUE_ALIASES`` as the JAX registry does.  A store reaches ``torch_sparse`` as a
 ``PreparedDataset``: its cached padded layout and setup state.
 """
@@ -75,6 +76,13 @@ QUEUE_ALIASES: Mapping[str, Mapping[str, str]] = {
         "noisy_max": "noisy_max",
         "gumbel": "gumbel", "bsls": "gumbel", "two_level": "gumbel",
     },
+    # the sharded engine: shard-then-member Gumbel-max (the exponential
+    # mechanism's law) and the exact argmax; no noisy_max, whose D-wide
+    # Laplace draw is the traffic the blocked schedule avoids
+    "shard": {
+        "argmax": "argmax", "fib_heap": "argmax", "group_argmax": "argmax",
+        "gumbel": "gumbel", "bsls": "gumbel", "two_level": "gumbel",
+    },
 }
 
 # the JAX package's backend names that a port backend serves
@@ -105,10 +113,9 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-# the JAX package's backends the port does not have yet → their ROADMAP.md item
-UNPORTED_BACKENDS: Mapping[str, str] = {
-    "jax_shard": "A12 (sharded engine)",
-}
+# the JAX package's backends the port does not have yet → their ROADMAP.md
+# item: none, since the sharded engine (A12) was ported
+UNPORTED_BACKENDS: Mapping[str, str] = {}
 
 
 def get_backend(name: str) -> Backend:
@@ -245,9 +252,19 @@ def as_dense(X, device="cuda"):
                     f"TieredCSC) pair, or a DatasetStore/DatasetRef; got {type(X).__name__}")
 
 
+def as_shard_source(X, device=None):
+    """→ ``distributed.ingest.ShardSource``: the ``jax_shard`` backend's
+    deferred block coercion (the grid is on the config, so the blocks are
+    built at solve time, once per grid, on the host; each rank moves its own
+    block to its device); a store keeps its identity for its blocks cache."""
+    from repro_torch.distributed.ingest import ShardSource
+    return ShardSource.from_any(X)
+
+
 _COERCE = {"dense": as_dense, "padded": as_padded,
            # the host engine computes on the host whatever the device
-           "host": lambda X, device: as_host_csr(X)}
+           "host": lambda X, device: as_host_csr(X),
+           "blocks": as_shard_source}
 
 
 def resolve_queue(backend: Backend, config: FWConfig) -> FWConfig:

@@ -504,16 +504,38 @@ class DatasetStore:
         with open(self._padded_meta_path(), "w") as f:
             json.dump({"content_hash": self.content_hash}, f)
 
+    def _blocks_meta_path(self, a: int, b: int) -> str:
+        return os.path.join(self.root, CACHE_DIR, f"blocks-{a}x{b}-meta.json")
+
     def blocks_load(self, a: int, b: int):
-        """The cached (a × b) block layout of the sharded engine: not ported."""
-        raise NotImplementedError(
-            "the blocks cache serves the sharded engine, which is not ported yet: "
-            "see ROADMAP.md item A12")
+        """The cached (a × b) ``BlockSparse`` of the sharded engine on the
+        host, or None on a miss: the JAX package's ``cache/blocks-{a}x{b}.*``
+        files, guarded by the content hash, so either package reads the
+        other's."""
+        meta_path = self._blocks_meta_path(a, b)
+        if not os.path.exists(meta_path):
+            _cache_count("blocks", hit=False)
+            return None
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("content_hash") != self.content_hash:
+            _cache_count("blocks", hit=False)
+            return None
+        _cache_count("blocks", hit=True)
+        from repro_torch.distributed.block_sparse import BlockSparse
+        base = os.path.join(self.root, CACHE_DIR, f"blocks-{a}x{b}")
+        arrays = {part: _load_npy(f"{base}.{part}.npy", "cpu")
+                  for part in ("csc_rows", "csc_vals", "csr_cols", "csr_vals")}
+        return BlockSparse(shape=tuple(meta["shape"]), padded=tuple(meta["padded"]), **arrays)
 
     def blocks_save(self, a: int, b: int, blocks) -> None:
-        raise NotImplementedError(
-            "the blocks cache serves the sharded engine, which is not ported yet: "
-            "see ROADMAP.md item A12")
+        os.makedirs(os.path.join(self.root, CACHE_DIR), exist_ok=True)
+        base = os.path.join(self.root, CACHE_DIR, f"blocks-{a}x{b}")
+        for part in ("csc_rows", "csc_vals", "csr_cols", "csr_vals"):
+            _save_npy(f"{base}.{part}.npy", getattr(blocks, part))
+        with open(self._blocks_meta_path(a, b), "w") as f:
+            json.dump({"content_hash": self.content_hash, "shape": list(blocks.shape),
+                       "padded": list(blocks.padded)}, f)
 
     def _autotune_path(self, backend: str, loss: str, platform: str) -> str:
         return os.path.join(self.root, CACHE_DIR,

@@ -34,6 +34,7 @@ SOURCES = (
     _PKG / "coord_update" / "csrc" / "coord_update.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention_mma.cu",
+    _PKG / "scatter" / "csrc" / "scatter_add_ordered.cu",
 )
 INCLUDE = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[2] / "build" / "torch_kernels"
@@ -53,8 +54,9 @@ SIGNATURES = {
                           + [_I, _I, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 6
                           + [_P]),
     "port_coord_update_short_route_max": [],
-    "port_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "port_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "port_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_F, _P],
+    "port_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 8 + [_F, _P],
+    "port_scatter_add_ordered": [_P, _P, _P, _I, _P, _I, _P, _P],
 }
 
 

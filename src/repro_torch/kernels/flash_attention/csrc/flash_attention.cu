@@ -33,7 +33,9 @@
 //   of the sequence (the ragged last tile) score -inf and add nothing.
 // * tile skipping: the visited tiles are [lo, hi) of models/flash.py's
 //   _bounds, which is the TPU kernel's visibility test (kernel.py:47-53).
-// * head dims 16, 32, 64, 128 and 256; anything else is refused.
+// * compiled for head dims 16, 32, 64, 128 and 256; the wrapper zero-pads any
+//   other head dim, and a v head dim of its own, to the next of them and
+//   passes the true softmax scale (padded lanes add exact zeros).
 //
 // Bound on the H100: operations.  A causal (B, S, H, hd) forward needs
 // 4·B·H·hd·S(S+1)/2 flops, which the tensor cores could do at 989 TFLOP/s
@@ -191,14 +193,13 @@ __global__ void __launch_bounds__(FA_THREADS)
 
 template <typename T, int HD, int RM>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
-           int h, int kvh, int causal, int window, cudaStream_t stream) {
+           int h, int kvh, int causal, int window, float scale, cudaStream_t stream) {
   using S = FaShape<HD, RM>;
   auto kernel = flash_fwd_kernel<T, HD, RM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(S::BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + S::BQ - 1) / S::BQ, h, b);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));  // as JAX rounds it
   kernel<<<grid, FA_THREADS, S::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), sq, sk, h, kvh, causal, window, scale);
@@ -207,21 +208,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
 
 template <typename T>
 int by_head_dim(int hd, const void* q, const void* k, const void* v, void* out, int b, int sq,
-                int sk, int h, int kvh, int causal, int window, cudaStream_t stream) {
+                int sk, int h, int kvh, int causal, int window, float scale,
+                cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 32: return launch<T, 32, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 64: return launch<T, 64, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 128: return launch<T, 128, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 256: return launch<T, 256, 2>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
+    case 16: return launch<T, 16, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 32: return launch<T, 32, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 64: return launch<T, 64, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 128:
+      return launch<T, 128, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 256:
+      return launch<T, 256, 2>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// scale: the softmax scale 1/sqrt(true head dim) rounded to float32, as JAX
+// rounds it; the wrapper pads a head dim outside the table with zeros, which
+// add nothing to q·k, so the scale is the true one, not 1/sqrt(hd).
 extern "C" int port_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     int b, int sq, int sk, int h, int kvh, int hd, int causal,
-                                    int window, cudaStream_t stream) {
-  return by_head_dim<float>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
+                                    int window, float scale, cudaStream_t stream) {
+  return by_head_dim<float>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
 }

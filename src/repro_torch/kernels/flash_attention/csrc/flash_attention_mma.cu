@@ -317,15 +317,14 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<HD>::MIN_BLOCKS)
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk, int h,
-           int kvh, int causal, int window, cudaStream_t stream) {
+           int kvh, int causal, int window, float scale, cudaStream_t stream) {
   using S = TcShape<HD>;
   auto kernel = flash_fwd_mma_kernel<HD>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b, (sq + TC_BQ - 1) / TC_BQ);
-  // 1/sqrt(hd) rounded to float32 as JAX rounds it, times log2(e)
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  // scale (1/sqrt(hd) rounded to float32 as JAX rounds it) times log2(e)
   kernel<<<grid, TC_THREADS, S::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sq, sk, h, kvh,
@@ -337,13 +336,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
 
 extern "C" int port_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                          int b, int sq, int sk, int h, int kvh, int hd,
-                                         int causal, int window, cudaStream_t stream) {
+                                         int causal, int window, float scale,
+                                         cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 32: return launch<32>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 64: return launch<64>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 128: return launch<128>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
-    case 256: return launch<256>(q, k, v, out, b, sq, sk, h, kvh, causal, window, stream);
+    case 16: return launch<16>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 32: return launch<32>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 64: return launch<64>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 128: return launch<128>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 256: return launch<256>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

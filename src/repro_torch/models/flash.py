@@ -13,6 +13,7 @@ GQA layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd[v]) with H = KV·G.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -20,8 +21,11 @@ NEG = -1e30
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
-    return _flash_fwd_impl(q, k, v, causal, window, block_q, block_k)
+                    block_q: int = 512, block_k: int = 1024,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """``scale`` is the softmax scale, ``1/sqrt(hd)`` unless given (the card's
+    kernel takes zero-padded head dims with the true head dim's scale)."""
+    return _flash_fwd_impl(q, k, v, causal, window, block_q, block_k, scale)
 
 
 def _bounds(iq, bq, bk, nk, causal, window):
@@ -40,14 +44,14 @@ def _mask(qpos, kpos, causal, window):
     return m
 
 
-def _flash_fwd_impl(q, k, v, causal, window, block_q, block_k):
+def _flash_fwd_impl(q, k, v, causal, window, block_q, block_k, scale=None):
     """The attention output in q's dtype (the JAX version also returns the
     log-sum-exp for its backward, which comes with training)."""
     b, sq, h, hd = q.shape
     _, sk, kv, hdk = k.shape
     hdv = v.shape[-1]
     g = h // kv
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     bq, bk = min(block_q, sq), min(block_k, sk)
     nq, nk = sq // bq, sk // bk
     assert sq % bq == 0 and sk % bk == 0

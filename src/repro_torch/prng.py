@@ -8,6 +8,8 @@ bits.  This module reproduces JAX 0.9's defaults: the threefry2x32 PRNG,
 * ``PRNGKey(seed)`` is ``[seed >> 32, seed & 0xFFFFFFFF]``.
 * ``split(key, n)`` is ``_threefry_split_foldlike``: key i of the result is
   ``threefry2x32(key, (0, i))``, both output words.
+* ``fold_in(key, data)`` is ``threefry2x32(key, (0, data))``: JAX seeds a key
+  from the uint32 ``data`` as ``[0, data]`` and hashes it under ``key``.
 * ``random_bits(key, shape)``: element at flat index c is ``o0 ^ o1`` of
   ``threefry2x32(key, (c >> 32, c & 0xFFFFFFFF))``.
 * ``uniform``: ``(bits >> 9) | 0x3F800000`` viewed as float32, minus 1, then
@@ -73,6 +75,12 @@ def split2(key) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """``split(key)`` as two (k0, k1) int pairs, without a tensor op."""
     k0, k1 = _key_ints(key)
     return threefry2x32(k0, k1, 0, 0), threefry2x32(k0, k1, 0, 1)
+
+
+def fold_in(key, data: int) -> Tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` as a (k0, k1) int pair."""
+    k0, k1 = _key_ints(key)
+    return threefry2x32(k0, k1, 0, int(data) & MASK)
 
 
 def key_chain(key, steps: int) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:

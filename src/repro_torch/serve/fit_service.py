@@ -7,7 +7,7 @@ The same lifecycle as the JAX service — **submit → admit → batch → drain
   * **submit** queues a ``FitRequest`` (tenant + FWConfig);
   * **admit** refuses, before any compute, what the request's backend cannot
     run (its queue, the gap certificate, ``max_seconds``, screening and
-    λ-paths, a ``mesh``, which names ROADMAP.md item A12), resolves
+    λ-paths), resolves
     ``backend="auto"`` through the planner and the queue name, and for a
     private queue charges the tenant's ``PrivacyAccountant``; a refused
     request is charged nothing.  The charge is in the accountant's own step
@@ -18,8 +18,10 @@ The same lifecycle as the JAX service — **submit → admit → batch → drain
     (``batched.group_key``) of at most ``slots`` configs;
   * **drain** runs each slot-batch through ``solve_many``: a ``torch_sparse``
     batch as lanes (one launch of ``coord_update_lanes`` and
-    ``two_level_draw_lanes`` a step) or as the planner says; ``dense``,
-    ``torch_dense`` and ``host_sparse`` batches config by config.  The
+    ``two_level_draw_lanes`` a step) or as the planner says; a
+    ``jax_shard`` batch as lanes on a 1×1 mesh (on a larger mesh every rank
+    of the process group runs the same service); ``dense``, ``torch_dense``
+    and ``host_sparse`` batches config by config.  The
     service keeps one resolved source and ``solve_many``'s ``prepared`` cache
     for its lifetime, so each data layout is coerced once (the padded pair
     up front, on ``FitServiceConfig.device``).
@@ -189,7 +191,7 @@ class FitService:
         no longer fail validation."""
         try:
             cfg = req.config
-            check_supported(cfg)                    # mesh → A12
+            check_supported(cfg)
             if cfg.backend == "auto":
                 cfg = dataclasses.replace(cfg, backend=self._planned_backend(cfg))
             backend = get_backend(cfg.backend)

@@ -191,10 +191,15 @@ def test_in_memory_pair_and_events(problem, padded, tiered_wins):
 
 
 def test_unported_searches_refuse(store):
-    with pytest.raises(NotImplementedError, match="A12"):
-        at.autotune(store, backend="jax_shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        at.tune_jax_shard(None, None)
+    """The sharded engine's search is ported (A12): one process allows only
+    the 1×1 grid, whose record persists (no mesh) and replays warm; other
+    backends are refused."""
+    assert at.shard_grids() == [(1, 1)]
+    rec = at.autotune(store, backend="jax_shard", device="cpu", steps=4)
+    assert (rec.backend, rec.platform, rec.mesh, rec.ell_width) == (
+        "jax_shard", "torch-cpu", None, None)
+    assert rec.per_iter_tuned_ms == rec.per_iter_default_ms > 0
+    assert at.autotune(store, backend="jax_shard", device="cpu", steps=4) == rec
     with pytest.raises(ValueError, match="torch_sparse"):
         at.autotune(store, backend="dense", device="cpu")
     assert at.tune_jax_sparse is at.tune_torch_sparse

@@ -11,7 +11,8 @@ package's ``solve_many`` (``solvers/batched.py``).
 * It takes the JAX package's ``solve_many`` coordinates exactly, with w and
   gaps within atol 1e-4 (the North-star contract); a tiered layout against
   JAX's flat one is held to the same, not to bits (ROADMAP.md §C).
-* mesh configs raise naming A12 before any compute; a screened group and a
+* a mesh config runs (torch_sparse reads no mesh; a jax_shard mesh larger
+  than the process group is refused); a screened group and a
   λ-path group run, each config equal to its own ``solve``; a bogus plan
   raises; a ``SolvePlan``'s chunk overrides the default.
 """
@@ -26,7 +27,7 @@ from repro.core.solvers import grid as jax_grid
 from repro.core.solvers import solve_many as jax_solve_many
 from repro.data.synthetic import make_sparse_classification
 from repro_torch import FWConfig, SolvePlan, grid, obs, solve, solve_many
-from repro_torch.core.solvers import batched, planner
+from repro_torch.core.solvers import planner
 from repro_torch.core.solvers.config import STOP_GAP_TOL, STOP_MAX_SECONDS
 from repro_torch.core.sparse.formats import HostCSR, host_to_padded, tiered_from_padded
 from repro_torch.data.store import DatasetStore
@@ -218,13 +219,21 @@ def test_takes_the_jax_coordinates(problem, private, layout):
 
 
 @pytest.mark.parametrize("field,value,item", [("mesh", (2, 2), "A12")])
-def test_unported_configs_refused_before_compute(problem, monkeypatch, field, value, item):
+def test_unported_configs_refused_before_compute(problem, field, value, item):
+    """``mesh`` is ported (ROADMAP.md item ``item``).  On a torch_sparse
+    config it names nothing that engine reads: the config runs as its own
+    solve.  A jax_shard config whose grid needs more ranks than this process
+    has is refused."""
     _, host, y = problem
-    monkeypatch.setattr(batched, "_run_torch_sparse_group", lambda *a: pytest.fail("ran"))
     configs = [FWConfig(backend="torch_sparse", steps=5, device="cpu"),
                FWConfig(backend="torch_sparse", steps=5, device="cpu", **{field: value})]
-    with pytest.raises(NotImplementedError, match=item):
-        solve_many(host, y, configs)
+    for cfg, res in zip(configs, solve_many(host, y, configs)):
+        own = solve(host, y, cfg)
+        for name in ("w", "gaps", "coords"):
+            assert torch.equal(getattr(res, name), getattr(own, name)), name
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        solve_many(host, y, [FWConfig(backend="jax_shard", steps=5, device="cpu",
+                                      **{field: value})])
 
 
 @pytest.mark.parametrize("field,value", [("lambdas", (8.0, 4.0)), ("screen_every", 1)])

@@ -212,9 +212,10 @@ def test_slot_width_one_and_bad_slots(service_problem):
 
 
 def test_refusals_are_charge_free(service_problem):
-    """Non-smooth gap_tol, max_seconds on torch_dense, a mesh (A12), an
-    unknown tenant, ε ≤ 0: each refused before any charge; the good
-    request beside them runs and is the only charge."""
+    """Non-smooth gap_tol, max_seconds on torch_dense, an unknown tenant,
+    ε ≤ 0: each refused before any charge; the good request beside them
+    runs and is the only charge.  (Mesh requests are admitted since A12:
+    ``test_mesh_requests_are_admitted``.)"""
     _, host, y = service_problem
     probe = dataclasses.replace(LOGISTIC, name="_svc_abs_probe", smooth=False,
                                 curvature_note="|m-y| kink at 0")
@@ -225,8 +226,6 @@ def test_refusals_are_charge_free(service_problem):
                              loss="_svc_abs_probe", gap_tol=1e-3)),
                ("acme", dict(backend="torch_dense", steps=STEPS, queue="bsls", epsilon=0.5,
                              max_seconds=5.0)),
-               ("acme", dict(backend="torch_sparse", steps=STEPS, queue="bsls", mesh=(2, 2))),
-               ("acme", dict(backend="jax_shard", steps=STEPS, queue="bsls")),
                ("stranger", dict(backend="torch_sparse", steps=STEPS, queue="bsls")),
                ("acme", dict(backend="torch_sparse", steps=5, queue="bsls", epsilon=0.0))]
         for uid, (tenant, kw) in enumerate(bad):
@@ -236,8 +235,7 @@ def test_refusals_are_charge_free(service_problem):
         done = {r.uid: r for r in svc.run()}
         assert [done[i].status for i in range(len(bad))] == ["rejected"] * len(bad)
         assert "not smooth" in done[0].reason and "max_seconds" in done[1].reason
-        assert "A12" in done[2].reason and "A12" in done[3].reason
-        assert "no privacy budget" in done[4].reason
+        assert "no privacy budget" in done[2].reason
         assert done[len(bad)].status == "done"
         solo = _service(host, y)
         solo.submit(FitRequest(uid=0, tenant="acme", config=good))
@@ -248,6 +246,28 @@ def test_refusals_are_charge_free(service_problem):
         assert [e["uid"] for e in svc.ledger.entries if e["kind"] == "charge"] == [len(bad)]
     finally:
         OBJECTIVES.pop(probe.name, None)
+
+
+def test_mesh_requests_are_admitted(service_problem):
+    """A mesh request (A12): on torch_sparse the mesh names nothing the
+    engine reads, and a jax_shard request runs on the 1×1 grid; both are
+    admitted, charged as any private fit, and answer their own solves."""
+    _, host, y = service_problem
+    svc = _service(host, y)
+    reqs = [_port_config(backend="torch_sparse", lam=8.0, steps=STEPS, queue="bsls",
+                         mesh=(2, 2)),
+            _port_config(backend="jax_shard", lam=8.0, steps=STEPS, queue="bsls")]
+    for uid, cfg in enumerate(reqs):
+        svc.submit(FitRequest(uid=uid, tenant="acme", config=cfg))
+    done = {r.uid: r for r in svc.run()}
+    assert [done[i].status for i in (0, 1)] == ["done", "done"]
+    assert done[1].config.queue == "gumbel"
+    acct = svc.accountants["acme"]
+    assert acct.spent_steps == sum(svc._charged_steps(acct, done[i].config) for i in (0, 1)) > 0
+    for i in (0, 1):
+        own = solve(host, y, done[i].config)
+        assert torch.equal(done[i].result.coords, own.coords)
+        assert torch.equal(done[i].result.w, own.w)
 
 
 def test_charges_full_T_for_early_stopped_fits(service_problem):

@@ -9,6 +9,11 @@
   neighbouring bf16 values).
 * With the default blocks (512 × 1024) against the JAX package's
   ``models/flash.py`` over several q blocks, within 2e-5.
+* The card's padding of head dims outside its table (``pad_head_dims``):
+  q, k and v zero-padded, the plain attention at the true scale, then
+  sliced, equals the unpadded plain attention bit for bit at hd 18, 24 and
+  112 and at (hd, hdv) = (192, 128), and the JAX package's blocked forward
+  within 2e-5.
 * The kernel op on CPU tensors runs the plain version and counts no launch
   on either route (bf16: tensor cores, float32: CUDA cores), and
   ``reset_launch_counts`` clears both route counts.
@@ -23,6 +28,7 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.flash import flash_attention as j_flash_attention
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention as flash_op
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, pad_head_dims
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.flash import flash_attention
 
@@ -90,3 +96,22 @@ def test_reset_launch_counts_clears_the_routes():
     reset_launch_counts()
     assert launch_counts()["flash_attention"] == 0
     assert flash_op.routes == {"bf16_tensor_cores": 0, "f32_cuda_cores": 0}
+
+
+@pytest.mark.parametrize("hd,hdv", [(18, 18), (24, 24), (112, 112), (192, 128)])
+def test_padded_head_dims_equal_the_unpadded_plain_attention(hd, hdv):
+    g = np.random.default_rng(hd + hdv)
+    shapes = ((2, 128, 4, hd), (2, 128, 2, hd), (2, 128, 2, hdv))
+    q, k, v = (g.standard_normal(sh).astype(np.float32) for sh in shapes)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    pq, pk, pv, scale, width_v = pad_head_dims(tq, tk, tv)
+    assert pq.shape[-1] in HEAD_DIMS and pq.shape[-1] >= max(hd, hdv) and width_v == hdv
+    assert pq.shape[-1] == pk.shape[-1] == pv.shape[-1]
+    assert scale == 1.0 / np.sqrt(hd)
+    got = flash_attention(pq, pk, pv, block_q=64, block_k=64, scale=scale)[..., :hdv]
+    want = flash_attention(tq, tk, tv, block_q=64, block_k=64)
+    assert got.shape == (2, 128, 4, hdv)
+    assert torch.equal(got, want)
+    ref = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                            block_q=64, block_k=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)

@@ -37,7 +37,12 @@ the draw kernel's rebuild once a step, repeats its bits run to run, and
 takes the CPU's and ``torch_sparse``'s coordinates (w and gaps within 1e-4);
 the eager oracle launches nothing and takes ``torch_sparse``'s coordinates;
 ``host_sparse`` returns the CPU's result as tensors on the card; the fit
-service's answers equal their own ``solve`` bit for bit.
+service's answers equal their own ``solve`` bit for bit.  The in-order
+scatter kernel equals its plain version on the CPU bit for bit, so
+``torch_dense``'s card w equals the CPU's; flash attention pads head dims
+outside its table (18, 24, 112, and 192 against a v head dim of 128) within
+the same bounds; ``jax_shard`` on a 1×1 grid takes the CPU's coordinates and
+w bit for bit, launching only the scatter kernel.
 """
 import dataclasses
 
@@ -280,7 +285,8 @@ def test_dense_card_solve_matches_cpu_solve(problem, selection):
     card = solve(pair, y, cfg)
     assert launch_counts() == {"ell_matvec": 40, "ell_rmatvec": 41, "two_level_draw": 0,
                                "coord_update": 0, "flash_attention": 0,
-                               "two_level_draw_lanes": 0, "coord_update_lanes": 0}
+                               "two_level_draw_lanes": 0, "coord_update_lanes": 0,
+                               "scatter_add_ordered": 0}
     cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
     assert torch.equal(card.coords.cpu(), cpu.coords)
     for name in ("w", "gaps", "losses"):
@@ -553,6 +559,22 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, win
     assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
 
 
+@pytest.mark.parametrize("hd,hdv", [(18, 18), (24, 24), (112, 112), (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_pads_head_dims_outside_the_table(cuda, hd, hdv, dtype):
+    gen = torch.Generator().manual_seed(hd + hdv)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((2, 130, 8, hd), (2, 130, 2, hd), (2, 130, 2, hdv)))
+    got = flash_attention(q, k, v)
+    assert got.shape == (2, 130, 8, hdv) and got.dtype == dtype
+    want = flash_attention_plain(q, k, v).float()
+    tol = 2e-5 if dtype == torch.float32 else 0.06
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        scale = torch.maximum(want.abs(), want.pow(2).mean(-1, keepdim=True).sqrt())
+        assert ((got.float() - want).abs() <= 4 * torch.finfo(torch.bfloat16).eps * scale).all()
+
+
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_tensor_cores"),
                                          (torch.float32, "f32_cuda_cores")])
 def test_flash_attention_routes_by_dtype(cuda, dtype, route):
@@ -566,8 +588,8 @@ def test_flash_attention_routes_by_dtype(cuda, dtype, route):
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 64, 4, 48, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros(1, 64, 4, 320, device=cuda)       # past the widest head dim (256)
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q[:, :, :2], q[:, :, :2])
     q = torch.zeros(1, 64, 4, 64, device=cuda)
     with pytest.raises(ValueError, match="dtypes"):
@@ -1009,7 +1031,8 @@ def test_card_torch_dense_matches_cpu_and_torch_sparse(problem, loss, private, t
     counts = launch_counts()
     assert counts["ell_rmatvec"] == (2 if loss in ("logistic", "squared") else 1)
     assert two_level_draw.rebuilds == (60 if private else 0)
-    assert sum(counts.values()) == counts["ell_rmatvec"]
+    assert 0 < counts["scatter_add_ordered"] <= 3 * 60       # v̄, q̄ and α a step, in order
+    assert sum(counts.values()) == counts["ell_rmatvec"] + counts["scatter_add_ordered"]
     again = sparse_fw_torch(pcsr, pcsc, y_t.cuda(), cfg, tile=tile)
     for name in ("w", "gaps", "coords"):                        # the fixed scatter order
         assert torch.equal(getattr(card, name), getattr(again, name)), name
@@ -1020,6 +1043,7 @@ def test_card_torch_dense_matches_cpu_and_torch_sparse(problem, loss, private, t
         assert torch.equal(card.coords.cpu(), ref.coords.cpu())
         assert float((card.w.cpu() - ref.w.cpu()).abs().max()) <= 1e-4
         assert float((card.gaps.cpu() - ref.gaps.cpu()).abs().max()) <= 1e-4
+    assert torch.equal(card.w.cpu(), cpu.w)                 # the CPU's scatter order
 
 
 def test_card_scatter_order_is_fixed(cuda):
@@ -1033,7 +1057,7 @@ def test_card_scatter_order_is_fixed(cuda):
     for _ in range(5):
         assert torch.equal(first, scatter_add(dst, idx, src, live))
     plain = scatter_add(dst.cpu(), idx.cpu(), src.cpu(), live.cpu())    # input order
-    torch.testing.assert_close(first.cpu(), plain, rtol=1e-5, atol=1e-5)
+    assert torch.equal(first.cpu(), plain)                              # the kernel's order too
 
 
 @pytest.mark.parametrize("private", [False, True])
@@ -1047,7 +1071,9 @@ def test_card_reference_fw_matches_torch_sparse(problem, private):
     w, gaps, coords = reference_fw(pcsr, pcsc, torch.from_numpy(y.astype(np.float32)).cuda(),
                                    lam=8.0, steps=60, private=private,
                                    em_scale=em_scale_for(cfg, X.shape[0]))
-    assert not any(launch_counts().values()) and two_level_draw.rebuilds == 0
+    counts = launch_counts()     # the oracle's only kernel is the in-order scatter
+    assert counts["scatter_add_ordered"] > 0 and two_level_draw.rebuilds == 0
+    assert sum(counts.values()) == counts["scatter_add_ordered"]
     ref = solve((pcsr, pcsc), y, cfg)
     assert torch.equal(coords, ref.coords)
     assert float((w - ref.w).abs().max()) <= 1e-4 and float((gaps - ref.gaps).abs().max()) <= 1e-4
@@ -1089,3 +1115,46 @@ def test_card_fit_service_answers_equal_own_solves(problem):
     assert svc.accountants["acme"].spent_steps == sum(
         FitService._charged_steps(PrivacyAccountant(epsilon=8.0, delta=1e-6, total_steps=400),
                                   r.config) for r in done[:4])
+
+
+# the sharded engine on the card (a 1×1 grid, no process group)
+
+
+@pytest.mark.parametrize("queue", ["argmax", "bsls"])
+def test_card_jax_shard_matches_cpu(problem, queue):
+    X, y, _ = problem
+    cfg = FWConfig(backend="jax_shard", lam=8.0, steps=60, queue=queue)
+    reset_launch_counts()
+    card = solve(X, y, cfg)
+    counts = launch_counts()
+    assert counts["scatter_add_ordered"] >= 3 * 60        # v̄, q̄ and α a step, and the setup
+    assert sum(counts.values()) == counts["scatter_add_ordered"]
+    cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
+    assert card.w.device.type == "cuda"
+    assert torch.equal(card.coords.cpu(), cpu.coords)
+    assert torch.equal(card.w.cpu(), cpu.w)
+    assert float((card.gaps.cpu() - cpu.gaps).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("selection", ["argmax", "gumbel"])
+def test_card_compress_topk_matches_cpu(problem, selection):
+    """The error-feedback top-k α exchange (``compress_topk``), which only
+    ``distributed_fw`` reaches, on the card (its default device) against
+    the same 1×1 run on the CPU."""
+    from repro_torch.distributed import DistFWConfig, build_block_sparse, distributed_fw
+    X, y, _ = problem
+    blocks = build_block_sparse(X, 1, 1)
+    y_pad = np.zeros(blocks.padded[0], np.float32)
+    y_pad[:len(y)] = y
+    cfg = DistFWConfig(lam=8.0, steps=60, selection=selection, compress_topk=8, seed=2)
+    reset_launch_counts()
+    w, gaps, coords, stop = distributed_fw(blocks, y_pad, cfg)
+    counts = launch_counts()
+    assert w.device.type == "cuda" and int(stop) == 60
+    # the setup, then v̄, q̄, the α delta and the gathered top-k a step
+    assert counts["scatter_add_ordered"] == 1 + 4 * 60
+    assert sum(counts.values()) == counts["scatter_add_ordered"]
+    cw, cgaps, ccoords, _ = distributed_fw(blocks, y_pad, cfg, device="cpu")
+    assert torch.equal(coords.cpu(), ccoords)
+    assert float((w.cpu() - cw).abs().max()) <= 1e-4
+    assert float((gaps.cpu() - cgaps).abs().max()) <= 1e-4

@@ -94,9 +94,16 @@ def test_solve_path_refusals(problem):
     _, host, y = problem
     with pytest.raises(ValueError, match="lambdas"):
         solve_path(host, y, config=FWConfig(steps=8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        solve_path(host, y, config=FWConfig(steps=8, device="cpu", lambdas=LAMBDAS,
-                                            mesh=(2, 2)))
+    # a mesh names the sharded engine's grid only: a dense path reads none,
+    # and the sharded engine solves no λ-paths (as in the JAX package)
+    meshed = solve_path(host, y, config=FWConfig(steps=8, device="cpu", lambdas=LAMBDAS,
+                                                 mesh=(2, 2)))
+    plain = solve_path(host, y, config=FWConfig(steps=8, device="cpu", lambdas=LAMBDAS))
+    assert all(torch.equal(a.coords, b.coords) and torch.equal(a.w, b.w)
+               for a, b in zip(meshed.results, plain.results))
+    with pytest.raises(ValueError, match="path"):
+        solve_path(host, y, config=FWConfig(backend="jax_shard", steps=8, device="cpu",
+                                            lambdas=LAMBDAS))
     with pytest.raises(ValueError, match="decreasing"):
         solve(host, y, FWConfig(steps=8, device="cpu", lambdas=(1.0, 2.0)))
 

@@ -75,8 +75,9 @@ def test_port_generator_equals_jax_generator():
 def test_solve_refuses_missing_card_and_unported_backends(sweep_problem):
     X, y = sweep_problem
     host = HostCSR(X.indptr, X.indices, X.data, X.shape)
-    with pytest.raises(NotImplementedError, match="A12"):
-        solve(host, y, FWConfig(backend="jax_shard", device="cpu", steps=5))
+    shard = solve(host, y, FWConfig(backend="jax_shard", device="cpu", steps=5))   # A12
+    assert torch.equal(shard.coords, solve(host, y, FWConfig(backend="host_sparse",
+                                                             device="cpu", steps=5)).coords)
     for bad, match in ((dict(screen_every=-1), "screen_every"),
                        (dict(screen_every=2, screen_eps_frac=1.0), "screen_eps_frac"),
                        (dict(screen_every=2, screen_eps_frac=-0.2), "screen_eps_frac"),

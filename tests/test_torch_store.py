@@ -454,11 +454,14 @@ def test_store_on_cuda_without_a_card_raises(problem, tmp_path):
 def test_unported_features_raise_naming_their_roadmap_item(problem, tmp_path):
     X, y = problem
     store = DatasetStore.from_arrays(str(tmp_path / "s"), port_csr(X), y)
-    with pytest.raises(NotImplementedError, match="A12"):
-        store.blocks_load(2, 2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        store.blocks_save(2, 2, None)
-    with pytest.raises(NotImplementedError, match="A12"):   # the search is ported (A10)
-        autotune(store, backend="jax_shard", device="cpu")
+    # the blocks cache and the sharded engine's search are ported (A12)
+    from repro_torch.distributed import build_block_sparse
+    assert store.blocks_load(2, 2) is None
+    blocks = build_block_sparse(port_csr(X), 2, 2)
+    store.blocks_save(2, 2, blocks)
+    back = store.blocks_load(2, 2)
+    assert all(torch.equal(getattr(back, p), getattr(blocks, p))
+               for p in ("csc_rows", "csc_vals", "csr_cols", "csr_vals"))
+    assert autotune(store, backend="jax_shard", device="cpu", steps=4).backend == "jax_shard"
     with pytest.raises(NotImplementedError, match="A13"):
         ShardedLoader(iter([]))
