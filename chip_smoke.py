@@ -63,6 +63,16 @@ Then it drives the LM at the full published width of ``tinyllama-1.1b``
 * ``examples/dp_lasso_probe.py``'s pipeline: backbone features, a random-ReLU
   expansion and a private ``torch_sparse`` solve on them.
 
+Last (``lm_archs``), alone on the card, the five other decoder archs at their
+published widths, one after another: ``minicpm-2b``, ``nemotron-4-15b`` and
+``chameleon-34b`` at full depth, ``deepseek-v2-236b`` (MLA, MoE) and
+``kimi-k2-1t-a32b`` (MoE) cut in depth to fit the card (each line lists its
+cuts under ``reduced``): a float32 two-layer forward through the kernel held
+against the plain forward (logits, top-1, every token's experts) and decode
+≡ forward; a bf16 forward timed and profiled (flash, the expert products,
+dispatch and combine); the serving engine; and flash at MLA's (192, 128) and
+kimi-k2's 112 head dims against SDPA.
+
 Phases print one JSON line each and raise on any failure (non-zero exit).
 The last three lines are the card's name and power limit as ``nvidia-smi``
 reports them, the ``{"kernels": [...]}`` record and
@@ -125,7 +135,7 @@ from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # no
                                                   same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import pad_head_dims  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import pad_head_dims, padded_head_dim  # noqa: E402
 from repro_torch.kernels.scatter import scatter_add_ordered  # noqa: E402
 from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref  # noqa: E402
 from repro_torch.core.solvers.jax_shard import shard_em_scale  # noqa: E402
@@ -191,6 +201,26 @@ LOGITS_ATOL = 1e-3
 # flash head dims outside the kernel's table: (hd, hdv) of minicpm-2b's and
 # nemotron-4-15b's smoke widths, kimi-k2's, and MLA's q·k against v
 FLASH_PAD_DIMS = ((18, 18), (24, 24), (112, 112), (192, 128))
+# the lm_archs phase: the five other decoder archs at their published widths, in this
+# order, after every other phase; each arch's bf16 timing run: prefill B x S and the
+# depth (None: every layer; deepseek-v2-236b: its dense layer and 4 of its 59 MoE
+# layers, 34.5 GB; kimi-k2-1t-a32b: its dense layer and 1 of its 60 MoE layers, 39.9 GB)
+LM_ARCHS = {"minicpm-2b": (4, 2048, None), "nemotron-4-15b": (4, 2048, None),
+            "chameleon-34b": (4, 2048, None), "deepseek-v2-236b": (1, 2048, 5),
+            "kimi-k2-1t-a32b": (1, 1024, 2)}
+# float32 parity: two layers (an MoE arch's dense one and one MoE layer) on B x S
+# tokens, decode == forward over the first ARCH_DECODE of them; kimi-k2's MoE layer is
+# 67.8 GB in float32, so its float32 run keeps 64 of its 384 experts (top-8 kept)
+ARCH_F32_B, ARCH_F32_S, ARCH_F32_LAYERS, ARCH_DECODE = 2, 512, 2, 32
+ARCH_F32_OVERRIDES = {"kimi-k2-1t-a32b": {"n_experts": 64}}
+# the float32 kernel and plain forwards may send a token to other experts only where its
+# k-th and (k+1)-th router probabilities tie within this relative margin (set before the
+# first run, as TIE_REL: ~100x the router logits' difference that the kernel's float32
+# attention error, <= 4.03e-7 at these head dims, could make)
+ROUTE_TIE_REL = 1e-4
+# serving each arch: slots, max_len, prefill bucket, requests, prompt lengths, new tokens
+ARCH_SLOTS, ARCH_MAX_LEN, ARCH_BUCKET, ARCH_REQUESTS, ARCH_PROMPT, ARCH_NEW = \
+    4, 512, 32, 4, (16, 32), 16
 # the sharded engine on a 2x2 grid over gloo: the rcv1.binary generator cut to fit
 # four processes on one card and a CPU replay of the same grid in the time limit
 SHARD2_N, SHARD2_D, SHARD2_T = 4096, 8192, 200
@@ -628,6 +658,21 @@ def _device_ms_of(prof: dict, name: str) -> tuple:
             sum(c for k, c in prof["calls"].items() if name in k))
 
 
+def profile_replay(run: str, steps: int, window, kernel: str) -> tuple:
+    """(device ms, profiled launches, retakes) of ``kernel`` over ``window()``,
+    which launches it ``steps`` times.  The profile must hold at least 99% of
+    the launches.  The profiler now and then drops more records of a window
+    (seen: 194 of 200 lane draws, in one run of several), so a profile that
+    holds fewer is taken again, at most twice; the bound holds on the one
+    kept, and the retakes are reported."""
+    for retakes in range(3):
+        ms, calls = _device_ms_of(profile_steps(run, steps, window, quiet=True), kernel)
+        if 0.99 * steps <= calls <= steps:
+            return ms, calls, retakes
+        emit("profile_retake", run=run, profiled_launches=calls, launches=steps)
+    raise RuntimeError(f"chip_smoke: {run}: {calls} profiled launches of {steps}, three times")
+
+
 def window_calls(prof: dict, steps: int, counts: dict, wrappers: tuple, run: str) -> dict:
     """Profiled launches of each of ``PRIVATE_STEP_KERNELS`` in a window of
     ``steps`` steps. The wrappers' counters over the same window (``counts``)
@@ -695,16 +740,21 @@ def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
                         and e.self_device_time_total > 0 and WARMUP_KERNEL not in e.key),
                        key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
+    # the device ms of the kernels each host-side op launched itself (aten::bmm: the
+    # expert products)
+    by_op = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.self_device_time_total > 0}
+    out = {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
+           "calls": {k: c for k, _, c in by_kernel}, "by_op": by_op}
     if quiet:
-        return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
-                "calls": {k: c for k, _, c in by_kernel}}
+        return out
     emit("profile", run=run, steps=steps, wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms if by_kernel else None,
          device_idle_share=(1.0 - busy_ms / wall_ms) if by_kernel else None,
          top_device=[{"name": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:8]],
          note=None if by_kernel else "the profiler recorded no device time")
-    return {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
-            "calls": {k: c for k, _, c in by_kernel}}
+    return out
 
 
 def _alg1_config(selection: str, steps: int) -> FWConfig:
@@ -1339,12 +1389,10 @@ def draw_rebuild_check(pcsr, pcsc, y_t, coords) -> dict:
         for (idx, vals), k in zip(sets, keys):
             tl_scatter_(state, idx, vals)
             fn(k)
-    prof = profile_steps("draw_replay", DRAW_STEPS, lambda: replay(
-        lambda k: two_level_draw(state.c, state.v, k, touched=state.touched)), quiet=True)
     # the profiler may drop an event of a window: ms per recorded launch
-    ms, calls = _device_ms_of(prof, "two_level_draw_kernel<true>")
-    require(0.99 * DRAW_STEPS <= calls <= DRAW_STEPS,
-            f"rebuilding draw replay: {calls} profiled launches")
+    ms, calls, _ = profile_replay("rebuilding draw replay", DRAW_STEPS, lambda: replay(
+        lambda k: two_level_draw(state.c, state.v, k, touched=state.touched)),
+        "two_level_draw_kernel<true>")
     t0 = time.perf_counter()
     replay(lambda k: two_level_draw_ref(state.c, state.v, k, touched=state.touched))
     torch.cuda.synchronize()
@@ -1774,15 +1822,14 @@ def lane_kernel_times(X, csc, y_t, pcsr, pcsc, runs, sweep, buckets) -> list:
                 for b, (idx, vals) in enumerate(per):
                     tl_scatter_(st.lane(b), idx, vals)
                 two_level_draw_lanes(st.c, st.v, table[i], out, done=done, touched=st.touched)
-        prof = profile_steps(f"draw_lanes_{lanes}", LANE_STEPS, replay, quiet=True)
-        ms, calls = _device_ms_of(prof, "two_level_draw_kernel<true>")
-        require(0.99 * LANE_STEPS <= calls <= LANE_STEPS,
-                f"two_level_draw_lanes replay: {calls} profiled launches")
+        ms, calls, retakes = profile_replay(f"two_level_draw_lanes replay ({lanes} lanes)",
+                                            LANE_STEPS, replay, "two_level_draw_kernel<true>")
         g, m = st.v.shape[1:]
         tg = touched_groups / LANE_STEPS / lanes
         bd, by = bound(lanes * (4.0 * (2 * g + m + 1) + tg * (4.0 * m + 8.0)),
                        lanes * (125.0 * (g + m) + 230.0 + tg * 4.0 * m))
-        dr[lanes] = dict(ms=ms / calls, bound_ms=bd, bound_by=by, mean_touched_groups=tg)
+        dr[lanes] = dict(ms=ms / calls, bound_ms=bd, bound_by=by, mean_touched_groups=tg,
+                         profiled_launches=calls, profile_retakes=retakes)
         if lanes == lanes_max:
             dr[lanes].update(plain_ms=plain_ms, max_abs_c_err=worst)
     emit("lane_kernels", lanes=list(LANE_WIDTHS), coord_update_lanes=cu,
@@ -2055,21 +2102,28 @@ def _leaves(tree):
     return [tree]
 
 
-def phase_lm_serve(api, params, api32, p32) -> None:
-    """The serving engine at full width (bf16), and decode == forward (f32)."""
-    engine = ServingEngine(api, params, ServeConfig(slots=4, max_len=2048, prefill_bucket=64))
+def _timed_engine(engine) -> dict:
+    """Wrap the engine's prefill and decode step to keep each call's host
+    seconds (each ends in a host read of the logits)."""
     times = {"prefill": [], "decode": []}
 
     def timed(fn, key):
         def run(*args):
             t0 = time.perf_counter()
-            out = fn(*args)          # each ends in a host read of the logits
+            out = fn(*args)
             times[key].append(time.perf_counter() - t0)
             return out
         return run
 
     engine._prefill_into_slot = timed(engine._prefill_into_slot, "prefill")
     engine._step = timed(engine._step, "decode")
+    return times
+
+
+def phase_lm_serve(api, params, api32, p32) -> None:
+    """The serving engine at full width (bf16), and decode == forward (f32)."""
+    engine = ServingEngine(api, params, ServeConfig(slots=4, max_len=2048, prefill_bucket=64))
+    times = _timed_engine(engine)
     rng = np.random.default_rng(7)
     for i in range(8):
         engine.submit(Request(uid=i, prompt=rng.integers(1, api.cfg.vocab, int(
@@ -3379,10 +3433,313 @@ def phase_shard_2x2_gloo() -> None:
          spawn_and_run_s={d: r[1] for d, r in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# the other decoder archs: dense at full depth, MLA and MoE cut in depth
+# ---------------------------------------------------------------------------
+
+
+class recorded_routes:
+    """Within the block, each MoE layer's router probabilities and expert ids
+    are kept, in call order (``moe_route`` wrapped)."""
+
+    def __enter__(self) -> list:
+        self.calls, self.route = [], model_common.moe_route
+
+        def record(p, x, cfg):
+            out = self.route(p, x, cfg)
+            self.calls.append((out[0], out[2]))
+            return out
+
+        model_common.moe_route = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        model_common.moe_route = self.route
+
+
+def _router_margins(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's relative gap between its k-th and (k+1)-th probability."""
+    top = probs.topk(k + 1, dim=-1).values
+    return (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+
+
+def route_split(got: list, want: list, k: int) -> dict:
+    """Tokens whose expert sets differ between two runs of the same MoE
+    layers, and the plain run's router margins at them."""
+    require(len(got) == len(want), f"MoE calls {len(got)} against {len(want)}")
+    split, margins = 0, []
+    for (_, ids_a), (probs, ids_b) in zip(got, want):
+        rows = (ids_a.sort(-1).values != ids_b.sort(-1).values).any(-1)
+        split += int(rows.sum())
+        margins += _router_margins(probs[rows], k).tolist()
+    return dict(moe_calls=len(want), tokens=sum(int(p.shape[0]) for p, _ in want),
+                tokens_split=split, split_margins=margins[:16],
+                split_margin_max=max(margins) if margins else None,
+                least_router_margin=min(float(_router_margins(p, k).min()) for p, _ in want),
+                tie_rel=ROUTE_TIE_REL)
+
+
+def _arch_cuts(arch: str, layers) -> dict:
+    """The arch's cuts in its bf16 runs: {what: [published, run]}."""
+    return {} if layers is None else {"n_layers": [get_model(arch).cfg.n_layers, layers]}
+
+
+def _kernel_head_dim(cfg) -> int:
+    return padded_head_dim(cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd)
+
+
+def _arch_parity(arch: str) -> None:
+    """Float32, two layers: the kernel forward against the plain forward
+    (logits, top-1, every token's experts), then decode == forward."""
+    full = get_model(arch).cfg
+    over = {"dtype": "float32", "n_layers": ARCH_F32_LAYERS, **ARCH_F32_OVERRIDES.get(arch, {})}
+    reduced = {k: [getattr(full, k), v] for k, v in over.items() if k != "dtype"}
+    api = get_model(arch, overrides=over)
+    cfg = api.cfg
+    p = api.init(LM_SEED)
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, ARCH_F32_B, ARCH_F32_S, seed=1))[
+        "tokens"]).long().to(DEVICE)
+    reset_launch_counts()
+    with recorded_routes() as got_routes:
+        got = api.forward(p, tokens, last_only=True)
+    launches, routes = launch_counts()["flash_attention"], dict(flash_attention.routes)
+    require(launches == cfg.n_layers and routes == {"bf16_tensor_cores": 0,
+                                                    "f32_cuda_cores": cfg.n_layers},
+            f"{arch} f32 forward: {launches} flash launches, routes {routes}")
+    reset_launch_counts()
+    with plain_attention(), recorded_routes() as want_routes:
+        want = api.forward(p, tokens, last_only=True)
+    require(launch_counts()["flash_attention"] == 0, f"{arch}: the plain forward launched flash")
+    require(got.shape == (ARCH_F32_B, 1, cfg.padded_vocab) and bool(torch.isfinite(got).all()),
+            f"{arch} f32 logits {tuple(got.shape)} not finite or misshapen")
+    routing = route_split(got_routes, want_routes, cfg.top_k) if cfg.n_experts else None
+    require(routing is None or not routing["tokens_split"]
+            or routing["split_margin_max"] < ROUTE_TIE_REL,
+            f"{arch}: kernel and plain forwards route {routing and routing['tokens_split']} "
+            f"tokens apart, router margins {routing and routing['split_margins']} (admitted "
+            f"below {ROUTE_TIE_REL})")
+    d = float((got - want).abs().max())
+    top_equal = bool((got.argmax(-1) == want.argmax(-1)).all())
+    require(d <= LOGITS_ATOL and top_equal, f"{arch} f32 forward: kernel vs plain logits max "
+            f"|d| {d} (bound {LOGITS_ATOL}), top-1 equal {top_equal}")
+    toks = tokens[:, :ARCH_DECODE]
+    last = api.forward(p, toks, last_only=True)
+    cache = api.init_cache(ARCH_F32_B, ARCH_DECODE)
+    for t in range(ARCH_DECODE):
+        logits, cache = api.decode_step(p, cache, toks[:, t:t + 1], t)
+    dd = float((logits - last).abs().max())
+    require(dd <= LOGITS_ATOL, f"{arch} decode vs forward (f32) max |d| {dd} over {LOGITS_ATOL}")
+    emit("lm_archs", arch=arch, run="parity_float32", batch=ARCH_F32_B, seq=ARCH_F32_S,
+         layers=cfg.n_layers, reduced=reduced, cache=sorted(cache), flash_launches=launches,
+         routes=routes, kernel_head_dim=_kernel_head_dim(cfg), max_abs_logit_err=d,
+         bound=LOGITS_ATOL, top1_equal=True, logit_std=float(want.std()), routing=routing,
+         decode_tokens=ARCH_DECODE, decode_vs_forward_max_abs=dd)
+
+
+def _moe_layer_profile(api, params, tokens: int) -> dict:
+    """One MoE layer at the forward's token count and full capacity, alone
+    under the profiler: its device ms by part (the expert products are
+    ``aten::bmm``, the router and the shared expert ``aten::mm``)."""
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    h = torch.randn(tokens, api.cfg.d_model, generator=gen, device=DEVICE).to(
+        api.cfg.torch_dtype)
+    moe = params["blocks"][0]["moe"]
+    prof = profile_steps("", 1, lambda: model_common.moe_apply(moe, h, api.cfg,
+                                                               capacity=tokens), quiet=True)
+    busy = sum(prof["by_kernel"].values())
+    experts, mm = prof["by_op"].get("aten::bmm", 0.0), prof["by_op"].get("aten::mm", 0.0)
+    return dict(layer_device_ms=busy, expert_bmm_ms=experts, router_and_shared_mm_ms=mm,
+                dispatch_combine_ms=busy - experts - mm,
+                dispatch_combine_share=(busy - experts - mm) / busy,
+                buffer_rows=api.cfg.n_experts * tokens, live_rows=tokens * api.cfg.top_k)
+
+
+def _arch_timing(arch: str, batch: int, seq: int, layers) -> tuple:
+    """bf16 ``forward(last_only)`` at B x S: timed, its launches read, one
+    forward profiled.  Returns (api, params, the forward's launches, fields)."""
+    over = {} if layers is None else {"n_layers": layers}
+    reduced = _arch_cuts(arch, layers)
+    api = get_model(arch, overrides=over)
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = api.init(LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, batch, seq, seed=1))["tokens"]).long(
+    ).to(DEVICE)
+    fwd = lambda: api.forward(params, tokens, last_only=True)
+    out = fwd()                                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first_ms = sync_ms(fwd)
+    counts, routes = launch_counts(), dict(flash_attention.routes)
+    want_counts = {name: 0 for name in counts}
+    want_counts["flash_attention"] = cfg.n_layers
+    require(counts == want_counts, f"{arch} bf16 forward launches {counts}")
+    require(routes == {"bf16_tensor_cores": cfg.n_layers, "f32_cuda_cores": 0},
+            f"{arch} bf16 forward routes {routes}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = sync_ms(fwd, reps=3)
+    require(out.shape == (batch, 1, cfg.padded_vocab) and bool(torch.isfinite(out.float()).all()),
+            f"{arch} bf16 logits not finite or misshapen")
+    reset_launch_counts()
+    prof = profile_steps(f"lm_archs_{arch}_bf16", 1, fwd)
+    require(launch_counts()["flash_attention"] == cfg.n_layers,
+            f"{arch} profiled forward: {launch_counts()['flash_attention']} flash launches")
+    flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
+    flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
+    require(sum(flash.values()) > 0 and all("mma" in k for k in flash)
+            and cfg.n_layers - 1 <= flash_calls <= cfg.n_layers,
+            f"{arch} profiled flash kernels {list(flash)}, {flash_calls} calls")
+    busy = sum(prof["by_kernel"].values())
+    fields = dict(forward_ms=ms, first_forward_ms=first_ms, tokens_per_s=batch * seq / ms * 1e3,
+                  max_memory_allocated=peak, init_s=init_s, launches=counts, routes=routes,
+                  kernel_head_dim=_kernel_head_dim(cfg), device_busy_ms=busy,
+                  flash_device_ms=sum(flash.values()), flash_profiled_calls=flash_calls,
+                  flash_share_of_busy=sum(flash.values()) / busy,
+                  # the expert products, and the last position's logits (a sliced x @ head)
+                  bmm_device_ms=prof["by_op"].get("aten::bmm", 0.0))
+    if cfg.n_experts:
+        fields["moe_layer"] = _moe_layer_profile(api, params, batch * seq)
+    emit("lm_archs", arch=arch, run="timing_bfloat16", batch=batch, seq=seq,
+         layers=cfg.n_layers, reduced=reduced, **fields)
+    return api, params, counts, fields
+
+
+def _arch_serve(arch: str, api, params, cuts: dict) -> None:
+    """The serving engine: ARCH_REQUESTS requests on ARCH_SLOTS slots."""
+    engine = ServingEngine(api, params, ServeConfig(slots=ARCH_SLOTS, max_len=ARCH_MAX_LEN,
+                                                    prefill_bucket=ARCH_BUCKET))
+    times = _timed_engine(engine)
+    rng = np.random.default_rng(7)
+    for i in range(ARCH_REQUESTS):
+        engine.submit(Request(uid=i, prompt=rng.integers(1, api.cfg.vocab, int(
+            rng.integers(ARCH_PROMPT[0], ARCH_PROMPT[1] + 1))).astype(np.int32),
+            max_new_tokens=ARCH_NEW))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    finished = engine.run()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require(len(finished) == ARCH_REQUESTS and all(len(r.generated) == ARCH_NEW
+                                                   for r in finished),
+            f"{arch} serving: not every request got its {ARCH_NEW} tokens")
+    require(all(0 <= t < api.cfg.padded_vocab for r in finished for t in r.generated),
+            f"{arch} serving: a token out of the vocabulary")
+    toks = torch.ones(ARCH_SLOTS, 1, dtype=torch.int64, device=DEVICE)
+    pos = torch.full((ARCH_SLOTS,), 100, dtype=torch.int64, device=DEVICE)
+    prof = profile_steps("", 2, lambda: [api.decode_step(params, engine.cache, toks, pos)
+                                         for _ in range(2)], quiet=True)
+    gen = sum(len(r.generated) for r in finished)
+    emit("lm_archs", arch=arch, run="serve_bfloat16", layers=api.cfg.n_layers,
+         reduced=cuts, slots=ARCH_SLOTS,
+         max_len=ARCH_MAX_LEN,
+         prefill_bucket=ARCH_BUCKET, requests=ARCH_REQUESTS, new_tokens=ARCH_NEW,
+         cache={g: sorted(b) for g, b in engine.cache.items()}, wall_s=wall,
+         generated_tokens=gen, tokens_per_s=gen / wall, decode_steps=engine.steps,
+         decode_step_ms=float(np.mean(times["decode"])) * 1e3, prefills=engine.prefills,
+         prefill_ms=float(np.mean(times["prefill"])) * 1e3, launches=counts,
+         device_kernels_per_decode_step=sum(prof["calls"].values()) / 2,
+         device_busy_ms_per_decode_step=sum(prof["by_kernel"].values()) / 2,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         vocab_rule="0 <= token < padded_vocab (random weights score the padding too)")
+
+
+def phase_lm_archs() -> dict:
+    """Each arch in turn, alone on the card: float32 parity, bf16 forward
+    timing, serving; each model freed before the next.  Returns each arch's
+    bf16 forward shape and launches."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (batch, seq, layers) in LM_ARCHS.items():
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        _arch_parity(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        api, params, counts, fields = _arch_timing(arch, batch, seq, layers)
+        _arch_serve(arch, api, params, _arch_cuts(arch, layers))
+        out[arch] = dict(batch=batch, seq=seq, counts=counts, fields=fields)
+        del api, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("lm_archs_done", arch=arch, seconds=time.perf_counter() - t0)
+    emit("lm_archs_phase", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def sdpa_backends(sdpa) -> dict:
+    """Device ms of each SDPA backend that takes these inputs, forced one at a
+    time: the default call runs one of them, and its ``library_ms`` names it
+    (the profiler recorded no kernel of these SDPA calls, twice)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ms = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                sdpa()
+                ms[backend.name] = device_ms([sdpa] * 5)
+        except RuntimeError:          # the backend does not take these inputs
+            pass
+    return ms
+
+
+def arch_flash_rows(archs: dict) -> list:
+    """Flash (bf16, tensor cores) at MLA's (192, 128) head dims (H = KV =
+    128) and kimi-k2's 112 (H = 64, KV = 8), at each arch's bf16 forward
+    shape, on seeded inputs: against the plain version within the bounds,
+    timed against the bound of the unpadded work and against SDPA (and each
+    SDPA backend that takes the inputs); ``launches``: the arch's flash
+    launches per bf16 forward."""
+    rows = []
+    for arch, name in (("deepseek-v2-236b", "flash_attention_mla"),
+                       ("kimi-k2-1t-a32b", "flash_attention_hd112")):
+        cfg, run = get_model(arch).cfg, archs[arch]
+        b, s, h, kv = run["batch"], run["seq"], cfg.n_heads, cfg.n_kv_heads
+        hd, hdv = cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd
+        gen = torch.Generator(DEVICE).manual_seed(hd + hdv + h)
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hdv)))
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v).float()
+        diff = (got.float() - want).abs()
+        tol = FLASH_TOL[torch.bfloat16]
+        ulps = float(bf16_ulps(diff, want).max())
+        require(bool((diff <= tol + tol * want.abs()).all()) and ulps <= FLASH_BF16_ULPS
+                and bool(torch.isfinite(got).all()),
+                f"{name}: max |d| {float(diff.max())}, {ulps} bf16 ulps of scale")
+        ms = device_ms([lambda: flash_attention(q, k, v)] * 10)
+        plain = device_ms([lambda: flash_attention_plain(q, k, v)] * 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=h != kv)
+        lib_out = sdpa().transpose(1, 2)
+        require(bool(((lib_out.float() - got.float()).abs() <= tol).all()),
+                f"scaled_dot_product_attention disagrees with {name}")
+        lib = device_ms([sdpa] * 10)
+        ops = attention_ops(b, s, s, h, (hd + hdv) / 2, True, 0)
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * s * h * hdv)
+        bd, by = bound(nbytes, ops, BF16_OPS_PER_S)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/kernels/flash_attention/csrc/"
+                         "flash_attention_mma.cu",
+                         replaces="src/repro/kernels/flash_attention/kernel.py:106",
+                         launches=run["counts"]["flash_attention"],
+                         max_abs_err=float(diff.max()), ms=ms, plain_ms=plain, bound_ms=bd,
+                         bound_by=by, library_ms=lib, library_ms_by_backend=sdpa_backends(sdpa),
+                         shape=dict(arch=arch, b=b, s=s, h=h, kv=kv, hd=hd, hdv=hdv),
+                         kernel_head_dim=padded_head_dim(hd, hdv), max_bf16_ulps_of_scale=ulps,
+                         tflop_per_s=ops / ms / 1e9))
+        del q, k, v, qt, kt, vt, lib_out, got, want, diff
+    return rows
+
+
 def add_path_launches(kernels: list, paths: dict) -> None:
     """The launches of the later slices' paths beside each kernel's
     main-path count, a path's rebuild-only draws included: ``torch_dense``,
-    the oracle, the fit service's run and ``jax_shard`` at 1×1."""
+    the oracle, the fit service's run, ``jax_shard`` at 1×1 and each
+    ``lm_archs`` arch's bf16 forward."""
     for entry in kernels:
         name = entry["name"]
         entry["launches_by_path"] = {
@@ -3468,13 +3825,17 @@ def main() -> int:
     phase_flash_head_dims()
     phase_shard_2x2_gloo()
     del X
+    # the other decoder archs, last and alone on the card
+    archs = phase_lm_archs()
     kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
     kernels.append(shard["row"])
+    kernels.extend(arch_flash_rows(archs))
     add_path_launches(kernels, {
         **{f"torch_dense_{r}": engines[r] for r in engines},
         **{f"reference_{r}": reference[r] for r in reference},
         "fit_service": service,
-        **{f"jax_shard_{r}": dict(counts=c, rebuilds={}) for r, c in shard["counts"].items()}})
+        **{f"jax_shard_{r}": dict(counts=c, rebuilds={}) for r, c in shard["counts"].items()},
+        **{f"lm_{arch}": dict(counts=run["counts"], rebuilds={}) for arch, run in archs.items()}})
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Published model configs the port serves (copies of ``repro.configs``).
 
-``ARCH_IDS`` lists every arch of the JAX package; the port has the dense
-family (``tinyllama-1.1b``, ``llama3.2-1b``).  ``get_config`` and
-``smoke_config`` raise ``NotImplementedError`` for the others, naming the
-ROADMAP item that ports them.
+``ARCH_IDS`` lists every arch of the JAX package; the port has the decoder
+family: the dense configs and the MoE ones (MLA, routed experts, leading
+dense layers).  ``get_config`` and ``smoke_config`` raise
+``NotImplementedError`` for the others, naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
     "recurrentgemma-2b",
 ]
-PORTED = ("tinyllama-1.1b", "llama3.2-1b")
+PORTED = ("tinyllama-1.1b", "llama3.2-1b", "minicpm-2b", "nemotron-4-15b", "chameleon-34b",
+          "deepseek-v2-236b", "kimi-k2-1t-a32b")
 
 
 def _modname(arch_id: str) -> str:
@@ -33,8 +35,8 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md A13: MLA/MoE, mamba, "
-            f"rglru and encdec families); the port has {list(PORTED)}")
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md A13c: the mamba, rglru "
+            f"and encdec families); the port has {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
 
 

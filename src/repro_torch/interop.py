@@ -21,6 +21,7 @@ from repro_torch.core.samplers.group_argmax import GroupArgmaxState
 from repro_torch.core.samplers.two_level import TwoLevelSamplerState
 from repro_torch.core.solvers.torch_sparse import FWCarry
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
+from repro_torch.models.transformer import _split_groups
 
 Fields = Mapping[str, object]
 
@@ -119,23 +120,27 @@ def lm_params(params_np: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any
     """The port's LM parameters from the JAX package's ``lm_init`` pytree.
 
     ``params_np``: the pytree with numpy leaves (``jax.tree.map(np.asarray,
-    params)``).  The scanned ``blocks`` leaves, stacked along axis 0, are
-    unstacked into one dict per layer; weights keep their ``(d_in, d_out)``
-    orientation, which is the port's too.  Dtypes are kept.
+    params)``).  The scanned groups ``lead_blocks`` (MoE configs' leading
+    dense layers) and ``blocks``, stacked along axis 0, are unstacked into
+    one dict per layer, so an MoE layer's ``(L, E, d, f)`` expert stacks
+    become ``(E, d, f)``; weights keep their ``(d_in, d_out)`` orientation,
+    which is the port's too.  Dtypes are kept (the router stays float32).
     """
-    if "lead_blocks" in params_np:
-        raise NotImplementedError("leading dense blocks (MoE configs) are not ported yet "
-                                  "(ROADMAP.md A13)")
+    lead, main = _split_groups(cfg)
+    groups = {"lead_blocks": lead, "blocks": main}
 
     def convert(tree, layer=None):
         if isinstance(tree, Mapping):
             return {k: convert(v, layer) for k, v in tree.items()}
         return _weight(tree if layer is None else np.asarray(tree)[layer], device)
 
-    stacked = {np.shape(a)[0] for a in _leaves(params_np["blocks"])}
-    if stacked != {cfg.n_layers}:
-        raise ValueError(f"lm_params: blocks stack {sorted(stacked)} layers, the config "
-                         f"has {cfg.n_layers}")
-    out = {k: convert(v) for k, v in params_np.items() if k != "blocks"}
-    out["blocks"] = [convert(params_np["blocks"], i) for i in range(cfg.n_layers)]
+    out = {k: convert(v) for k, v in params_np.items() if k not in groups}
+    for name, n in groups.items():
+        if name not in params_np and not n:
+            continue
+        stacked = {np.shape(a)[0] for a in _leaves(params_np.get(name, {}))}
+        if stacked != {n}:
+            raise ValueError(f"lm_params: {name} stack {sorted(stacked)} layers, the config "
+                             f"has {n}")
+        out[name] = [convert(params_np[name], i) for i in range(n)]
     return out

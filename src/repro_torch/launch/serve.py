@@ -1,4 +1,4 @@
-"""Serving launcher: the continuous-batching engine over a dense LM with
+"""Serving launcher: the continuous-batching engine over a decoder LM (dense or MoE) with
 random weights from ``--seed`` (port of ``repro.launch.serve``).
 
 On the card (the default):

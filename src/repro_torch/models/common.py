@@ -1,4 +1,4 @@
-"""Building blocks of the dense LM (port of ``repro.models.common``).
+"""Building blocks of the decoder LM (port of ``repro.models.common``).
 
 Parameters are plain dicts of tensors keyed as the JAX package's pytrees,
 weights in ``(d_in, d_out)`` orientation, so ``x @ w`` reads as in JAX.
@@ -8,9 +8,10 @@ token-parallel forward goes through the flash-attention kernel op, which
 launches the hand-written kernel on CUDA tensors and runs the plain
 blockwise version (``models/flash.py``) on CPU tensors.
 
-Only what the dense family (llama-style GQA + SwiGLU) needs is here; the
-chunked CE loss, MoE, ``blocked_attention`` and the sharding constraint
-come with later slices (ROADMAP A13).
+Here: GQA attention, the dense FFNs and the sort-based top-k MoE.  The
+chunked CE loss and ``blocked_attention`` come with training (ROADMAP
+A13d); the JAX package's sharding constraint is the identity on one device
+and has no counterpart.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ NEG = -1e30
 def _trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -164,3 +165,113 @@ def ffn_apply(p, x, cfg: ModelConfig):
     if cfg.act == "geglu":
         return (F.gelu(x @ p["w1"], approximate="tanh") * (x @ p["w3"])) @ p["w2"]
     return activation(cfg.act)(x @ p["w1"]) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts — sort-based dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    p = {
+        "router": dense_init(gen, d, e, torch.float32, scale=0.02),
+        "w1": _stack_init(gen, e, d, f, dtype),
+        "w2": _stack_init(gen, e, f, d, dtype),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        p["w3"] = _stack_init(gen, e, d, f, dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(gen, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts, dtype=dtype)
+    return p
+
+
+def _stack_init(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype) -> torch.Tensor:
+    """(e, d_in, d_out) expert weights, drawn an expert at a time so the
+    float32 temporary is one expert's (kimi-k2's stack is 11 GB in bf16)."""
+    out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    for i in range(e):
+        out[i] = _trunc_normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
+    return out
+
+
+def moe_apply(p, x, cfg: ModelConfig, capacity: int):
+    """Top-k MoE with sort-based capacity dispatch.
+
+    x: (T, d) flattened tokens; ``capacity``: slots per expert.  Returns
+    (T, d) and the aux dict ``{"moe_aux", "dropped"}``.  The forward and
+    decode pass ``capacity = T``: an expert takes at most one lane a token,
+    so nothing is dropped.  The JAX package's capacity factor, its
+    ``moe_local_groups`` split and its ``"scatter"`` combine bound or shard
+    training's buffer; they come with ``lm_loss`` (ROADMAP.md A13d).
+
+    The JAX package's order, step for step: softmax, a sorted top-k, the
+    gates normalised; a stable sort of the flat expert ids; each kept lane
+    at ``expert · cap + its rank`` in the expert's queue, a lane past the
+    capacity at the overflow slot ``E · cap`` (dropped).  The combine adds
+    each token's k terms in ``x.dtype`` in the sorted order, by increasing
+    expert id, as XLA's ``.at[token].add`` does on the CPU: here a gather
+    and k adds, so the card adds in that order too (no atomics).
+    """
+    t, d = x.shape
+    e, k, cap = cfg.n_experts, cfg.top_k, capacity
+    dev = x.device
+    probs, gates, idx = moe_route(p, x, cfg)
+
+    flat_e = idx.reshape(-1)                                        # (T·k,)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    token_of = sort_idx // k
+    counts = torch.bincount(sorted_e, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos_in_e < cap
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)    # overflow slot
+
+    # each kept lane has a slot of its own; the overflow slot is cut off
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf[dest] = x[token_of]
+    buf = buf[:-1].reshape(e, cap, d)
+
+    h = torch.bmm(buf, p["w1"])
+    if cfg.act == "swiglu":
+        h = F.silu(h) * torch.bmm(buf, p["w3"])
+    elif cfg.act == "geglu":
+        h = F.gelu(h, approximate="tanh") * torch.bmm(buf, p["w3"])
+    else:
+        h = activation(cfg.act)(h)
+    out_e = torch.bmm(h, p["w2"]).reshape(e * cap, d)
+
+    gates_sorted = gates.reshape(-1)[sort_idx]
+    gath = torch.where(keep[:, None], out_e[dest.clamp_max(e * cap - 1)], 0)
+    y = combine_in_order(gath * gates_sorted[:, None].to(x.dtype), sort_idx, t, k)
+
+    if cfg.n_shared_experts:
+        y = y + ffn_apply(p["shared"], x, cfg)
+
+    # load-balance aux loss (Switch): E · Σ_e f_e · p_e
+    frac = torch.bincount(flat_e, minlength=e) / (t * k)
+    aux = e * (frac * probs.mean(0)).sum()
+    return y, {"moe_aux": aux, "dropped": 1.0 - keep.float().mean()}
+
+
+def moe_route(p, x, cfg: ModelConfig):
+    """(router probs (T, E) float32, normalised gates (T, k), expert ids
+    (T, k) by falling prob): softmax, then a sorted top-k."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def combine_in_order(contrib, sort_idx, t: int, k: int):
+    """y[token] = Σ of the token's rows of ``contrib`` (T·k rows in the
+    sorted order ``sort_idx`` gave), added one at a time in that order into
+    a zero row of ``contrib.dtype``: each token's lanes are found through
+    the inverse of the sort, and a token's lanes are sorted by expert id."""
+    inv = torch.empty_like(sort_idx)
+    inv[sort_idx] = torch.arange(t * k, device=sort_idx.device)
+    lanes = inv.reshape(t, k).sort(dim=1).values                    # (T, k), in sorted order
+    y = contrib.new_zeros(t, contrib.shape[1])
+    for j in range(k):
+        y = y + contrib[lanes[:, j]]
+    return y

@@ -43,7 +43,7 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0
     first_dense_layers: int = 0  # leading layers with dense FFN (DeepSeek style)
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25  # training's (lm_loss, A13d); the port runs full capacity
     router_noise: float = 0.0
 
     # MLA (deepseek-v2)

@@ -6,7 +6,7 @@ max ``m``, normaliser ``l`` and float32 accumulator.  It is the plain
 version of the hand-written kernel ``kernels/flash_attention``: the model's
 attention on the CPU, and the card's yardstick in ``chip_smoke.py``.  The
 JAX package's custom VJP (the blockwise backward) is not ported yet; it
-comes with training (ROADMAP A13).
+comes with training (ROADMAP A13d).
 
 GQA layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd[v]) with H = KV·G.
 """

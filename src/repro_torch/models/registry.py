@@ -1,5 +1,6 @@
 """Architecture registry: resolve ``--arch <id>`` to the port's model functions
-(port of ``repro.models.registry``, dense family).
+(port of ``repro.models.registry``: the decoder families ``dense`` and
+``moe``).
 
 ``get_model(arch, device=...)`` returns a ``ModelAPI`` bound to one device
 (``cuda`` unless the caller asks for the CPU, which runs the plain version of
@@ -21,7 +22,7 @@ from repro_torch.models.config import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
-    """Uniform surface over the model families (the port has ``dense``)."""
+    """Uniform surface over the model families (the port has ``dense`` and ``moe``)."""
 
     cfg: ModelConfig
     device: torch.device
@@ -38,8 +39,8 @@ def get_model(arch_id: str, *, smoke: bool = False, overrides: Optional[dict] = 
     cfg = smoke_config(arch_id) if smoke else get_config(arch_id)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md A13)")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md A13c)")
     dev = check_device(device)
     return ModelAPI(
         cfg=cfg,

@@ -16,9 +16,11 @@ meets its bitwise rule against the CPU (``coord_update/ref.py``), on both
 of its routes.  Flash attention
 against the materialised oracle on the card: 2e-5 in float32 (the CUDA-core
 route) and 0.06 in bfloat16 (the tensor-core route; ``tests/test_kernels.py``'s
-bounds); the smoke LM's
-forward on the card against the CPU's within 1e-4, decode against forward
-within 5e-4 (``tests/test_models_smoke.py``'s bound), and the serving
+bounds); each ported arch's smoke LM (the dense ones, MLA and MoE) has its
+forward on the card against the CPU's within 1e-4, every MoE layer routing
+each token to the CPU's experts, decode against forward within 5e-4
+(``tests/test_models_smoke.py``'s bound); MLA and MoE batched decode steps
+with a position per row equal per-row decodes on the card; and the serving
 engine's greedy tokens equal to the CPU engine's.  A dataset store solved on
 the card equals the in-memory solve on the card bit for bit, cold and warm,
 and its setup cache is the card's own file.  The lane kernels (a sweep
@@ -69,6 +71,7 @@ from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches, coord
                                                   same_bits)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import common as model_common
 from repro_torch.models.flash import flash_attention as flash_attention_plain
 from repro_torch.models.registry import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
@@ -607,22 +610,62 @@ def _to(tree, device):
     return tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3.2-1b"])
-def test_card_forward_and_decode_match_cpu(cuda, arch):
+def _recorded_routes(monkeypatch) -> list:
+    """Each MoE layer's expert ids, per token as a sorted set, in call order."""
+    calls, route = [], model_common.moe_route
+
+    def record(p, x, cfg):
+        out = route(p, x, cfg)
+        calls.append(out[2].sort(dim=-1).values.cpu())
+        return out
+
+    monkeypatch.setattr(model_common, "moe_route", record)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3.2-1b", "minicpm-2b",
+                                  "nemotron-4-15b", "chameleon-34b", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b"])
+def test_card_forward_and_decode_match_cpu(cuda, arch, monkeypatch):
     cpu_api = get_model(arch, smoke=True, device="cpu")
     api = get_model(arch, smoke=True, device="cuda")
     params_cpu = cpu_api.init(0)
     params = _to(params_cpu, cuda)
     toks = torch.randint(1, 200, (2, 64), generator=torch.Generator().manual_seed(1))
+    routes = _recorded_routes(monkeypatch)
     reset_launch_counts()
     got = api.forward(params, toks.to(cuda))
     assert launch_counts()["flash_attention"] == api.cfg.n_layers
+    card_routes, routes[:] = list(routes), []
     want = cpu_api.forward(params_cpu, toks)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    moe_layers = api.cfg.n_layers - api.cfg.first_dense_layers if api.cfg.n_experts else 0
+    assert len(card_routes) == len(routes) == moe_layers
+    assert all(torch.equal(a, b) for a, b in zip(card_routes, routes))
     cache = api.init_cache(2, 80)
     for t in range(64):
         logits, cache = api.decode_step(params, cache, toks[:, t:t + 1].to(cuda), t)
     assert float((logits[:, 0] - got[:, -1]).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_card_moe_batched_decode_with_row_positions_equals_row_decodes(cuda, arch):
+    api = get_model(arch, smoke=True, device="cuda")
+    params = api.init(0)
+    toks = torch.randint(1, 200, (3, 12), generator=torch.Generator().manual_seed(4)).to(cuda)
+    starts = [0, 3, 7]
+    cache = api.init_cache(3, 16)
+    rows = []
+    for b, n in enumerate(starts):
+        row_cache = {g: {k: v[:, b:b + 1] for k, v in bufs.items()} for g, bufs in cache.items()}
+        for t in range(n):
+            api.decode_step(params, row_cache, toks[b:b + 1, t:t + 1], t)
+        single = {g: {k: v.clone() for k, v in bufs.items()} for g, bufs in row_cache.items()}
+        rows.append(api.decode_step(params, single, toks[b:b + 1, n:n + 1], n)[0])
+    pos = torch.tensor(starts, device=cuda)
+    got, _ = api.decode_step(params, cache, toks[torch.arange(3, device=cuda), pos][:, None],
+                             pos)
+    torch.testing.assert_close(got, torch.cat(rows), rtol=0, atol=1e-5)
 
 
 def test_card_engine_matches_cpu_engine(cuda):

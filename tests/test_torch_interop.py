@@ -5,9 +5,13 @@
   port's steps must be JAX's steps 11-20 of one 20-step run (coordinates
   exactly, gaps and the final w within atol 1e-4, the cross-engine
   contract).
+* LM weights: ``lm_params`` carries an MoE config's leading dense layers
+  and its expert stacks, each layer's ``(E, d, f)``, bit for bit in bf16,
+  with the router kept in float32.
 * Import purity: importing the port, the whole slice and ``chip_smoke``
   leaves ``jax`` and ``repro`` out of ``sys.modules``.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,6 +26,7 @@ import torch
 from repro.core.solvers import FWConfig as JaxConfig
 from repro.core.solvers.jax_sparse import (em_scale_for, fw_carry_init_jit,
                                            fw_scan_chunk_jit, fw_setup_jit)
+from repro.configs import smoke_config as j_smoke_config
 from repro.core.sparse import formats as jf
 from repro.data.synthetic import make_sparse_classification
 from repro_torch import interop
@@ -108,6 +113,32 @@ def test_interop_round_trips_setup_and_tiered(problem):
                                       np.asarray(getattr(tiered, name)))
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_lm_params_carries_lead_blocks_expert_stacks_and_router(arch):
+    from repro.models.transformer import lm_init
+    cfg = dataclasses.replace(j_smoke_config(arch), dtype="bfloat16", n_layers=3)
+    jp = lm_init(jax.random.PRNGKey(0), cfg)
+    tp = interop.lm_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    assert len(tp["lead_blocks"]) == 1 and len(tp["blocks"]) == 2
+    assert "ffn" in tp["lead_blocks"][0] and "moe" in tp["blocks"][0]
+    for layer in range(2):
+        moe, jmoe = tp["blocks"][layer]["moe"], jp["blocks"]["moe"]
+        for name in ("w1", "w2", "w3"):
+            assert moe[name].shape == jmoe[name].shape[1:]           # (E, d, f)
+            assert moe[name].dtype == torch.bfloat16
+            np.testing.assert_array_equal(moe[name].float().numpy(),
+                                          np.asarray(jmoe[name][layer], np.float32))
+        assert moe["router"].dtype == torch.float32
+        np.testing.assert_array_equal(moe["router"].numpy(), np.asarray(jmoe["router"][layer]))
+        np.testing.assert_array_equal(moe["shared"]["w2"].float().numpy(),
+                                      np.asarray(jmoe["shared"]["w2"][layer], np.float32))
+    np.testing.assert_array_equal(tp["lead_blocks"][0]["ffn"]["w1"].float().numpy(),
+                                  np.asarray(jp["lead_blocks"]["ffn"]["w1"][0], np.float32))
+    with pytest.raises(ValueError, match="lead_blocks"):
+        interop.lm_params(jax.tree.map(np.asarray, jp),
+                          dataclasses.replace(cfg, first_dense_layers=2), "cpu")
+
+
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     code = (
         "import sys, importlib\n"
@@ -119,6 +150,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "        'repro_torch.kernels', 'repro_torch.data.synthetic',\n"
         "        'repro_torch.configs', 'repro_torch.configs.tinyllama_1_1b',\n"
         "        'repro_torch.configs.llama3_2_1b', 'repro_torch.models.config',\n"
+        "        'repro_torch.configs.minicpm_2b', 'repro_torch.configs.nemotron_4_15b',\n"
+        "        'repro_torch.configs.chameleon_34b', 'repro_torch.configs.deepseek_v2_236b',\n"
+        "        'repro_torch.configs.kimi_k2_1t_a32b',\n"
         "        'repro_torch.models.flash', 'repro_torch.models.common',\n"
         "        'repro_torch.models.transformer', 'repro_torch.models.registry',\n"
         "        'repro_torch.kernels.flash_attention.ref', 'repro_torch.serve.engine',\n"
@@ -129,6 +163,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "import torch\n"
         "from repro_torch.models.registry import get_model\n"
         "api = get_model('tinyllama-1.1b', smoke=True, device='cpu')\n"
+        "api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
+        "api = get_model('deepseek-v2-236b', smoke=True, device='cpu')\n"
         "api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -1,16 +1,20 @@
-"""The port's dense LM against the JAX package's, on the CPU, at smoke size.
+"""The port's decoder LM against the JAX package's, on the CPU, at smoke size.
 
 Both packages run the same weights (the JAX ``lm_init`` pytree carried over
 by ``interop.lm_params``) and the same tokens, in float32:
 
 * the configs are field-for-field copies (``param_count`` included), and
   every arch the port does not have yet is refused;
-* ``rmsnorm``, ``rope``, ``ffn_apply`` and ``attn_apply`` within 1e-5;
+* ``rmsnorm``, ``rope``, ``ffn_apply``, ``attn_apply`` (or ``mla_apply``)
+  and ``moe_apply`` within 1e-5;
 * ``forward`` logits (and ``last_only``) within 1e-4, ``decode_step``
-  logits within 1e-4, for ``tinyllama-1.1b`` and ``llama3.2-1b`` (its tied
-  embeddings take ``_logits``' tied branch), and ``forward`` with the config
-  branches neither arch takes (qk-norm, embedding scale, logit softcap,
-  GeGLU, squared ReLU, a local window);
+  logits within 1e-4 and its caches within 1e-5, for every ported arch:
+  ``tinyllama-1.1b``, ``llama3.2-1b`` and ``minicpm-2b`` (tied embeddings),
+  ``nemotron-4-15b`` (squared ReLU), ``chameleon-34b`` (qk-norm),
+  ``deepseek-v2-236b`` (MLA, MoE, a leading dense layer) and
+  ``kimi-k2-1t-a32b`` (GQA with MoE, a leading dense layer); and
+  ``forward`` with the config branches no arch takes (embedding scale,
+  logit softcap, GeGLU, a local window);
 * the port's own decode ≡ forward within 5e-4 (``tests/test_models_smoke.py``'s
   bound), and one batched decode with a position per row equals per-row
   decodes (the serving engine's step);
@@ -28,14 +32,18 @@ from repro.configs import get_config as j_get_config
 from repro.configs import smoke_config as j_smoke_config
 from repro.data.synthetic import lm_batches as j_lm_batches
 from repro.models import common as jcm
+from repro.models import transformer as jtf
 from repro.models.registry import get_model as j_get_model
 from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke_config
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf
 from repro_torch.models.registry import get_model
 
-ARCHS = ["tinyllama-1.1b", "llama3.2-1b"]
+ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "minicpm-2b", "nemotron-4-15b", "chameleon-34b",
+         "deepseek-v2-236b", "kimi-k2-1t-a32b"]
+UNPORTED = ["seamless-m4t-medium", "falcon-mamba-7b", "recurrentgemma-2b"]   # A13c
 
 
 def _t(x):
@@ -71,20 +79,22 @@ def test_configs_are_copies(arch):
 
 def test_unported_archs_are_refused():
     assert set(PORTED) == set(ARCHS)
-    for arch in ARCH_IDS:
-        if arch in PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert sorted(set(ARCH_IDS) - set(PORTED)) == sorted(UNPORTED)
+    for arch in UNPORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
             get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
             get_model(arch, smoke=True, device="cpu")
     with pytest.raises(KeyError):
         get_config("gpt-2")
     api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13d"):
         api.loss(api.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides={"n_experts": 4}).init(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
+        get_model("tinyllama-1.1b", smoke=True, device="cpu",
+                  overrides={"window": 8}).init_cache(1, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
+        get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides={"family": "ssm"})
 
 
 def test_norm_rope_ffn_attn_match_jax(pair):
@@ -102,13 +112,24 @@ def test_norm_rope_ffn_attn_match_jax(pair):
         cm.rope(_t(heads), torch.from_numpy(pos).long(), cfg.rope_theta).numpy(),
         _np(jcm.rope(jnp.asarray(heads), jnp.asarray(pos), jcfg.rope_theta)),
         rtol=1e-5, atol=1e-5)
-    layer = jax.tree.map(lambda a: a[0], jp["blocks"])
-    np.testing.assert_allclose(cm.ffn_apply(tp["blocks"][0]["ffn"], _t(x), cfg).numpy(),
+    # the first dense-FFN layer (an MoE config's leading one) and its attention
+    group = "lead_blocks" if "lead_blocks" in tp else "blocks"
+    layer = jax.tree.map(lambda a: a[0], jp[group])
+    np.testing.assert_allclose(cm.ffn_apply(tp[group][0]["ffn"], _t(x), cfg).numpy(),
                                _np(jcm.ffn_apply(layer["ffn"], jnp.asarray(x), jcfg)),
                                rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(cm.attn_apply(tp["blocks"][0]["attn"], _t(x), cfg).numpy(),
-                               _np(jcm.attn_apply(layer["attn"], jnp.asarray(x), jcfg)),
+    attn, jattn = ((tf.mla_apply, jtf.mla_apply) if cfg.use_mla
+                   else (cm.attn_apply, jcm.attn_apply))
+    np.testing.assert_allclose(attn(tp[group][0]["attn"], _t(x), cfg).numpy(),
+                               _np(jattn(layer["attn"], jnp.asarray(x), jcfg)),
                                rtol=1e-5, atol=1e-5)
+    if cfg.n_experts:          # an MoE layer at full capacity (the forward's)
+        moe = jax.tree.map(lambda a: a[0], jp["blocks"])["moe"]
+        flat = x.reshape(-1, cfg.d_model)
+        np.testing.assert_allclose(
+            cm.moe_apply(tp["blocks"][0]["moe"], _t(flat), cfg, capacity=24)[0].numpy(),
+            _np(jcm.moe_apply(moe, jnp.asarray(flat), jcfg, capacity=24)[0]),
+            rtol=1e-5, atol=1e-5)
 
 
 def test_forward_matches_jax(pair):
@@ -128,7 +149,7 @@ def test_forward_matches_jax(pair):
     {"act": "relu2", "tie_embeddings": True},
 ])
 def test_config_variants_match_jax(overrides):
-    """The config branches the two ported archs leave off, on the same weights."""
+    """Config branches on tinyllama-1.1b's widths, some of which no ported arch takes."""
     japi = j_get_model("tinyllama-1.1b", smoke=True, overrides=overrides)
     jp = japi.init(jax.random.PRNGKey(1))
     api = get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides=overrides)
@@ -147,8 +168,10 @@ def test_decode_step_matches_jax_and_forward(pair):
                                       jnp.asarray(t, jnp.int32))
         tl, cache = api.decode_step(tp, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
         np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(cache["main"]["k"].numpy(), _np(jcache["main"]["k"]),
-                               rtol=0, atol=1e-5)
+    assert set(cache) == set(jcache) and all(set(cache[g]) == set(jcache[g]) for g in cache)
+    for group, bufs in cache.items():
+        for name, buf in bufs.items():
+            np.testing.assert_allclose(buf.numpy(), _np(jcache[group][name]), rtol=0, atol=1e-5)
     full = api.forward(tp, torch.from_numpy(toks).long())
     assert float((full[:, -1] - tl[:, 0]).abs().max()) < 5e-4
 
@@ -160,10 +183,10 @@ def test_batched_decode_with_row_positions_equals_row_decodes(pair):
     cache = api.init_cache(3, 16)
     rows = []
     for b, n in enumerate(starts):
-        row_cache = {"main": {k: v[:, b:b + 1] for k, v in cache["main"].items()}}
+        row_cache = {g: {k: v[:, b:b + 1] for k, v in bufs.items()} for g, bufs in cache.items()}
         for t in range(n):
             api.decode_step(tp, row_cache, toks[b:b + 1, t:t + 1], t)
-        single = {"main": {k: v.clone() for k, v in row_cache["main"].items()}}
+        single = {g: {k: v.clone() for k, v in bufs.items()} for g, bufs in row_cache.items()}
         rows.append(api.decode_step(tp, single, toks[b:b + 1, n:n + 1], n)[0])
     pos = torch.tensor(starts)
     got, _ = api.decode_step(tp, cache, toks[torch.arange(3), pos][:, None], pos)

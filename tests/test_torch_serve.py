@@ -6,6 +6,10 @@ the port's engine must emit the JAX engine's tokens — greedy, and sampled
 from the same seed (the port draws ``jax.random.categorical``'s Gumbel noise
 from its threefry copy) — and its own step-by-step greedy reference; slots
 are reused when requests outnumber them, and EOS stops a request early.
+The MoE smoke configs (``deepseek-v2-236b``: MLA's latent cache, a leading
+dense layer; ``kimi-k2-1t-a32b``) must emit the JAX engine's tokens too:
+the port's batched step routes all slots' tokens at capacity = slots, the
+JAX engine's vmapped step each slot at capacity 1.
 """
 import jax
 import numpy as np
@@ -21,12 +25,16 @@ from repro_torch.models.registry import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
 
+def _lms(arch):
+    japi = j_get_model(arch, smoke=True)
+    jp = japi.init(jax.random.PRNGKey(0))
+    api = get_model(arch, smoke=True, device="cpu")
+    return japi, jp, api, interop.lm_params(jax.tree.map(np.asarray, jp), api.cfg, "cpu")
+
+
 @pytest.fixture(scope="module")
 def lms():
-    japi = j_get_model("tinyllama-1.1b", smoke=True)
-    jp = japi.init(jax.random.PRNGKey(0))
-    api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
-    return japi, jp, api, interop.lm_params(jax.tree.map(np.asarray, jp), api.cfg, "cpu")
+    return _lms("tinyllama-1.1b")
 
 
 def _serve(engine, request_cls, prompts, max_new):
@@ -40,9 +48,22 @@ def _prompts(seed, n, lo=3, hi=9):
     return [rng.integers(1, 100, int(rng.integers(lo, hi))).astype(np.int32) for _ in range(n)]
 
 
+@pytest.fixture(scope="module", params=["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def moe_lms(request):
+    return _lms(request.param)
+
+
 @pytest.mark.parametrize("greedy", [True, False])
 def test_engine_generates_the_jax_engines_tokens(lms, greedy):
-    japi, jp, api, tp = lms
+    _same_tokens(*lms, greedy)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_moe_engine_generates_the_jax_engines_tokens(moe_lms, greedy):
+    _same_tokens(*moe_lms, greedy)
+
+
+def _same_tokens(japi, jp, api, tp, greedy):
     prompts = _prompts(3, 5)
     kw = dict(slots=2, max_len=64, prefill_bucket=16, greedy=greedy, temperature=0.7, seed=4)
     want = _serve(JServingEngine(japi, jp, JServeConfig(**kw)), JRequest, prompts, 6)
