@@ -63,15 +63,24 @@ Then it drives the LM at the full published width of ``tinyllama-1.1b``
 * ``examples/dp_lasso_probe.py``'s pipeline: backbone features, a random-ReLU
   expansion and a private ``torch_sparse`` solve on them.
 
-Last (``lm_archs``), alone on the card, the five other decoder archs at their
+Last (``lm_archs``), alone on the card, the eight other archs at their
 published widths, one after another: ``minicpm-2b``, ``nemotron-4-15b`` and
 ``chameleon-34b`` at full depth, ``deepseek-v2-236b`` (MLA, MoE) and
 ``kimi-k2-1t-a32b`` (MoE) cut in depth to fit the card (each line lists its
-cuts under ``reduced``): a float32 two-layer forward through the kernel held
-against the plain forward (logits, top-1, every token's experts) and decode
-≡ forward; a bf16 forward timed and profiled (flash, the expert products,
-dispatch and combine); the serving engine; and flash at MLA's (192, 128) and
-kimi-k2's 112 head dims against SDPA.
+cuts under ``reduced``), then at full depth ``falcon-mamba-7b`` (the selective
+SSM, no attention), ``recurrentgemma-2b`` (RG-LRU and local attention, window
+2,048 over S = 4,096) and ``seamless-m4t-medium`` (encoder-decoder): a
+float32 forward at a cut depth through the kernel held against the plain
+forward (logits, top-1, every token's experts; mamba, with no kernel, against
+the CPU; seamless with 1,024 frames against 512 tokens) and decode ≡ forward
+(seamless after ``prefill_cross``); for mamba and rglru the float32 engine's
+tokens, one request more than slots, equal to one-request greedy decodes; a
+bf16 forward timed and profiled (flash, the expert products, dispatch and
+combine, mamba's scan alone); the serving engine (seamless: prefill_cross and
+decode steps timed, no engine serves it); and flash against SDPA at MLA's
+(192, 128) and kimi-k2's 112 head dims, recurrentgemma's window and
+seamless' cross-attention (1,024 tokens against 1,536 frames), each at its
+arch's forward shape.
 
 Phases print one JSON line each and raise on any failure (non-zero exit).
 The last three lines are the card's name and power limit as ``nvidia-smi``
@@ -147,6 +156,7 @@ from repro_torch.distributed import reference as shard_reference  # noqa: E402
 from repro_torch.launch.shard import free_port, run_ranks, solve_rank  # noqa: E402
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import encdec, mamba  # noqa: E402
 from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve import FitRequest, FitService, FitServiceConfig  # noqa: E402
@@ -201,26 +211,48 @@ LOGITS_ATOL = 1e-3
 # flash head dims outside the kernel's table: (hd, hdv) of minicpm-2b's and
 # nemotron-4-15b's smoke widths, kimi-k2's, and MLA's q·k against v
 FLASH_PAD_DIMS = ((18, 18), (24, 24), (112, 112), (192, 128))
-# the lm_archs phase: the five other decoder archs at their published widths, in this
-# order, after every other phase; each arch's bf16 timing run: prefill B x S and the
-# depth (None: every layer; deepseek-v2-236b: its dense layer and 4 of its 59 MoE
-# layers, 34.5 GB; kimi-k2-1t-a32b: its dense layer and 1 of its 60 MoE layers, 39.9 GB)
+# the lm_archs phase: the other archs at their published widths, in this order, after
+# every other phase; each arch's bf16 timing run: prefill B x S (seamless: S decoder
+# tokens against ENCDEC_TIMING_FRAMES encoder frames) and the depth (None:
+# every layer; deepseek-v2-236b: its dense layer and 4 of its 59 MoE layers, 34.5 GB;
+# kimi-k2-1t-a32b: its dense layer and 1 of its 60 MoE layers, 39.9 GB); recurrentgemma at
+# S = 4,096, so that its 2,048 window masks
 LM_ARCHS = {"minicpm-2b": (4, 2048, None), "nemotron-4-15b": (4, 2048, None),
             "chameleon-34b": (4, 2048, None), "deepseek-v2-236b": (1, 2048, 5),
-            "kimi-k2-1t-a32b": (1, 1024, 2)}
+            "kimi-k2-1t-a32b": (1, 1024, 2), "falcon-mamba-7b": (2, 2048, None),
+            "recurrentgemma-2b": (2, 4096, None), "seamless-m4t-medium": (4, 1024, None)}
 # float32 parity: two layers (an MoE arch's dense one and one MoE layer) on B x S
 # tokens, decode == forward over the first ARCH_DECODE of them; kimi-k2's MoE layer is
-# 67.8 GB in float32, so its float32 run keeps 64 of its 384 experts (top-8 kept)
+# 67.8 GB in float32, so its float32 run keeps 64 of its 384 experts (top-8 kept);
+# recurrentgemma keeps three layers (r, r, a: one local-attention layer) at B = 1 x S =
+# 4,096; seamless two encoder and two decoder layers, ENCDEC_F32_FRAMES frames against
+# the S decoder tokens, so that cross-attention runs with q and k of different lengths (a
+# multiple of the plain version's 512-row q block, which the encoder's frames are)
 ARCH_F32_B, ARCH_F32_S, ARCH_F32_LAYERS, ARCH_DECODE = 2, 512, 2, 32
-ARCH_F32_OVERRIDES = {"kimi-k2-1t-a32b": {"n_experts": 64}}
+ARCH_F32_OVERRIDES = {"kimi-k2-1t-a32b": {"n_experts": 64},
+                      "recurrentgemma-2b": {"n_layers": 3},
+                      "seamless-m4t-medium": {"n_layers": 4, "enc_layers": 2, "dec_layers": 2}}
+ARCH_F32_SHAPE = {"recurrentgemma-2b": (1, 4096)}
+ENCDEC_F32_FRAMES = 1024
+# seamless' bf16 timing forward: more frames than tokens (speech frames outnumber the
+# text they carry), whole 512-row blocks, so that its cross-attention has S_q != S_k
+ENCDEC_TIMING_FRAMES = 1536
+# prefill_cross + decode against the teacher-forced forward: the JAX package's bound
+# (tests/test_serve.py)
+ENCDEC_DECODE_ATOL = 5e-4
 # the float32 kernel and plain forwards may send a token to other experts only where its
 # k-th and (k+1)-th router probabilities tie within this relative margin (set before the
 # first run, as TIE_REL: ~100x the router logits' difference that the kernel's float32
 # attention error, <= 4.03e-7 at these head dims, could make)
 ROUTE_TIE_REL = 1e-4
-# serving each arch: slots, max_len, prefill bucket, requests, prompt lengths, new tokens
-ARCH_SLOTS, ARCH_MAX_LEN, ARCH_BUCKET, ARCH_REQUESTS, ARCH_PROMPT, ARCH_NEW = \
-    4, 512, 32, 4, (16, 32), 16
+# serving each arch: slots, max_len, requests, prompt lengths, new tokens;
+# the recurrent families serve one request more than slots (a slot reused), and their
+# tokens are held, in float32 at the parity depth, to one-request greedy decodes
+ARCH_SLOTS, ARCH_MAX_LEN, ARCH_REQUESTS, ARCH_PROMPT, ARCH_NEW = 4, 512, 4, (16, 32), 16
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+# seamless has no engine: prefill_cross on ENCDEC_FRAMES frames a row (ARCH_SLOTS rows),
+# then ENCDEC_STEPS greedy decode steps, timed
+ENCDEC_FRAMES, ENCDEC_STEPS = 512, 48
 # the sharded engine on a 2x2 grid over gloo: the rcv1.binary generator cut to fit
 # four processes on one card and a CPU replay of the same grid in the time limit
 SHARD2_N, SHARD2_D, SHARD2_T = 4096, 8192, 200
@@ -720,11 +752,15 @@ def _profiler_warmup() -> None:
     torch.cuda.synchronize()
 
 
-def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
+def profile_steps(run: str, steps: int, window, quiet: bool = False,
+                  device_only: bool = False) -> dict:
     """Device time by kernel over ``window()``, a run of ``steps`` steps
     (torch.profiler); returns the device ms by kernel name (``quiet``: no
-    phase line)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    phase line; ``device_only``: no CPU ops recorded, so no ``by_op``, and
+    about a quarter of the events to parse)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if not device_only:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         _profiler_warmup()
@@ -733,16 +769,17 @@ def profile_steps(run: str, steps: int, window, quiet: bool = False) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         _profiler_warmup()     # the window's last kernels are not the session's
+    events = prof.key_averages()
     # device-side events only: CPU ops also carry the device time of their kernels
     by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                        for e in prof.key_averages()
+                        for e in events
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and e.self_device_time_total > 0 and WARMUP_KERNEL not in e.key),
                        key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     # the device ms of the kernels each host-side op launched itself (aten::bmm: the
     # expert products)
-    by_op = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+    by_op = {e.key: e.self_device_time_total / 1e3 for e in events
              if e.device_type == torch.autograd.DeviceType.CPU
              and e.self_device_time_total > 0}
     out = {"wall_ms": wall_ms, "by_kernel": {k: ms for k, ms, _ in by_kernel},
@@ -1952,10 +1989,21 @@ def phase_auto_backend(pcsr, pcsc, y) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(b, s, h, kv, hd, dtype, seed):
+def _qkv(b, s, h, kv, hd, dtype, seed, sk=None):
+    """Seeded q (b, s, h, hd) and k, v (b, sk or s, kv, hd)."""
     gen = torch.Generator(DEVICE).manual_seed(seed)
+    sk = sk or s
     return tuple(torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-                 for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+                 for shape in ((b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)))
+
+
+def plain_block_k(sk: int) -> int:
+    """The plain version's k block for S_k keys: its default 1,024, halved
+    until it divides S_k (the plain version takes whole blocks)."""
+    bk = min(1024, sk)
+    while sk % bk:
+        bk //= 2
+    return bk
 
 
 def attention_ops(b, sq, sk, h, hd, causal, window) -> float:
@@ -1982,12 +2030,19 @@ def phase_flash_vs_plain() -> dict:
              ((2, LM_S, 32, 4, 64), torch.float32, True, 300),       # local window
              ((2, 1024, 32, 4, 64), torch.bfloat16, False, 0),       # non-causal
              ((2, 1024, 16, 4, 128), torch.float32, True, 0),        # the other dense configs' hd
-             ((1, 2048, 10, 1, 256), torch.bfloat16, True, 512)]     # recurrentgemma's hd, local
+             ((1, 2048, 10, 1, 256), torch.bfloat16, True, 512),     # recurrentgemma's hd, local
+             # recurrentgemma's local attention at full width: its 2,048 window masks
+             ((2, 4096, 10, 1, 256), torch.bfloat16, True, 2048),
+             # non-causal with q and k of different lengths (seamless' cross-attention)
+             ((2, 512, 16, 16, 64, 1536), torch.bfloat16, False, 0),
+             ((2, 512, 16, 16, 64, 1536), torch.float32, False, 0)]
     err_lm = {}
     for shape, dtype, causal, window in cases:
-        q, k, v = _qkv(*shape, dtype, seed=sum(shape))
+        sk = shape[5] if len(shape) > 5 else shape[1]
+        q, k, v = _qkv(*shape[:5], dtype, seed=sum(shape), sk=sk)
         got = flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     block_k=plain_block_k(sk))
         diff, ref = (got.float() - want.float()).abs(), want.float()
         err = float(diff.max())
         tol = FLASH_TOL[dtype]
@@ -2004,13 +2059,36 @@ def phase_flash_vs_plain() -> dict:
                 "flash_attention is not deterministic")
         if shape == lm:
             err_lm[dtype] = err
-        emit("flash_vs_plain", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+        emit("flash_vs_plain", shape=list(shape[:5]), seq_k=sk,
+             dtype=str(dtype).replace("torch.", ""),
              causal=causal, window=window, max_abs_err=err, tolerance=tol,
              tolerance_rule="|d| <= tol + tol * |plain|", deterministic=True,
              **({} if ulps is None else dict(
                  max_bf16_ulps_of_scale=ulps, bf16_ulps_bound=FLASH_BF16_ULPS,
                  scaled_rule="|d| <= 4 * 2^-7 * max(|plain|, RMS of the row over hd)")))
     return err_lm
+
+
+class flash_shapes:
+    """Within the block, each flash call of the models is tallied by its shape
+    (B, S_q, S_k, causal, window) with the launches its wrapper counted."""
+
+    def __enter__(self):
+        self.launches = {}
+
+        def tally(q, k, v, *, causal=True, window=0):
+            before = launch_counts()["flash_attention"]
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            key = (q.shape[0], q.shape[1], k.shape[1], causal, window)
+            self.launches[key] = (self.launches.get(key, 0)
+                                  + launch_counts()["flash_attention"] - before)
+            return out
+
+        model_common.flash_attention = tally
+        return self
+
+    def __exit__(self, *exc):
+        model_common.flash_attention = flash_attention
 
 
 class plain_attention:
@@ -2122,7 +2200,7 @@ def _timed_engine(engine) -> dict:
 
 def phase_lm_serve(api, params, api32, p32) -> None:
     """The serving engine at full width (bf16), and decode == forward (f32)."""
-    engine = ServingEngine(api, params, ServeConfig(slots=4, max_len=2048, prefill_bucket=64))
+    engine = ServingEngine(api, params, ServeConfig(slots=4, max_len=2048))
     times = _timed_engine(engine)
     rng = np.random.default_rng(7)
     for i in range(8):
@@ -2155,7 +2233,7 @@ def phase_lm_serve(api, params, api32, p32) -> None:
     d = float((logits - full).abs().max())
     require(d <= LOGITS_ATOL, f"decode vs forward (f32) max |d| {d} over {LOGITS_ATOL}")
     emit("lm_serve", arch=LM_ARCH, slots=4, max_len=2048, requests=8, new_tokens=32,
-         prefill_bucket=64, wall_s=wall, generated_tokens=gen, tokens_per_s=gen / wall,
+         wall_s=wall, generated_tokens=gen, tokens_per_s=gen / wall,
          decode_steps=engine.steps, decode_step_ms=float(np.mean(times["decode"])) * 1e3,
          prefills=engine.prefills, prefill_ms=float(np.mean(times["prefill"])) * 1e3,
          launches=counts, max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -3484,33 +3562,136 @@ def _arch_cuts(arch: str, layers) -> dict:
     return {} if layers is None else {"n_layers": [get_model(arch).cfg.n_layers, layers]}
 
 
-def _kernel_head_dim(cfg) -> int:
+def _kernel_head_dim(cfg):
+    """The flash kernel's head dim for the arch (None: no attention layer)."""
+    if not _flash_calls(cfg):
+        return None
     return padded_head_dim(cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd)
 
 
+def _flash_calls(cfg) -> int:
+    """Flash launches of one forward: one an attention layer; each encdec
+    decoder layer runs two (causal self-attention, then cross-attention)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return sum(kind in "fla" for kind in cfg.pattern())
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _lm_batch(cfg, batch: int, seq: int, frames: int = 0):
+    """Tokens from ``lm_batches`` (seed 1); an encdec batch also takes
+    seeded frames, ``frames`` of them (else ``seq``), in the config's dtype."""
+    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, batch, seq, seed=1))["tokens"]).long(
+    ).to(DEVICE)
+    if cfg.family != "encdec":
+        return tokens
+    gen = torch.Generator(DEVICE).manual_seed(3)
+    return {"frames": torch.randn(batch, frames or seq, cfg.d_model, generator=gen,
+                                  device=DEVICE).to(cfg.torch_dtype), "tokens": tokens}
+
+
+def _first(batch, n: int):
+    """The batch with its first ``n`` decoder tokens (the frames whole)."""
+    if isinstance(batch, dict):
+        return {**batch, "tokens": batch["tokens"][:, :n]}
+    return batch[:, :n]
+
+
+def _decode_vs_forward(api, p, batch) -> tuple:
+    """Decode steps over the batch's first ARCH_DECODE tokens (encdec after
+    ``prefill_cross`` on its frames) against the forward's last logits:
+    (max |d|, the cache's groups)."""
+    cfg, batch = api.cfg, _first(batch, ARCH_DECODE)
+    toks = batch["tokens"] if isinstance(batch, dict) else batch
+    last = api.forward(p, batch, last_only=True)
+    if cfg.family == "encdec":       # max_len bounds the cross memory too
+        cache = encdec.prefill_cross(p, api.init_cache(toks.shape[0], ENCDEC_F32_FRAMES),
+                                     batch["frames"], cfg)
+    else:
+        cache = api.init_cache(toks.shape[0], ARCH_DECODE)
+    for t in range(ARCH_DECODE):
+        logits, cache = api.decode_step(p, cache, toks[:, t:t + 1], t)
+    return float((logits - last).abs().max()), sorted(cache)
+
+
+def _greedy_one(api, p, prompt, n_new: int) -> list:
+    """One request's greedy decode through ``decode_step``, from a zero cache."""
+    cache = api.init_cache(1, ARCH_MAX_LEN)
+    toks = torch.from_numpy(prompt.astype(np.int64)).to(DEVICE)
+    for t in range(len(prompt)):
+        logits, cache = api.decode_step(p, cache, toks[t:t + 1, None], t)
+    out = [int(logits[0, 0].argmax())]
+    while len(out) < n_new:
+        logits, cache = api.decode_step(p, cache, torch.tensor([[out[-1]]], device=DEVICE),
+                                        len(prompt) + len(out) - 1)
+        out.append(int(logits[0, 0].argmax()))
+    return out
+
+
+def _serve_requests(vocab: int, n: int) -> list:
+    rng = np.random.default_rng(7)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, int(rng.integers(
+        ARCH_PROMPT[0], ARCH_PROMPT[1] + 1))).astype(np.int32), max_new_tokens=ARCH_NEW)
+        for i in range(n)]
+
+
+def _serve_matches_one_request_decodes(arch: str, api, p) -> dict:
+    """A recurrent family's engine (one request more than slots) against a
+    one-request greedy decode of each request, in float32: token for token."""
+    engine = ServingEngine(api, p, ServeConfig(slots=ARCH_SLOTS, max_len=ARCH_MAX_LEN))
+    requests = _serve_requests(api.cfg.vocab, ARCH_SLOTS + 1)
+    for req in requests:
+        engine.submit(req)
+    got = {r.uid: r.generated for r in engine.run()}
+    for req in requests:
+        want = _greedy_one(api, p, req.prompt, ARCH_NEW)
+        require(got.get(req.uid) == want, f"{arch} f32 serving: request {req.uid}'s tokens "
+                f"{got.get(req.uid)} against the one-request decode's {want}")
+    return dict(requests=len(requests), slots=ARCH_SLOTS, prefills=engine.prefills,
+                tokens_equal_one_request_decode=True,
+                prompt_lengths=[len(r.prompt) for r in requests])
+
+
 def _arch_parity(arch: str) -> None:
-    """Float32, two layers: the kernel forward against the plain forward
-    (logits, top-1, every token's experts), then decode == forward."""
+    """Float32 at a cut depth: the kernel forward against the plain forward
+    (logits, top-1, every token's experts), or, with no attention layer
+    (mamba), the card's forward against the CPU's; then decode == forward,
+    and for the recurrent families the engine's tokens."""
     full = get_model(arch).cfg
     over = {"dtype": "float32", "n_layers": ARCH_F32_LAYERS, **ARCH_F32_OVERRIDES.get(arch, {})}
     reduced = {k: [getattr(full, k), v] for k, v in over.items() if k != "dtype"}
     api = get_model(arch, overrides=over)
     cfg = api.cfg
+    b, seq = ARCH_F32_SHAPE.get(arch, (ARCH_F32_B, ARCH_F32_S))
     p = api.init(LM_SEED)
-    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, ARCH_F32_B, ARCH_F32_S, seed=1))[
-        "tokens"]).long().to(DEVICE)
+    batch = _lm_batch(cfg, b, seq, ENCDEC_F32_FRAMES)
+    n_flash = _flash_calls(cfg)
     reset_launch_counts()
     with recorded_routes() as got_routes:
-        got = api.forward(p, tokens, last_only=True)
+        got = api.forward(p, batch, last_only=True)
     launches, routes = launch_counts()["flash_attention"], dict(flash_attention.routes)
-    require(launches == cfg.n_layers and routes == {"bf16_tensor_cores": 0,
-                                                    "f32_cuda_cores": cfg.n_layers},
+    require(launches == n_flash and routes == {"bf16_tensor_cores": 0,
+                                               "f32_cuda_cores": n_flash},
             f"{arch} f32 forward: {launches} flash launches, routes {routes}")
     reset_launch_counts()
-    with plain_attention(), recorded_routes() as want_routes:
-        want = api.forward(p, tokens, last_only=True)
-    require(launch_counts()["flash_attention"] == 0, f"{arch}: the plain forward launched flash")
-    require(got.shape == (ARCH_F32_B, 1, cfg.padded_vocab) and bool(torch.isfinite(got).all()),
+    if n_flash:
+        reference = "plain attention on the card"
+        with plain_attention(), recorded_routes() as want_routes:
+            want = api.forward(p, batch, last_only=True)
+    else:                       # no kernel on the path: the card against the CPU
+        reference = "the CPU"
+        cpu = get_model(arch, overrides=over, device="cpu")
+        want = cpu.forward(_tree_to(p, "cpu"), _tree_to(batch, "cpu"), last_only=True).to(DEVICE)
+        want_routes = []
+    require(launch_counts()["flash_attention"] == 0, f"{arch}: the reference launched flash")
+    require(got.shape == (b, 1, cfg.padded_vocab) and bool(torch.isfinite(got).all()),
             f"{arch} f32 logits {tuple(got.shape)} not finite or misshapen")
     routing = route_split(got_routes, want_routes, cfg.top_k) if cfg.n_experts else None
     require(routing is None or not routing["tokens_split"]
@@ -3520,20 +3701,21 @@ def _arch_parity(arch: str) -> None:
             f"below {ROUTE_TIE_REL})")
     d = float((got - want).abs().max())
     top_equal = bool((got.argmax(-1) == want.argmax(-1)).all())
-    require(d <= LOGITS_ATOL and top_equal, f"{arch} f32 forward: kernel vs plain logits max "
-            f"|d| {d} (bound {LOGITS_ATOL}), top-1 equal {top_equal}")
-    toks = tokens[:, :ARCH_DECODE]
-    last = api.forward(p, toks, last_only=True)
-    cache = api.init_cache(ARCH_F32_B, ARCH_DECODE)
-    for t in range(ARCH_DECODE):
-        logits, cache = api.decode_step(p, cache, toks[:, t:t + 1], t)
-    dd = float((logits - last).abs().max())
-    require(dd <= LOGITS_ATOL, f"{arch} decode vs forward (f32) max |d| {dd} over {LOGITS_ATOL}")
-    emit("lm_archs", arch=arch, run="parity_float32", batch=ARCH_F32_B, seq=ARCH_F32_S,
-         layers=cfg.n_layers, reduced=reduced, cache=sorted(cache), flash_launches=launches,
-         routes=routes, kernel_head_dim=_kernel_head_dim(cfg), max_abs_logit_err=d,
-         bound=LOGITS_ATOL, top1_equal=True, logit_std=float(want.std()), routing=routing,
-         decode_tokens=ARCH_DECODE, decode_vs_forward_max_abs=dd)
+    require(d <= LOGITS_ATOL and top_equal, f"{arch} f32 forward against {reference}: logits "
+            f"max |d| {d} (bound {LOGITS_ATOL}), top-1 equal {top_equal}")
+    dd, cache = _decode_vs_forward(api, p, batch)
+    decode_bound = ENCDEC_DECODE_ATOL if cfg.family == "encdec" else LOGITS_ATOL
+    require(dd <= decode_bound, f"{arch} decode vs forward (f32) max |d| {dd} over "
+            f"{decode_bound}")
+    serving = (_serve_matches_one_request_decodes(arch, api, p)
+               if cfg.family in RECURRENT_FAMILIES else None)
+    emit("lm_archs", arch=arch, run="parity_float32", batch=b, seq=seq,
+         frames=ENCDEC_F32_FRAMES if cfg.family == "encdec" else None,
+         layers=cfg.n_layers, reduced=reduced, cache=cache, flash_launches=launches,
+         routes=routes, kernel_head_dim=_kernel_head_dim(cfg), reference=reference,
+         max_abs_logit_err=d, bound=LOGITS_ATOL, top1_equal=True, logit_std=float(want.std()),
+         routing=routing, decode_tokens=ARCH_DECODE, decode_vs_forward_max_abs=dd,
+         decode_bound=decode_bound, serving_float32=serving)
 
 
 def _moe_layer_profile(api, params, tokens: int) -> dict:
@@ -3554,6 +3736,31 @@ def _moe_layer_profile(api, params, tokens: int) -> dict:
                 buffer_rows=api.cfg.n_experts * tokens, live_rows=tokens * api.cfg.top_k)
 
 
+def _ssm_scan_profile(api, params, batch: int, seq: int) -> dict:
+    """One mamba layer at the forward's shape, alone under the profiler, and
+    its selective scan (``_ssm_chunked``: dA, dBx, the log-step scans, y)
+    alone on that layer's inputs: device ms, kernels, and the scan's bound
+    (its inputs dt, x, B, C read once and y written once, float32)."""
+    cfg = api.cfg
+    gen = torch.Generator(DEVICE).manual_seed(6)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=DEVICE).to(cfg.torch_dtype)
+    layer = params["blocks"][0]
+    xc, _, _ = mamba._mixer_in(layer, x, cfg, None)
+    dt, a, b_mat, c = mamba._ssm_inputs(layer, xc, cfg)
+    xf = xc.float()
+    h0 = torch.zeros(batch, cfg.d_inner, cfg.ssm_state, device=DEVICE)
+    block = profile_steps("", 1, lambda: mamba.block_apply(layer, x, cfg), quiet=True,
+                          device_only=True)
+    scan = profile_steps("", 1, lambda: mamba._ssm_chunked(dt, xf, a, b_mat, c, h0),
+                         quiet=True, device_only=True)
+    layer_ms, scan_ms = sum(block["by_kernel"].values()), sum(scan["by_kernel"].values())
+    tokens, di, n = batch * seq, cfg.d_inner, cfg.ssm_state
+    bd, by = bound(4.0 * tokens * (3 * di + 2 * n), 6.0 * tokens * di * n)
+    return dict(layer_device_ms=layer_ms, scan_device_ms=scan_ms,
+                scan_share_of_layer=scan_ms / layer_ms, scan_kernels=sum(scan["calls"].values()),
+                scan_bound_ms=bd, scan_bound_by=by)
+
+
 def _arch_timing(arch: str, batch: int, seq: int, layers) -> tuple:
     """bf16 ``forward(last_only)`` at B x S: timed, its launches read, one
     forward profiled.  Returns (api, params, the forward's launches, fields)."""
@@ -3561,80 +3768,96 @@ def _arch_timing(arch: str, batch: int, seq: int, layers) -> tuple:
     reduced = _arch_cuts(arch, layers)
     api = get_model(arch, overrides=over)
     cfg = api.cfg
+    n_flash = _flash_calls(cfg)
     t0 = time.perf_counter()
     params = api.init(LM_SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = torch.from_numpy(next(lm_batches(cfg.vocab, batch, seq, seed=1))["tokens"]).long(
-    ).to(DEVICE)
-    fwd = lambda: api.forward(params, tokens, last_only=True)
+    frames = ENCDEC_TIMING_FRAMES if cfg.family == "encdec" else 0
+    inputs = _lm_batch(cfg, batch, seq, frames)
+    fwd = lambda: api.forward(params, inputs, last_only=True)
     out = fwd()                                                   # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     first_ms = sync_ms(fwd)
     counts, routes = launch_counts(), dict(flash_attention.routes)
     want_counts = {name: 0 for name in counts}
-    want_counts["flash_attention"] = cfg.n_layers
+    want_counts["flash_attention"] = n_flash
     require(counts == want_counts, f"{arch} bf16 forward launches {counts}")
-    require(routes == {"bf16_tensor_cores": cfg.n_layers, "f32_cuda_cores": 0},
+    require(routes == {"bf16_tensor_cores": n_flash, "f32_cuda_cores": 0},
             f"{arch} bf16 forward routes {routes}")
     peak = torch.cuda.max_memory_allocated()
-    ms = sync_ms(fwd, reps=3)
+    # a forward of a second or more is timed once more (first_ms is the other reading)
+    ms = sync_ms(fwd, reps=1 if first_ms >= 1e3 else 3)
     require(out.shape == (batch, 1, cfg.padded_vocab) and bool(torch.isfinite(out.float()).all()),
             f"{arch} bf16 logits not finite or misshapen")
     reset_launch_counts()
-    prof = profile_steps(f"lm_archs_{arch}_bf16", 1, fwd)
-    require(launch_counts()["flash_attention"] == cfg.n_layers,
+    t_prof = time.perf_counter()
+    # the recurrent families' forwards launch 11,000-23,000 kernels, whose CPU ops took
+    # the profiler ~24 s to parse for falcon-mamba: their forward records the device only
+    recurrent = cfg.family in RECURRENT_FAMILIES
+    with flash_shapes() as shapes:
+        prof = profile_steps(f"lm_archs_{arch}_bf16", 1, fwd, device_only=recurrent)
+    profile_s = time.perf_counter() - t_prof
+    require(launch_counts()["flash_attention"] == n_flash == sum(shapes.launches.values()),
             f"{arch} profiled forward: {launch_counts()['flash_attention']} flash launches")
     flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
     flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
-    require(sum(flash.values()) > 0 and all("mma" in k for k in flash)
-            and cfg.n_layers - 1 <= flash_calls <= cfg.n_layers,
+    # the wrappers launched n_flash (above); the profiler may drop a record
+    require((sum(flash.values()) > 0 if n_flash else not flash) and all("mma" in k for k in flash)
+            and max(n_flash - 1, 0) <= flash_calls <= n_flash,
             f"{arch} profiled flash kernels {list(flash)}, {flash_calls} calls")
     busy = sum(prof["by_kernel"].values())
     fields = dict(forward_ms=ms, first_forward_ms=first_ms, tokens_per_s=batch * seq / ms * 1e3,
-                  max_memory_allocated=peak, init_s=init_s, launches=counts, routes=routes,
+                  max_memory_allocated=peak, init_s=init_s, profile_s=profile_s,
+                  launches=counts, routes=routes,
                   kernel_head_dim=_kernel_head_dim(cfg), device_busy_ms=busy,
+                  device_kernels=sum(prof["calls"].values()),
                   flash_device_ms=sum(flash.values()), flash_profiled_calls=flash_calls,
                   flash_share_of_busy=sum(flash.values()) / busy,
                   # the expert products, and the last position's logits (a sliced x @ head)
-                  bmm_device_ms=prof["by_op"].get("aten::bmm", 0.0))
+                  bmm_device_ms=None if recurrent else prof["by_op"].get("aten::bmm", 0.0),
+                  flash_launches_by_shape=[dict(b=b, sq=sq, sk=sk, causal=c, window=w,
+                                                launches=n)
+                                           for (b, sq, sk, c, w), n in shapes.launches.items()])
     if cfg.n_experts:
         fields["moe_layer"] = _moe_layer_profile(api, params, batch * seq)
+    if cfg.family == "ssm":
+        scan = _ssm_scan_profile(api, params, batch, seq)
+        scan["scan_share_of_forward_busy"] = cfg.n_layers * scan["scan_device_ms"] / busy
+        fields["ssm_layer"] = scan
+    if cfg.family == "encdec":
+        fields["frames"] = frames
     emit("lm_archs", arch=arch, run="timing_bfloat16", batch=batch, seq=seq,
          layers=cfg.n_layers, reduced=reduced, **fields)
     return api, params, counts, fields
 
 
 def _arch_serve(arch: str, api, params, cuts: dict) -> None:
-    """The serving engine: ARCH_REQUESTS requests on ARCH_SLOTS slots."""
-    engine = ServingEngine(api, params, ServeConfig(slots=ARCH_SLOTS, max_len=ARCH_MAX_LEN,
-                                                    prefill_bucket=ARCH_BUCKET))
+    """The serving engine: ARCH_REQUESTS requests on ARCH_SLOTS slots (the
+    recurrent families one more, so a slot is reused)."""
+    engine = ServingEngine(api, params, ServeConfig(slots=ARCH_SLOTS, max_len=ARCH_MAX_LEN))
     times = _timed_engine(engine)
-    rng = np.random.default_rng(7)
-    for i in range(ARCH_REQUESTS):
-        engine.submit(Request(uid=i, prompt=rng.integers(1, api.cfg.vocab, int(
-            rng.integers(ARCH_PROMPT[0], ARCH_PROMPT[1] + 1))).astype(np.int32),
-            max_new_tokens=ARCH_NEW))
+    n = ARCH_REQUESTS + int(api.cfg.family in RECURRENT_FAMILIES)
+    for req in _serve_requests(api.cfg.vocab, n):
+        engine.submit(req)
     reset_launch_counts()
     t0 = time.perf_counter()
     finished = engine.run()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    require(len(finished) == ARCH_REQUESTS and all(len(r.generated) == ARCH_NEW
-                                                   for r in finished),
+    require(len(finished) == n and all(len(r.generated) == ARCH_NEW for r in finished),
             f"{arch} serving: not every request got its {ARCH_NEW} tokens")
     require(all(0 <= t < api.cfg.padded_vocab for r in finished for t in r.generated),
             f"{arch} serving: a token out of the vocabulary")
     toks = torch.ones(ARCH_SLOTS, 1, dtype=torch.int64, device=DEVICE)
     pos = torch.full((ARCH_SLOTS,), 100, dtype=torch.int64, device=DEVICE)
     prof = profile_steps("", 2, lambda: [api.decode_step(params, engine.cache, toks, pos)
-                                         for _ in range(2)], quiet=True)
+                                         for _ in range(2)], quiet=True, device_only=True)
     gen = sum(len(r.generated) for r in finished)
     emit("lm_archs", arch=arch, run="serve_bfloat16", layers=api.cfg.n_layers,
-         reduced=cuts, slots=ARCH_SLOTS,
-         max_len=ARCH_MAX_LEN,
-         prefill_bucket=ARCH_BUCKET, requests=ARCH_REQUESTS, new_tokens=ARCH_NEW,
+         reduced=cuts, slots=ARCH_SLOTS, max_len=ARCH_MAX_LEN, requests=n,
+         new_tokens=ARCH_NEW,
          cache={g: sorted(b) for g, b in engine.cache.items()}, wall_s=wall,
          generated_tokens=gen, tokens_per_s=gen / wall, decode_steps=engine.steps,
          decode_step_ms=float(np.mean(times["decode"])) * 1e3, prefills=engine.prefills,
@@ -3645,10 +3868,52 @@ def _arch_serve(arch: str, api, params, cuts: dict) -> None:
          vocab_rule="0 <= token < padded_vocab (random weights score the padding too)")
 
 
+def _encdec_decode(arch: str, api, params, cuts: dict) -> None:
+    """No engine serves encdec: ``prefill_cross`` on ARCH_SLOTS rows of
+    ENCDEC_FRAMES frames, then ENCDEC_STEPS greedy decode steps of all rows,
+    each timed to a synchronise."""
+    cfg = api.cfg
+    gen = torch.Generator(DEVICE).manual_seed(8)
+    frames = torch.randn(ARCH_SLOTS, ENCDEC_FRAMES, cfg.d_model, generator=gen,
+                         device=DEVICE).to(cfg.torch_dtype)
+    cache = api.init_cache(ARCH_SLOTS, ARCH_MAX_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prefill_ms = sync_ms(lambda: encdec.prefill_cross(params, cache, frames, cfg))
+    prefill_launches = launch_counts()["flash_attention"]
+    require(prefill_launches == cfg.enc_layers,
+            f"{arch} prefill_cross: {prefill_launches} flash launches")
+    tok = torch.ones(ARCH_SLOTS, 1, dtype=torch.int64, device=DEVICE)
+    step_ms, out = [], []
+    for t in range(ENCDEC_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, tok, t)
+        tok = logits.argmax(-1)
+        out.append(tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = torch.cat(out, dim=1)
+    require(out.shape == (ARCH_SLOTS, ENCDEC_STEPS) and bool(((out >= 0) & (
+        out < cfg.padded_vocab)).all()), f"{arch} decode: a token out of the vocabulary")
+    pos = torch.full((ARCH_SLOTS,), ENCDEC_STEPS, dtype=torch.int64, device=DEVICE)
+    prof = profile_steps("", 2, lambda: [api.decode_step(params, cache, tok, pos)
+                                         for _ in range(2)], quiet=True, device_only=True)
+    emit("lm_archs", arch=arch, run="decode_bfloat16", layers=cfg.n_layers, reduced=cuts,
+         rows=ARCH_SLOTS, frames=ENCDEC_FRAMES, max_len=ARCH_MAX_LEN, steps=ENCDEC_STEPS,
+         prefill_cross_ms=prefill_ms, prefill_cross_flash_launches=prefill_launches,
+         decode_step_ms=float(np.mean(step_ms[1:])), first_decode_step_ms=step_ms[0],
+         tokens_per_s=ARCH_SLOTS * (ENCDEC_STEPS - 1) / sum(step_ms[1:]) * 1e3,
+         decode_flash_launches=launch_counts()["flash_attention"] - prefill_launches,
+         device_kernels_per_decode_step=sum(prof["calls"].values()) / 2,
+         device_busy_ms_per_decode_step=sum(prof["by_kernel"].values()) / 2,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         engine="none: the engine refuses encdec (no slot axis for the cross memory)")
+
+
 def phase_lm_archs() -> dict:
     """Each arch in turn, alone on the card: float32 parity, bf16 forward
-    timing, serving; each model freed before the next.  Returns each arch's
-    bf16 forward shape and launches."""
+    timing, serving (encdec: timed decode steps); each model freed before the
+    next.  Returns each arch's bf16 forward shape and launches."""
     t_phase = time.perf_counter()
     out = {}
     for arch, (batch, seq, layers) in LM_ARCHS.items():
@@ -3657,13 +3922,18 @@ def phase_lm_archs() -> dict:
         _arch_parity(arch)
         gc.collect()
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         api, params, counts, fields = _arch_timing(arch, batch, seq, layers)
-        _arch_serve(arch, api, params, _arch_cuts(arch, layers))
+        t2 = time.perf_counter()
+        serve = _encdec_decode if api.cfg.family == "encdec" else _arch_serve
+        serve(arch, api, params, _arch_cuts(arch, layers))
         out[arch] = dict(batch=batch, seq=seq, counts=counts, fields=fields)
         del api, params
         gc.collect()
         torch.cuda.empty_cache()
-        emit("lm_archs_done", arch=arch, seconds=time.perf_counter() - t0)
+        t3 = time.perf_counter()
+        emit("lm_archs_done", arch=arch, seconds=t3 - t0, parity_s=t1 - t0, timing_s=t2 - t1,
+             serve_s=t3 - t2)
     emit("lm_archs_phase", seconds=time.perf_counter() - t_phase)
     return out
 
@@ -3685,53 +3955,82 @@ def sdpa_backends(sdpa) -> dict:
     return ms
 
 
+def _window_mask(sq: int, sk: int, window: int) -> torch.Tensor:
+    """SDPA's boolean mask for causal attention within a trailing window."""
+    d = torch.arange(sq, device=DEVICE)[:, None] - torch.arange(sk, device=DEVICE)[None, :]
+    return (d >= 0) & (d < window)
+
+
+# flash rows at the other archs' shapes (bf16, tensor cores): name, arch, its shape (B and
+# S from the arch's bf16 forward unless given), causal, window
+ARCH_FLASH_ROWS = (
+    ("flash_attention_mla", "deepseek-v2-236b", {}, True, 0),
+    ("flash_attention_hd112", "kimi-k2-1t-a32b", {}, True, 0),
+    # recurrentgemma's local attention: window 2,048 over its S = 4,096, MQA at hd 256
+    ("flash_attention_window2048", "recurrentgemma-2b", {}, True, 2048),
+    # seamless' cross-attention: its tokens against its frames (S_q != S_k)
+    ("flash_attention_cross", "seamless-m4t-medium", {"sk": ENCDEC_TIMING_FRAMES}, False, 0),
+)
+
+
 def arch_flash_rows(archs: dict) -> list:
     """Flash (bf16, tensor cores) at MLA's (192, 128) head dims (H = KV =
-    128) and kimi-k2's 112 (H = 64, KV = 8), at each arch's bf16 forward
-    shape, on seeded inputs: against the plain version within the bounds,
-    timed against the bound of the unpadded work and against SDPA (and each
-    SDPA backend that takes the inputs); ``launches``: the arch's flash
-    launches per bf16 forward."""
+    128), kimi-k2's 112 (H = 64, KV = 8), recurrentgemma's local attention
+    (H = 10, KV = 1, hd 256, window 2,048) and seamless' cross-attention
+    (its 1,024 tokens against its 1,536 frames, 16 heads of 64), each at its
+    arch's bf16 forward's shape, on seeded inputs: against the plain version
+    within the bounds, timed against the bound of the unpadded work over the
+    keys each query sees and against SDPA (and each SDPA backend that takes
+    the inputs; a window goes to SDPA as a boolean mask); ``launches``: that
+    forward's flash launches at the row's shape."""
     rows = []
-    for arch, name in (("deepseek-v2-236b", "flash_attention_mla"),
-                       ("kimi-k2-1t-a32b", "flash_attention_hd112")):
+    for name, arch, shape, causal, window in ARCH_FLASH_ROWS:
         cfg, run = get_model(arch).cfg, archs[arch]
-        b, s, h, kv = run["batch"], run["seq"], cfg.n_heads, cfg.n_kv_heads
+        b, sq = shape.get("b", run["batch"]), shape.get("sq", run["seq"])
+        sk, h, kv = shape.get("sk", sq), cfg.n_heads, cfg.n_kv_heads
+        launches = sum(r["launches"] for r in run["fields"]["flash_launches_by_shape"]
+                       if (r["b"], r["sq"], r["sk"], r["causal"], r["window"])
+                       == (b, sq, sk, causal, window))
+        require(launches > 0, f"{name}: the {arch} forward ran no flash at {(b, sq, sk)}")
         hd, hdv = cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd
         gen = torch.Generator(DEVICE).manual_seed(hd + hdv + h)
-        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hdv)))
-        got = flash_attention(q, k, v)
-        want = flash_attention_plain(q, k, v).float()
+        q, k, v = (torch.randn(dims, generator=gen, device=DEVICE).to(torch.bfloat16)
+                   for dims in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hdv)))
+        flash = lambda: flash_attention(q, k, v, causal=causal, window=window)
+        plain_fn = lambda: flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                 block_k=plain_block_k(sk))
+        got, want = flash(), plain_fn().float()
         diff = (got.float() - want).abs()
         tol = FLASH_TOL[torch.bfloat16]
         ulps = float(bf16_ulps(diff, want).max())
         require(bool((diff <= tol + tol * want.abs()).all()) and ulps <= FLASH_BF16_ULPS
                 and bool(torch.isfinite(got).all()),
                 f"{name}: max |d| {float(diff.max())}, {ulps} bf16 ulps of scale")
-        ms = device_ms([lambda: flash_attention(q, k, v)] * 10)
-        plain = device_ms([lambda: flash_attention_plain(q, k, v)] * 3)
+        ms = device_ms([flash] * 10)
+        plain = device_ms([plain_fn] * 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = _window_mask(sq, sk, window) if window else None
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=h != kv)
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window, enable_gqa=h != kv)
         lib_out = sdpa().transpose(1, 2)
         require(bool(((lib_out.float() - got.float()).abs() <= tol).all()),
                 f"scaled_dot_product_attention disagrees with {name}")
         lib = device_ms([sdpa] * 10)
-        ops = attention_ops(b, s, s, h, (hd + hdv) / 2, True, 0)
-        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * s * h * hdv)
+        ops = attention_ops(b, sq, sk, h, (hd + hdv) / 2, causal, window)
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * sq * h * hdv)
         bd, by = bound(nbytes, ops, BF16_OPS_PER_S)
         rows.append(dict(name=name, route="cuda",
                          source="src/repro_torch/kernels/flash_attention/csrc/"
                          "flash_attention_mma.cu",
                          replaces="src/repro/kernels/flash_attention/kernel.py:106",
-                         launches=run["counts"]["flash_attention"],
+                         launches=launches,
                          max_abs_err=float(diff.max()), ms=ms, plain_ms=plain, bound_ms=bd,
                          bound_by=by, library_ms=lib, library_ms_by_backend=sdpa_backends(sdpa),
-                         shape=dict(arch=arch, b=b, s=s, h=h, kv=kv, hd=hd, hdv=hdv),
+                         shape=dict(arch=arch, b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, hdv=hdv,
+                                    causal=causal, window=window),
                          kernel_head_dim=padded_head_dim(hd, hdv), max_bf16_ulps_of_scale=ulps,
                          tflop_per_s=ops / ms / 1e9))
-        del q, k, v, qt, kt, vt, lib_out, got, want, diff
+        del q, k, v, qt, kt, vt, lib_out, got, want, diff, mask
     return rows
 
 

@@ -1,10 +1,9 @@
 """Published model configs the port serves (copies of ``repro.configs``).
 
-``ARCH_IDS`` lists every arch of the JAX package; the port has the decoder
-family: the dense configs and the MoE ones (MLA, routed experts, leading
-dense layers).  ``get_config`` and ``smoke_config`` raise
-``NotImplementedError`` for the others, naming the ROADMAP item that ports
-them.
+``ARCH_IDS`` lists every arch of the JAX package, and the port has them all:
+the dense and MoE decoders (MLA, routed experts, leading dense layers), the
+selective SSM (``falcon-mamba-7b``), the RG-LRU hybrid with local attention
+(``recurrentgemma-2b``) and the encoder-decoder (``seamless-m4t-medium``).
 """
 from __future__ import annotations
 
@@ -22,8 +21,6 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
     "recurrentgemma-2b",
 ]
-PORTED = ("tinyllama-1.1b", "llama3.2-1b", "minicpm-2b", "nemotron-4-15b", "chameleon-34b",
-          "deepseek-v2-236b", "kimi-k2-1t-a32b")
 
 
 def _modname(arch_id: str) -> str:
@@ -33,10 +30,6 @@ def _modname(arch_id: str) -> str:
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md A13c: the mamba, rglru "
-            f"and encdec families); the port has {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
 
 

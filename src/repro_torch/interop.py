@@ -113,28 +113,47 @@ def _weight(x, device) -> torch.Tensor:
 def _leaves(tree):
     if isinstance(tree, Mapping):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in _leaves(v)]
     return [tree]
+
+
+def _stacked_groups(cfg) -> Dict[str, int]:
+    """The pytree's layer groups stacked along axis 0, and their depths:
+    rglru's ``blocks`` is a list of layers already (its layers differ)."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.dec_layers}
+    if cfg.family == "hybrid":
+        return {}
+    lead, main = _split_groups(cfg)
+    return {"lead_blocks": lead, "blocks": main}
 
 
 def lm_params(params_np: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """The port's LM parameters from the JAX package's ``lm_init`` pytree.
 
     ``params_np``: the pytree with numpy leaves (``jax.tree.map(np.asarray,
-    params)``).  The scanned groups ``lead_blocks`` (MoE configs' leading
-    dense layers) and ``blocks``, stacked along axis 0, are unstacked into
-    one dict per layer, so an MoE layer's ``(L, E, d, f)`` expert stacks
-    become ``(E, d, f)``; weights keep their ``(d_in, d_out)`` orientation,
-    which is the port's too.  Dtypes are kept (the router stays float32).
+    params)``).  The scanned groups — ``lead_blocks`` (MoE configs' leading
+    dense layers) and ``blocks`` of the decoders and mamba, ``enc_blocks``
+    and ``dec_blocks`` of the encoder-decoder — stacked along axis 0, are
+    unstacked into one dict per layer, so an MoE layer's ``(L, E, d, f)``
+    expert stacks become ``(E, d, f)``; rglru's per-layer list stays a list.
+    Weights keep their ``(d_in, d_out)`` orientation, which is the port's
+    too.  Dtypes are kept (the router stays float32).
     """
-    lead, main = _split_groups(cfg)
-    groups = {"lead_blocks": lead, "blocks": main}
+    groups = _stacked_groups(cfg)
 
     def convert(tree, layer=None):
         if isinstance(tree, Mapping):
             return {k: convert(v, layer) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [convert(v, layer) for v in tree]
         return _weight(tree if layer is None else np.asarray(tree)[layer], device)
 
     out = {k: convert(v) for k, v in params_np.items() if k not in groups}
+    if cfg.family == "hybrid" and len(out["blocks"]) != cfg.n_layers:
+        raise ValueError(f"lm_params: blocks has {len(out['blocks'])} layers, the config "
+                         f"has {cfg.n_layers}")
     for name, n in groups.items():
         if name not in params_np and not n:
             continue

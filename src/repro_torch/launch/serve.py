@@ -1,5 +1,5 @@
-"""Serving launcher: the continuous-batching engine over a decoder LM (dense or MoE) with
-random weights from ``--seed`` (port of ``repro.launch.serve``).
+"""Serving launcher: the continuous-batching engine over an LM of any family but the
+encoder-decoder, with random weights from ``--seed`` (port of ``repro.launch.serve``).
 
 On the card (the default):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
@@ -36,9 +36,7 @@ def main():
 
     api = get_model(args.arch, smoke=args.smoke, device=args.device)
     params = api.init(args.seed)
-    engine = ServingEngine(api, params, ServeConfig(
-        slots=args.slots, max_len=args.max_len,
-        prefill_bucket=min(64, args.max_len)))
+    engine = ServingEngine(api, params, ServeConfig(slots=args.slots, max_len=args.max_len))
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()

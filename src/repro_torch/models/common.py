@@ -84,13 +84,12 @@ def activation(name: str):
 # ---------------------------------------------------------------------------
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, kv_len):
     """Single-position attention over a padded KV cache.
 
     q: (B, 1, H, hd); caches: (B, S_max, KV, hd); kv_len: live length
     (including the current token), an int or a (B,) tensor of one length per
-    row — the serving engine's slots sit at different positions.  Window > 0
-    restricts each row to its trailing window.
+    row — the serving engine's slots sit at different positions.
     """
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
@@ -100,13 +99,28 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0):
                      k_cache.float()) * scale
     pos = torch.arange(k_cache.shape[1], device=q.device)
     kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)   # (B or 1, 1)
-    mask = pos[None, :] < kv_len
-    if window:
-        mask &= pos[None, :] >= kv_len - window
-    s = torch.where(mask[:, None, None, :], s, NEG)
+    s = torch.where((pos[None, :] < kv_len)[:, None, None, :], s, NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def cached_attention(q, k, v, k_cache, v_cache, pos, *, ring: bool = False):
+    """One decode step's attention through a KV cache, written in place.
+
+    q: (B, 1, H, hd); k, v: (B, 1, KV, ·), this step's; caches (B, R, KV, ·);
+    pos: (B,) int64, the index each row's token occupies.  A plain cache is
+    written at ``pos[b]`` and read over ``pos[b] + 1`` rows.  A ring (R =
+    ``min(window, max_len)`` rows) is written at ``pos[b] % R`` and read over
+    ``min(pos[b] + 1, R)`` rows, so it holds each row's last R positions:
+    the window the forward's mask leaves (the JAX ``rglru`` rule, per row).
+    """
+    rows = torch.arange(q.shape[0], device=q.device)
+    r = k_cache.shape[1]
+    slot, kv_len = (pos % r, torch.clamp(pos + 1, max=r)) if ring else (pos, pos + 1)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    return decode_attention(q, k_cache, v_cache, kv_len)
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype):

@@ -104,6 +104,15 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the arch can run long_500k (no full-attention layer)."""
+        if self.family == "ssm":
+            return True
+        if self.family == "hybrid":
+            return self.window > 0  # local attention is O(S·window)
+        return False
+
     def pattern(self) -> str:
         """Per-layer kind string of length n_layers ('f'=full attn, 'l'=local,
         'r'=recurrent, 'm'=mamba)."""

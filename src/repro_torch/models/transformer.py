@@ -7,11 +7,14 @@ group is a list of per-layer dicts (the JAX package stacks them for
 position-indexed cache ``{"main", "lead"}`` of (L, B, S_max, ...) buffers,
 written in place by ``lm_decode_step``: full k/v ``{"k", "v"}`` for GQA,
 the compressed latent ``{"c", "kr"}`` for MLA, whose decode scores and
-reads out in latent space (matrix-absorbed).
+reads out in latent space (matrix-absorbed).  A config with a ``window``
+keeps a ring of ``min(window, S_max)`` rows instead (``cm.cached_attention``):
+past the window it equals the windowed forward, where the JAX package's
+clamped write does not (ROADMAP.md C).
 
 The forward and decode run the MoE at full capacity (every token kept), so
-decode logits match the parallel forward.  The windowed ring cache (A13c)
-and ``lm_loss`` (A13d) are not ported yet and raise ``NotImplementedError``.
+decode logits match the parallel forward.  ``lm_loss`` (A13d) is not ported
+yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -152,19 +155,16 @@ def block_apply(p, x, cfg: ModelConfig, use_moe: bool = False, positions=None):
 
 def block_decode(p, x, cache, pos, cfg: ModelConfig, use_moe: bool = False):
     """One-token decode through a block.  ``cache``: this layer's buffers
-    (``{"k", "v"}`` (B, S_max, KV, hd) or MLA's ``{"c", "kr"}``), written in
-    place at row b's position ``pos[b]``; ``pos``: (B,) int64.  Returns
-    (x, cache)."""
+    (``{"k", "v"}`` (B, S_max, KV, hd), a ring of the window's rows if the
+    config has one, or MLA's ``{"c", "kr"}``), written in place at row b's
+    position ``pos[b]``; ``pos``: (B,) int64.  Returns (x, cache)."""
     b = x.shape[0]
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         attn_out, _, _ = mla_decode(p["attn"], h, cache["c"], cache["kr"], pos, cfg)
     else:
         q, k, v = cm.attn_qkv(p["attn"], h, cfg, pos[:, None])
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
-        out = cm.decode_attention(q, cache["k"], cache["v"], pos + 1, window=cfg.window)
+        out = cm.cached_attention(q, k, v, cache["k"], cache["v"], pos, ring=bool(cfg.window))
         attn_out = out.reshape(b, 1, -1) @ p["attn"]["wo"]
     x = x + attn_out
     h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -186,10 +186,8 @@ def init_block_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                                  device=device),
                 "kr": torch.zeros(n_layers, batch, max_len, cfg.rope_head_dim, dtype=dtype,
                                   device=device)}
-    if cfg.window:
-        raise NotImplementedError("the windowed ring cache is not ported yet "
-                                  "(ROADMAP.md A13c)")
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads)
+    rows = min(cfg.window, max_len) if cfg.window else max_len
+    shape = (n_layers, batch, rows, cfg.n_kv_heads)
     return {"k": torch.zeros(*shape, cfg.hd, dtype=dtype, device=device),
             "v": torch.zeros(*shape, cfg.vhd, dtype=dtype, device=device)}
 

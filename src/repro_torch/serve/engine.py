@@ -3,15 +3,24 @@
 
   * a fixed number of **slots** (the decode batch dimension) hold in-flight
     requests;
-  * **prefill** runs one request at a time through ``decode_step`` over its
-    prompt, padded up to a multiple of ``prefill_bucket`` as the JAX engine
-    pads it, writing the slot's rows of the batched cache in place (the
-    token-parallel prefill is the model's ``forward``);
+  * **prefill** zeroes the slot's rows of every cache buffer (KV, recurrent
+    state, conv window), then runs one request at a time through
+    ``decode_step`` over its prompt's tokens, writing the slot's rows of the
+    batched cache in place (the token-parallel prefill is the model's
+    ``forward``).  The JAX engine scans its bucket, padding included, from
+    the slot's old state: the same tokens for a KV cache, whose padded rows
+    are rewritten before they are read, and other tokens for a recurrent
+    state, which takes in the padding (ROADMAP.md C);
   * **decode** steps all slots together: one batched ``decode_step`` with a
     (slots,) position tensor, each slot at its own position (the JAX engine
     ``vmap``s a scalar-position step over the slots instead);
   * finished requests (EOS or max_tokens) free their slot at once; the
     scheduler admits the longest-waiting request first (FCFS).
+
+The encoder-decoder family is refused: the engine has no slot axis for its
+cross memory and a ``Request`` carries no frames (serve it through
+``encdec.prefill_cross`` and ``decode_step``; the JAX engine cannot serve it
+either).
 
 Sampling: the first token of a request is the argmax of its last prompt
 logit; later tokens are greedy, or with ``greedy=False`` drawn as
@@ -54,7 +63,6 @@ class Request:
 class ServeConfig:
     slots: int = 8                     # decode batch size
     max_len: int = 2048                # cache capacity per slot
-    prefill_bucket: int = 256          # prompts padded up to a multiple
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
@@ -64,6 +72,10 @@ class ServingEngine:
     """Single-controller continuous-batching engine over a ``ModelAPI``."""
 
     def __init__(self, api, params, config: ServeConfig):
+        if api.cfg.family == "encdec":
+            raise ValueError("ServingEngine: the encdec family is not served: the engine has "
+                             "no slot axis for the cross memory and a Request has no frames "
+                             "(use encdec.prefill_cross and decode_step)")
         self.api = api
         self.params = params
         self.cfg = config
@@ -78,6 +90,10 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ public
     def submit(self, req: Request) -> None:
+        p = len(req.prompt)
+        if not 0 < p < self.cfg.max_len:
+            raise ValueError(f"ServingEngine: a prompt of {p} tokens; the cache holds "
+                             f"{self.cfg.max_len} a slot")
         req.submitted_at = time.time()
         req.generated = []
         self.queue.append(req)
@@ -103,10 +119,6 @@ class ServingEngine:
             self._prefill_into_slot(req, slot)
             self.live[slot] = req
 
-    def _bucket(self, n: int) -> int:
-        b = self.cfg.prefill_bucket
-        return min(((n + b - 1) // b) * b, self.cfg.max_len)
-
     def _slot_cache(self, slot: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Views of one slot's rows (axis 1 of every (L, slots, ...) buffer):
         a decode step on them writes the batched cache in place."""
@@ -114,21 +126,18 @@ class ServingEngine:
                 for group, bufs in self.cache.items()}
 
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
-        """Run the prompt through decode steps into this slot's cache rows."""
+        """Run the prompt through decode steps into this slot's zeroed rows."""
         p = len(req.prompt)
-        bucket = self._bucket(p)
-        toks = np.zeros(bucket, np.int64)
-        toks[:p] = req.prompt
-        toks = torch.from_numpy(toks).to(self.device)
+        toks = torch.from_numpy(np.asarray(req.prompt, np.int64)).to(self.device)
         slot_cache = self._slot_cache(slot)
-        last = None
-        for i in range(bucket):
+        for bufs in slot_cache.values():
+            for buf in bufs.values():
+                buf.zero_()
+        for i in range(p):
             logits, _ = self.api.decode_step(self.params, slot_cache, toks[i:i + 1, None], i)
-            if i == min(p, bucket) - 1:
-                last = logits[0, 0]
         self.pos[slot] = p
         # first generated token from the last prompt logit
-        req.generated.append(int(torch.argmax(last)))
+        req.generated.append(int(torch.argmax(logits[0, 0])))
         self.prefills += 1
 
     def _step(self, finished: List[Request]) -> None:

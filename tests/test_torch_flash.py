@@ -8,7 +8,8 @@
   JAX test's own bounds (the two bf16 outputs may round a float32 value to
   neighbouring bf16 values).
 * With the default blocks (512 × 1024) against the JAX package's
-  ``models/flash.py`` over several q blocks, within 2e-5.
+  ``models/flash.py`` over several q blocks, within 2e-5; non-causal with
+  q and k of different lengths (cross-attention) too.
 * The card's padding of head dims outside its table (``pad_head_dims``):
   q, k and v zero-padded, the plain attention at the true scale, then
   sliced, equals the unpadded plain attention bit for bit at hd 18, 24 and
@@ -78,6 +79,23 @@ def test_default_blocks_match_jax_flash():
     _close(got, j_flash_attention(jq, jk, jv, causal=True), 2e-5)
     got_w = flash_attention(tq, tk, tv, causal=True, window=300)
     _close(got_w, j_flash_attention(jq, jk, jv, causal=True, window=300), 2e-5)
+
+
+@pytest.mark.parametrize("sq,sk,hd,block_k", [(512, 768, 64, 1024), (512, 1536, 64, 512),
+                                              (24, 40, 128, 1024)])
+def test_cross_lengths_match_jax_flash(sq, sk, hd, block_k):
+    """Non-causal attention with q and k of different lengths (encdec's
+    cross-attention), against JAX's blockwise forward and the materialised
+    reference; ``block_k`` divides S_k."""
+    g = np.random.default_rng(sq + sk)
+    shapes = ((2, sq, 4, hd), (2, sk, 4, hd), (2, sk, 4, hd))
+    q, k, v = (g.standard_normal(sh).astype(np.float32) for sh in shapes)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=False,
+                          block_k=block_k)
+    assert got.shape == (2, sq, 4, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(got, j_flash_attention(jq, jk, jv, causal=False, block_k=block_k), 2e-5)
+    _close(got, j_attention_ref(jq, jk, jv, causal=False), 2e-5)
 
 
 def test_kernel_op_on_cpu_runs_the_plain_version():

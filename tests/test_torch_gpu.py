@@ -44,7 +44,13 @@ scatter kernel equals its plain version on the CPU bit for bit, so
 ``torch_dense``'s card w equals the CPU's; flash attention pads head dims
 outside its table (18, 24, 112, and 192 against a v head dim of 128) within
 the same bounds; ``jax_shard`` on a 1×1 grid takes the CPU's coordinates and
-w bit for bit, launching only the scatter kernel.
+w bit for bit, launching only the scatter kernel.  Flash attention also runs
+non-causal with q and k of different lengths (encdec's cross-attention, hd
+64 and 128) and at recurrentgemma's local shape (window 2,048 over S =
+4,096, hd 256, one kv head); mamba's, rglru's and encdec's smoke LMs have
+their forward on the card against the CPU's within 1e-4, and their decode ≡
+forward within 5e-4, rglru's ring and a windowed dense config's past the
+window.
 """
 import dataclasses
 
@@ -562,6 +568,42 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, win
     assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
 
 
+def _check_flash(got, want, dtype):
+    tol = 2e-5 if dtype == torch.float32 else 0.06
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        scale = torch.maximum(want.abs(), want.pow(2).mean(-1, keepdim=True).sqrt())
+        assert ((got.float() - want).abs() <= 4 * torch.finfo(torch.bfloat16).eps * scale).all()
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,hd", [(512, 1536, 16, 16, 64), (130, 300, 8, 2, 128),
+                                          (64, 20, 4, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_with_q_and_k_of_different_lengths(cuda, sq, sk, h, kv, hd, dtype):
+    """Non-causal, S_q ≠ S_k (encdec's cross-attention): against the
+    materialised oracle and the plain version (its k block divides S_k)."""
+    gen = torch.Generator().manual_seed(sq + sk + hd)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((2, sq, h, hd), (2, sk, kv, hd), (2, sk, kv, hd)))
+    got = flash_attention(q, k, v, causal=False)
+    assert got.shape == q.shape
+    _check_flash(got, attention_ref(q, k, v, causal=False), dtype)
+    block_k = 512 if sk % 512 == 0 else sk
+    _check_flash(got, flash_attention_plain(q, k, v, causal=False, block_k=block_k), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_recurrentgemmas_local_shape(cuda, dtype):
+    """Window 2,048 over S = 4,096 (the window masks), hd 256, MQA."""
+    gen = torch.Generator().manual_seed(4096)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, dtype)
+               for shape in ((1, 4096, 10, 256), (1, 4096, 1, 256), (1, 4096, 1, 256)))
+    got = flash_attention(q, k, v, causal=True, window=2048)
+    _check_flash(got, flash_attention_plain(q, k, v, causal=True, window=2048), dtype)
+    _check_flash(got, attention_ref(q, k, v, causal=True, window=2048), dtype)
+
+
 @pytest.mark.parametrize("hd,hdv", [(18, 18), (24, 24), (112, 112), (192, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_pads_head_dims_outside_the_table(cuda, hd, hdv, dtype):
@@ -668,6 +710,38 @@ def test_card_moe_batched_decode_with_row_positions_equals_row_decodes(cuda, arc
     torch.testing.assert_close(got, torch.cat(rows), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("arch,overrides,flash", [
+    ("falcon-mamba-7b", None, 0), ("recurrentgemma-2b", None, 1),
+    ("seamless-m4t-medium", None, 6), ("tinyllama-1.1b", {"window": 8}, 2)])
+def test_card_other_families_match_cpu_and_decode_past_the_window(cuda, arch, overrides,
+                                                                  flash):
+    """The forward on the card against the CPU's (``flash``: the forward's
+    launches), and decode ≡ forward over 40 tokens: past rglru's window of
+    32 and the dense ring's 8 (their rings wrap); encdec after
+    ``prefill_cross`` on 24 frames."""
+    from repro_torch.models import encdec
+    cpu_api = get_model(arch, smoke=True, device="cpu", overrides=overrides)
+    api = get_model(arch, smoke=True, device="cuda", overrides=overrides)
+    params_cpu = cpu_api.init(0)
+    params = _to(params_cpu, cuda)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(1, 200, (2, 40), generator=gen)
+    frames = torch.randn(2, 24, api.cfg.d_model, generator=gen)
+    batch = (lambda d: {"frames": frames.to(d), "tokens": toks.to(d)}) \
+        if api.cfg.family == "encdec" else toks.to
+    reset_launch_counts()
+    got = api.forward(params, batch(cuda))
+    assert launch_counts()["flash_attention"] == flash
+    torch.testing.assert_close(got.cpu(), cpu_api.forward(params_cpu, batch("cpu")), rtol=0,
+                               atol=1e-4)
+    cache = api.init_cache(2, 64)
+    if api.cfg.family == "encdec":
+        encdec.prefill_cross(params, cache, frames.to(cuda), api.cfg)
+    for t in range(40):
+        logits, cache = api.decode_step(params, cache, toks[:, t:t + 1].to(cuda), t)
+        assert float((logits[:, 0] - got[:, t]).abs().max()) < 5e-4, t
+
+
 def test_card_engine_matches_cpu_engine(cuda):
     cpu_api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
     api = get_model("tinyllama-1.1b", smoke=True, device="cuda")
@@ -677,7 +751,7 @@ def test_card_engine_matches_cpu_engine(cuda):
                for _ in range(5)]
     out = []
     for a, p in ((cpu_api, params_cpu), (api, _to(params_cpu, cuda))):
-        engine = ServingEngine(a, p, ServeConfig(slots=2, max_len=64, prefill_bucket=16))
+        engine = ServingEngine(a, p, ServeConfig(slots=2, max_len=64))
         for i, prompt in enumerate(prompts):
             engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=6))
         out.append({r.uid: r.generated for r in engine.run()})

@@ -7,7 +7,8 @@
   contract).
 * LM weights: ``lm_params`` carries an MoE config's leading dense layers
   and its expert stacks, each layer's ``(E, d, f)``, bit for bit in bf16,
-  with the router kept in float32.
+  with the router kept in float32; and mamba's, rglru's and encdec's
+  pytrees, one dict a layer.
 * Import purity: importing the port, the whole slice and ``chip_smoke``
   leaves ``jax`` and ``repro`` out of ``sys.modules``.
 """
@@ -139,6 +140,39 @@ def test_lm_params_carries_lead_blocks_expert_stacks_and_router(arch):
                           dataclasses.replace(cfg, first_dense_layers=2), "cpu")
 
 
+@pytest.mark.parametrize("arch,groups", [("falcon-mamba-7b", {"blocks": 2}),
+                                         ("seamless-m4t-medium",
+                                          {"enc_blocks": 2, "dec_blocks": 2}),
+                                         ("recurrentgemma-2b", {})])
+def test_lm_params_carries_the_other_families(arch, groups):
+    """mamba's and encdec's stacked layers become one dict a layer, rglru's
+    per-layer list stays a list; bf16 bits and float32 leaves as they are."""
+    from repro.models.registry import get_model as j_get_model
+    cfg = dataclasses.replace(j_smoke_config(arch), dtype="bfloat16")
+    jp = j_get_model(arch, smoke=True, overrides={"dtype": "bfloat16"}).init(
+        jax.random.PRNGKey(0))
+    tp = interop.lm_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    assert set(tp) == set(jp)
+    layers = {name: [(jax.tree.map(lambda a: a[i], jp[name]), tp[name][i]) for i in range(n)]
+              for name, n in groups.items()}
+    if not groups:                                   # rglru: "rra"
+        assert [sorted(b) for b in tp["blocks"]] == [["kind_r", "mlp"]] * 2 + [["kind_a", "mlp"]]
+        layers = {"blocks": list(zip(jp["blocks"], tp["blocks"]))}
+    for name, pairs in layers.items():
+        assert len(tp[name]) == len(pairs)
+        for jlayer, layer in pairs:
+            flat, jflat = jax.tree.leaves(layer), jax.tree.leaves(jlayer)
+            assert len(flat) == len(jflat)
+            for ours, theirs in zip(flat, jflat):
+                theirs = np.asarray(theirs)
+                assert tuple(ours.shape) == theirs.shape
+                assert (ours.dtype == torch.bfloat16) == (theirs.dtype.name == "bfloat16")
+                np.testing.assert_array_equal(ours.float().numpy(), theirs.astype(np.float32))
+    with pytest.raises(ValueError, match="layers"):
+        interop.lm_params(jax.tree.map(np.asarray, jp),
+                          dataclasses.replace(cfg, n_layers=4, enc_layers=3, dec_layers=3), "cpu")
+
+
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     code = (
         "import sys, importlib\n"
@@ -152,7 +186,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "        'repro_torch.configs.llama3_2_1b', 'repro_torch.models.config',\n"
         "        'repro_torch.configs.minicpm_2b', 'repro_torch.configs.nemotron_4_15b',\n"
         "        'repro_torch.configs.chameleon_34b', 'repro_torch.configs.deepseek_v2_236b',\n"
-        "        'repro_torch.configs.kimi_k2_1t_a32b',\n"
+        "        'repro_torch.configs.kimi_k2_1t_a32b', 'repro_torch.models.mamba',\n"
+        "        'repro_torch.configs.falcon_mamba_7b', 'repro_torch.models.rglru',\n"
+        "        'repro_torch.configs.recurrentgemma_2b', 'repro_torch.models.encdec',\n"
+        "        'repro_torch.configs.seamless_m4t_medium',\n"
         "        'repro_torch.models.flash', 'repro_torch.models.common',\n"
         "        'repro_torch.models.transformer', 'repro_torch.models.registry',\n"
         "        'repro_torch.kernels.flash_attention.ref', 'repro_torch.serve.engine',\n"
@@ -164,8 +201,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "from repro_torch.models.registry import get_model\n"
         "api = get_model('tinyllama-1.1b', smoke=True, device='cpu')\n"
         "api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
-        "api = get_model('deepseek-v2-236b', smoke=True, device='cpu')\n"
-        "api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
+        "for arch in ('deepseek-v2-236b', 'falcon-mamba-7b', 'recurrentgemma-2b',\n"
+        "             'seamless-m4t-medium'):\n"
+        "    api = get_model(arch, smoke=True, device='cpu')\n"
+        "    api.forward(api.init(0), torch.ones(1, 4, dtype=torch.long))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")

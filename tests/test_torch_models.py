@@ -3,8 +3,9 @@
 Both packages run the same weights (the JAX ``lm_init`` pytree carried over
 by ``interop.lm_params``) and the same tokens, in float32:
 
-* the configs are field-for-field copies (``param_count`` included), and
-  every arch the port does not have yet is refused;
+* the configs of all ten archs are field-for-field copies (``param_count``
+  included); an unknown arch and training (``lm_loss``, A13d) are refused
+  for every family;
 * ``rmsnorm``, ``rope``, ``ffn_apply``, ``attn_apply`` (or ``mla_apply``)
   and ``moe_apply`` within 1e-5;
 * ``forward`` logits (and ``last_only``) within 1e-4, ``decode_step``
@@ -18,6 +19,9 @@ by ``interop.lm_params``) and the same tokens, in float32:
 * the port's own decode ≡ forward within 5e-4 (``tests/test_models_smoke.py``'s
   bound), and one batched decode with a position per row equals per-row
   decodes (the serving engine's step);
+* a dense config with a window decodes through a ring of the window's rows:
+  JAX's decode while the position is inside the window, the windowed
+  forward past it (where JAX's clamped write diverges);
 * ``lm_batches`` gives the JAX package's tokens; ``init`` is seeded.
 """
 import dataclasses
@@ -35,7 +39,7 @@ from repro.models import common as jcm
 from repro.models import transformer as jtf
 from repro.models.registry import get_model as j_get_model
 from repro_torch import interop
-from repro_torch.configs import ARCH_IDS, PORTED, get_config, smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
@@ -43,7 +47,8 @@ from repro_torch.models.registry import get_model
 
 ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "minicpm-2b", "nemotron-4-15b", "chameleon-34b",
          "deepseek-v2-236b", "kimi-k2-1t-a32b"]
-UNPORTED = ["seamless-m4t-medium", "falcon-mamba-7b", "recurrentgemma-2b"]   # A13c
+FAMILIES = {"dense": "tinyllama-1.1b", "moe": "deepseek-v2-236b", "ssm": "falcon-mamba-7b",
+            "hybrid": "recurrentgemma-2b", "encdec": "seamless-m4t-medium"}
 
 
 def _t(x):
@@ -67,34 +72,30 @@ def _tokens(seed, b=2, s=20):
     return np.random.default_rng(seed).integers(1, 200, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_are_copies(arch):
     for ours, theirs in ((get_config(arch), j_get_config(arch)),
                          (smoke_config(arch), j_smoke_config(arch))):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert ours.param_count() == theirs.param_count()
-        assert (ours.padded_vocab, ours.hd, ours.pattern()) == \
-            (theirs.padded_vocab, theirs.hd, theirs.pattern())
+        assert (ours.padded_vocab, ours.hd, ours.pattern(), ours.dt_rank_,
+                ours.is_subquadratic) == (theirs.padded_vocab, theirs.hd, theirs.pattern(),
+                                          theirs.dt_rank_, theirs.is_subquadratic)
 
 
 def test_unported_archs_are_refused():
-    assert set(PORTED) == set(ARCHS)
-    assert sorted(set(ARCH_IDS) - set(PORTED)) == sorted(UNPORTED)
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
-            get_model(arch, smoke=True, device="cpu")
+    """Only an unknown arch is refused; every family refuses training (A13d)."""
+    assert sorted(get_config(arch).family for arch in ARCH_IDS) == sorted(
+        ["encdec", "ssm", "dense", "dense", "dense", "dense", "dense", "moe", "moe", "hybrid"])
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    api = get_model("tinyllama-1.1b", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13d"):
-        api.loss(api.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
-        get_model("tinyllama-1.1b", smoke=True, device="cpu",
-                  overrides={"window": 8}).init_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13c"):
-        get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides={"family": "ssm"})
+    with pytest.raises(KeyError):
+        get_model("gpt-2", smoke=True, device="cpu")
+    for family, arch in FAMILIES.items():
+        api = get_model(arch, smoke=True, device="cpu")
+        assert api.cfg.family == family
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13d"):
+            api.loss(api.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
 
 
 def test_norm_rope_ffn_attn_match_jax(pair):
@@ -174,6 +175,32 @@ def test_decode_step_matches_jax_and_forward(pair):
             np.testing.assert_allclose(buf.numpy(), _np(jcache[group][name]), rtol=0, atol=1e-5)
     full = api.forward(tp, torch.from_numpy(toks).long())
     assert float((full[:, -1] - tl[:, 0]).abs().max()) < 5e-4
+
+
+@pytest.fixture(scope="module")
+def windowed():
+    """tinyllama-1.1b's smoke widths with an 8-position window, both packages."""
+    japi = j_get_model("tinyllama-1.1b", smoke=True, overrides={"window": 8})
+    jp = japi.init(jax.random.PRNGKey(2))
+    api = get_model("tinyllama-1.1b", smoke=True, device="cpu", overrides={"window": 8})
+    return japi, jp, api, interop.lm_params(jax.tree.map(np.asarray, jp), api.cfg, "cpu")
+
+
+def test_windowed_ring_equals_jax_inside_the_window_and_the_forward_past_it(windowed):
+    japi, jp, api, tp = windowed
+    toks = _tokens(9, s=14)
+    full = api.forward(tp, torch.from_numpy(toks).long())
+    jfull = _np(japi.forward(jp, jnp.asarray(toks)))
+    np.testing.assert_allclose(full.numpy(), jfull, rtol=0, atol=1e-4)
+    jcache, cache = japi.init_cache(2, 32), api.init_cache(2, 32)
+    assert cache["main"]["k"].shape[2] == 8                          # min(window, max_len)
+    for t in range(14):
+        jl, jcache = japi.decode_step(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                      jnp.asarray(t, jnp.int32))
+        tl, cache = api.decode_step(tp, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        assert float((full[:, t] - tl[:, 0]).abs().max()) < 5e-4, t
+        if t < 8:       # past the window JAX's clamped write leaves its forward (ROADMAP.md C)
+            np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=0, atol=1e-4)
 
 
 def test_batched_decode_with_row_positions_equals_row_decodes(pair):

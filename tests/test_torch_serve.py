@@ -10,8 +10,17 @@ The MoE smoke configs (``deepseek-v2-236b``: MLA's latent cache, a leading
 dense layer; ``kimi-k2-1t-a32b``) must emit the JAX engine's tokens too:
 the port's batched step routes all slots' tokens at capacity = slots, the
 JAX engine's vmapped step each slot at capacity 1.
+
+The recurrent families (``falcon-mamba-7b``'s SSM state, ``recurrentgemma-2b``'s
+RG-LRU state and attention ring) must emit, request by request, the tokens
+of a one-request greedy decode through JAX's ``lm_decode_step`` from a zero
+state — the JAX engine's own tokens differ, since its prefill feeds the
+state the bucket's padding (ROADMAP.md C) — with more requests than slots,
+prompts that do not fill the bucket and, for rglru, positions past the
+window.  The encoder-decoder family is refused.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -65,8 +74,9 @@ def test_moe_engine_generates_the_jax_engines_tokens(moe_lms, greedy):
 
 def _same_tokens(japi, jp, api, tp, greedy):
     prompts = _prompts(3, 5)
-    kw = dict(slots=2, max_len=64, prefill_bucket=16, greedy=greedy, temperature=0.7, seed=4)
-    want = _serve(JServingEngine(japi, jp, JServeConfig(**kw)), JRequest, prompts, 6)
+    kw = dict(slots=2, max_len=64, greedy=greedy, temperature=0.7, seed=4)
+    want = _serve(JServingEngine(japi, jp, JServeConfig(prefill_bucket=16, **kw)),
+                  JRequest, prompts, 6)
     engine = ServingEngine(api, tp, ServeConfig(**kw))
     got = _serve(engine, Request, prompts, 6)
     assert got == want
@@ -89,7 +99,7 @@ def _reference_generate(api, params, prompt, n_new, max_len=64):
 def test_engine_matches_reference_and_reuses_slots(lms):
     _, _, api, tp = lms
     prompts = _prompts(4, 7, 4, 5)
-    got = _serve(ServingEngine(api, tp, ServeConfig(slots=2, max_len=32, prefill_bucket=8)),
+    got = _serve(ServingEngine(api, tp, ServeConfig(slots=2, max_len=32)),
                  Request, prompts, 3)
     assert sorted(got) == list(range(7)) and all(len(g) == 3 for g in got.values())
     for i, p in enumerate(prompts):
@@ -99,9 +109,54 @@ def test_engine_matches_reference_and_reuses_slots(lms):
 def test_eos_stops_early(lms):
     _, _, api, tp = lms
     prompt = _prompts(5, 1, 4, 5)[0]
-    first = _serve(ServingEngine(api, tp, ServeConfig(slots=1, max_len=32, prefill_bucket=8)),
+    first = _serve(ServingEngine(api, tp, ServeConfig(slots=1, max_len=32)),
                    Request, [prompt], 4)[0][0]
-    engine = ServingEngine(api, tp, ServeConfig(slots=1, max_len=32, prefill_bucket=8))
+    engine = ServingEngine(api, tp, ServeConfig(slots=1, max_len=32))
     engine.submit(Request(uid=0, prompt=prompt, max_new_tokens=10, eos_id=first))
     out = engine.run()[0]
     assert len(out.generated) < 10 and out.generated[-1] == first
+
+
+@pytest.fixture(scope="module", params=["falcon-mamba-7b", "recurrentgemma-2b"])
+def recurrent_lms(request):
+    return _lms(request.param)
+
+
+def _jax_generate(japi, jp, prompt, n_new, max_len):
+    """Greedy decode of one request through JAX's ``lm_decode_step``, from a zero state."""
+    cache = japi.init_cache(1, max_len)
+    step = lambda cache, tok, t: japi.decode_step(jp, cache, jnp.asarray([[tok]], jnp.int32),
+                                                  jnp.asarray(t, jnp.int32))
+    for t, tok in enumerate(prompt):
+        logits, cache = step(cache, int(tok), t)
+    out = [int(jnp.argmax(logits[0, 0]))]
+    while len(out) < n_new:
+        logits, cache = step(cache, out[-1], len(prompt) + len(out) - 1)
+        out.append(int(jnp.argmax(logits[0, 0])))
+    return out
+
+
+def test_recurrent_engine_generates_a_one_request_jax_decodes_tokens(recurrent_lms):
+    japi, jp, api, tp = recurrent_lms
+    prompts = _prompts(6, 5, 21, 37)            # the rglru smoke window is 32
+    assert any(len(p) % 16 for p in prompts)
+    engine = ServingEngine(api, tp, ServeConfig(slots=2, max_len=64))
+    got = _serve(engine, Request, prompts, 6)
+    assert sorted(got) == list(range(5)) and engine.prefills == 5
+    for i, p in enumerate(prompts):
+        assert got[i] == _jax_generate(japi, jp, p, 6, 64), i
+
+
+def test_engine_refuses_the_encoder_decoder():
+    api = get_model("seamless-m4t-medium", smoke=True, device="cpu")
+    with pytest.raises(ValueError, match="encdec family is not served"):
+        ServingEngine(api, api.init(0), ServeConfig(slots=2, max_len=32))
+
+
+@pytest.mark.parametrize("length", [0, 32])
+def test_engine_refuses_a_prompt_the_cache_cannot_hold(lms, length):
+    _, _, api, tp = lms
+    engine = ServingEngine(api, tp, ServeConfig(slots=1, max_len=32))
+    with pytest.raises(ValueError, match="a prompt of"):
+        engine.submit(Request(uid=0, prompt=np.ones(length, np.int32), max_new_tokens=2))
+    assert not engine.queue
