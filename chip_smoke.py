@@ -82,6 +82,19 @@ decode steps timed, no engine serves it); and flash against SDPA at MLA's
 seamless' cross-attention (1,024 tokens against 1,536 frames), each at its
 arch's forward shape.
 
+Last (``lm_train``), training on the card: flash attention's backward kernel
+(``flash_attention_bwd.cu``) against its plain version at tinyllama's
+training shape (bf16 and float32), MLA's (192, 128), kimi-k2's 112,
+recurrentgemma's window and seamless' cross-attention, timed against its
+bound, the plain version and SDPA's backward; ``tinyllama-1.1b`` at full
+width and depth trained 30 steps of 8 × 2,048 tokens in bf16 with adamw
+through ``launch.train.train_lm`` (the loss must fall 0.3 nats; 3 steps
+profiled); a float32 step at 2 of 22 layers on the card against the CPU;
+a checkpoint resume equal to the straight run; deepseek-v2 (adafactor,
+capacity factor 1.25), kimi-k2, falcon-mamba, recurrentgemma and seamless
+at full width and a cut depth, two steps each; and
+``launch.train.train_lasso`` at rcv1's shape against ``solve``.
+
 Phases print one JSON line each and raise on any failure (non-zero exit).
 The last three lines are the card's name and power limit as ``nvidia-smi``
 reports them, the ``{"kernels": [...]}`` record and
@@ -143,7 +156,9 @@ from repro_torch.kernels.coord_update.ref import (bitwise_rule_mismatches,  # no
                                                   coord_update_lanes_ref, coord_update_ref,
                                                   same_bits)
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_bwd, flash_attention_with_lse)
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import pad_head_dims, padded_head_dim  # noqa: E402
 from repro_torch.kernels.scatter import scatter_add_ordered  # noqa: E402
 from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref  # noqa: E402
@@ -157,6 +172,7 @@ from repro_torch.launch.shard import free_port, run_ranks, solve_rank  # noqa: E
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import encdec, mamba  # noqa: E402
+from repro_torch.models.flash import _flash_bwd  # noqa: E402
 from repro_torch.models.flash import flash_attention as flash_attention_plain  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve import FitRequest, FitService, FitServiceConfig  # noqa: E402
@@ -614,7 +630,7 @@ def phase_main_path(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"coord_update": T_MAIN, "two_level_draw": T_MAIN if private else 0,
-                "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0,
+                "ell_rmatvec": 2, "ell_matvec": 0, "flash_attention": 0, "flash_attention_bwd": 0,
                 "two_level_draw_lanes": 0, "coord_update_lanes": 0, "scatter_add_ordered": 0}
         require(counts == want, f"launch counts {counts}, expected {want}")
         require(two_level_draw.rebuilds == int(private),
@@ -812,7 +828,8 @@ def phase_alg1(pcsr, pcsc, y) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         want = {"ell_matvec": T_MAIN, "ell_rmatvec": T_MAIN + 1, "coord_update": 0,
-                "two_level_draw": 0, "flash_attention": 0, "two_level_draw_lanes": 0,
+                "two_level_draw": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+                "two_level_draw_lanes": 0,
                 "coord_update_lanes": 0, "scatter_add_ordered": 0}
         require(counts == want, f"Alg 1 {sel}: launch counts {counts}, expected {want}")
         gaps, losses = res.gaps.cpu().numpy(), res.losses.cpu().numpy()
@@ -2459,8 +2476,8 @@ def _screened_launches(cfg: FWConfig, rounds: list) -> dict:
     products at every round's query."""
     due, fired = len(rounds), sum(r["repacked"] for r in rounds)
     want = dict.fromkeys(("ell_matvec", "ell_rmatvec", "coord_update", "two_level_draw",
-                          "flash_attention", "two_level_draw_lanes", "coord_update_lanes",
-                          "scatter_add_ordered"), 0)
+                          "flash_attention", "flash_attention_bwd", "two_level_draw_lanes",
+                          "coord_update_lanes", "scatter_add_ordered"), 0)
     if cfg.backend == "torch_sparse":
         want.update(coord_update=cfg.steps, ell_rmatvec=2,
                     two_level_draw=cfg.steps if cfg.queue == "two_level" else 0)
@@ -4034,6 +4051,488 @@ def arch_flash_rows(archs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# lm_train: training on the card (flash attention's backward kernel, lm_loss,
+# the optimizers, the trainer, the loader, the checkpointer, launch/train.py)
+# ---------------------------------------------------------------------------
+
+# tinyllama-1.1b at full width and depth through launch.train.train_lm: B x S tokens a
+# step, steps, lr (cosine after max(steps // 20, 5) warm-up steps), the steps profiled
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_PROFILED = \
+    "tinyllama-1.1b", 8, 2048, 30, 1e-3, 3
+# the JAX package's learning criterion (tests/test_trainer_data.py): the mean loss of
+# the last 5 steps at least this far below the first 5's
+TRAIN_LOSS_FALL = 0.3
+# card against CPU, float32, the same weights: tinyllama at 2 of 22 layers, full width,
+# B x S; bounds set before the first run: the loss within 1e-5 (relative), grad_norm
+# within 1e-4 (relative), each gradient leaf's max |card - cpu| within 5e-4 of its max
+# |cpu| (cuBLAS and the kernels sum in other orders than the CPU)
+TRAIN_F32_LAYERS, TRAIN_F32_B, TRAIN_F32_S = 2, 1, 256
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GNORM_RTOL, TRAIN_F32_GRAD_REL = 1e-5, 1e-4, 5e-4
+# resume (bf16, the same 2-layer shape): 6 steps straight against 3, save, restore, 3;
+# the params equal bit for bit (a leaf that is not is named, and then held to 1e-6 of
+# its norm)
+RESUME_STEPS, RESUME_REL = 6, 1e-6
+# the backward kernel against its plain version, bounds set before its first run:
+# float32 max |kernel - plain| <= 2e-5 max |plain| (float32 sums in other orders);
+# bf16 FLASH_TOL and FLASH_BF16_ULPS, the forward's two bounds, the spacings taken at
+# max(|plain|, the row's RMS over hd, the tensor's RMS): a gradient row whose terms
+# cancel (a causal first query's dq) is ~0 in both, apart by float32 rounding of terms
+# of the tensor's size
+BWD_F32_REL = 2e-5
+# (name, arch, B, S_q, S_k, causal, window, dtype): tinyllama's training shape in both
+# dtypes, then the other families' at their training runs' shapes
+BWD_ROWS = (
+    ("flash_attention_bwd", "tinyllama-1.1b", 8, 2048, 2048, True, 0, torch.bfloat16),
+    ("flash_attention_bwd_f32", "tinyllama-1.1b", 8, 2048, 2048, True, 0, torch.float32),
+    ("flash_attention_bwd_mla", "deepseek-v2-236b", 1, 2048, 2048, True, 0, torch.bfloat16),
+    ("flash_attention_bwd_hd112", "kimi-k2-1t-a32b", 1, 1024, 1024, True, 0, torch.bfloat16),
+    ("flash_attention_bwd_window2048", "recurrentgemma-2b", 1, 4096, 4096, True, 2048,
+     torch.bfloat16),
+    ("flash_attention_bwd_cross", "seamless-m4t-medium", 4, 1024, 1536, False, 0,
+     torch.bfloat16),
+)
+# the other families, full width at a cut depth, each with its config's optimizer:
+# (overrides, B, S, frames, steps); deepseek at capacity_factor 1.25 (96 slots an expert);
+# kimi-k2 (1 + 1 layers, 64 of its 384 experts kept, as in its float32 parity run) so
+# that the hd-112 backward row has a training run at its shape
+TRAIN_FAMILIES = {
+    "deepseek-v2-236b": ({"n_layers": 2, "capacity_factor": 1.25}, 1, 2048, 0, 2),
+    "kimi-k2-1t-a32b": ({"n_layers": 2, "n_experts": 64}, 1, 1024, 0, 2),
+    "falcon-mamba-7b": ({"n_layers": 2}, 1, 2048, 0, 2),
+    "recurrentgemma-2b": ({"n_layers": 3}, 1, 4096, 0, 2),
+    "seamless-m4t-medium": ({"n_layers": 4, "enc_layers": 2, "dec_layers": 2}, 4, 1024,
+                            ENCDEC_TIMING_FRAMES, 2),
+}
+# train_lasso at paper_lasso.DATASETS["rcv1"], epsilon 1, T
+LASSO_T = 500
+
+
+def _train_args(arch: str, b: int, s: int, steps: int, **kw):
+    import argparse
+    base = dict(arch=arch, smoke=False, device=DEVICE, steps=steps, batch=b, seq=s,
+                lr=TRAIN_LR, microbatches=1, seed=0, ckpt_dir=None, ckpt_every=10 ** 9,
+                resume=False, dataset="rcv1", lam=LAM, epsilon=1.0, out=None)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+class bwd_shapes:
+    """Within the block, each backward launch of the attention op is tallied by
+    its shape and dtype (B, S_q, S_k, causal, window, dtype)."""
+
+    def __enter__(self):
+        self.launches = {}
+        self.bwd = bwd = fa_ops.flash_attention_bwd
+
+        def tally(q, k, v, out, dout, lse, *, causal=True, window=0):
+            # the wrapper counts on the module's name, which is this function
+            # inside the block: its counts are carried back to the wrapper's
+            tally.launches, tally.routes = 0, dict.fromkeys(bwd.routes, 0)
+            got = bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+            bwd.launches += tally.launches
+            for route, n in tally.routes.items():
+                bwd.routes[route] += n
+            key = (q.shape[0], q.shape[1], k.shape[1], causal, window, q.dtype)
+            self.launches[key] = self.launches.get(key, 0) + tally.launches
+            return got
+
+        fa_ops.flash_attention_bwd = tally
+        return self
+
+    def __exit__(self, *exc):
+        fa_ops.flash_attention_bwd = self.bwd
+
+
+def _bwd_errors(grads, want, dtype) -> dict:
+    """max |d| of dq, dk, dv against the plain version, each held to its bound."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        w = w.float()
+        diff = (g.float() - w).abs()
+        ref = float(w.abs().max())
+        require(bool(torch.isfinite(g).all()), f"backward {name}: non-finite")
+        if dtype == torch.float32:
+            require(float(diff.max()) <= BWD_F32_REL * ref,
+                    f"backward {name}: max |d| {float(diff.max())} > {BWD_F32_REL} x {ref}")
+            out[name] = dict(max_abs_err=float(diff.max()), max_abs_plain=ref)
+        else:
+            tol = FLASH_TOL[torch.bfloat16]
+            scale = torch.maximum(torch.maximum(w.abs(), w.pow(2).mean(-1, keepdim=True).sqrt()),
+                                  w.pow(2).mean().sqrt())
+            ulps = float((diff / (torch.finfo(torch.bfloat16).eps * scale)).max())
+            require(bool((diff <= tol + tol * w.abs()).all()) and ulps <= FLASH_BF16_ULPS,
+                    f"backward {name}: max |d| {float(diff.max())}, {ulps} bf16 ulps")
+            out[name] = dict(max_abs_err=float(diff.max()), max_abs_plain=ref,
+                             max_bf16_ulps_of_scale=ulps)
+    return out
+
+
+def lm_train_bwd_rows(launches: dict) -> list:
+    """The backward kernel at each of ``BWD_ROWS``' shapes, on seeded inputs:
+    the forward's out with the log-sum-exp output on, bit for bit the forward
+    without it; dq, dk, dv against the plain ``_flash_bwd`` on the card within
+    the bounds; timed against its bound (2.5x the forward's operations over the
+    keys each query sees, or the bytes), the plain version and SDPA's backward
+    (fwd+bwd less fwd, the backend it picks); ``launches``: the training runs'
+    backward launches at the row's shape."""
+    rows = []
+    for name, arch, b, sq, sk, causal, window, dtype in BWD_ROWS:
+        t0 = time.perf_counter()
+        cfg = get_model(arch).cfg
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        hd, hdv = cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd
+        gen = torch.Generator(DEVICE).manual_seed(hd + hdv + h + sq)
+        q, k, v, do = (torch.randn(dims, generator=gen, device=DEVICE).to(dtype)
+                       for dims in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hdv),
+                                    (b, sq, h, hdv)))
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+        require(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window)),
+                f"{name}: the log-sum-exp output changed the forward's out")
+        bwd = lambda: flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+        grads = bwd()
+        bq = min(512, sq)
+        plain_fn = lambda: _flash_bwd(causal, window, bq, plain_block_k(sk),
+                                      (q, k, v, out, lse), do)
+        want = plain_fn()
+        plain_dq = want[0]
+        errs = _bwd_errors(grads, want, dtype)
+        del want
+        require(all(torch.equal(a, c) for a, c in zip(grads, bwd())),
+                f"{name}: the backward's bits differ launch to launch")
+        del grads
+        ms = device_ms([bwd] * 5)
+        plain = device_ms([plain_fn] * 2)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = _window_mask(sq, sk, window) if window else None
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window, enable_gqa=h != kv)
+        sdpa_fb = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+        try:     # the yardstick only: no path of the port calls it
+            lib_dq = sdpa_fb()[0].transpose(1, 2)
+            lib = device_ms([sdpa_fb] * 3) - device_ms([sdpa] * 3)
+            lib_diff = float((lib_dq.float() - plain_dq.float()).abs().max())
+            lib_note = None
+        except RuntimeError as e:   # no SDPA backend takes this backward
+            lib, lib_diff, lib_note = None, None, str(e)[:200]
+        ops = 2.5 * attention_ops(b, sq, sk, h, (hd + hdv) / 2, causal, window)
+        # q, k, v, out, dout and lse read; dq, dk, dv written
+        nbytes = (q.element_size() * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
+                                      + do.numel()) + 4 * lse.numel())
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bd, by = bound(nbytes, ops, peak)
+        # bf16 rows: the training runs' backward launches at the row's shape; the
+        # float32 row: the float32 card step's (B = 1, S = 256; no float32 run
+        # trains at the row's shape)
+        n = launches.get((b, sq, sk, causal, window, dtype), 0)
+        at = (b, sq, sk)
+        if dtype == torch.float32:
+            n, at = launches.get("f32", 0), (TRAIN_F32_B, TRAIN_F32_S, TRAIN_F32_S)
+        require(n > 0, f"{name}: no training run launched the backward at {at}")
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/kernels/flash_attention/csrc/"
+                         "flash_attention_bwd.cu",
+                         replaces="none: no Pallas counterpart (the backward of the custom VJP "
+                         "of src/repro/models/flash.py:52, _flash_bwd at :114)",
+                         launches=n, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                         ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib,
+                         library="scaled_dot_product_attention fwd+bwd less fwd",
+                         library_max_abs_dq_diff=lib_diff, library_note=lib_note, errors=errs,
+                         shape=dict(arch=arch, b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, hdv=hdv,
+                                    causal=causal, window=window, dtype=str(dtype)),
+                         kernel_head_dim=padded_head_dim(hd, hdv), launches_at_shape=at,
+                         tflop_per_s=ops / ms / 1e9, seconds=time.perf_counter() - t0))
+        del q, k, v, do, out, lse, qt, kt, vt, dot, mask, plain_dq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_step_parity() -> dict:
+    """One float32 step of tinyllama at 2 of 22 layers, full width, on the card
+    against the port on the CPU from the same weights and tokens: loss,
+    grad_norm and every gradient leaf within the bounds."""
+    from repro_torch.train.optimizer import clip_by_global_norm, get_optimizer
+    from repro_torch.train.trainer import (TrainConfig, make_train_state, make_train_step,
+                                           tree_leaves)
+    over = {"n_layers": TRAIN_F32_LAYERS, "dtype": "float32"}
+    batch = next(lm_batches(get_model(TRAIN_ARCH).cfg.vocab, TRAIN_F32_B, TRAIN_F32_S, seed=1))
+    params = get_model(TRAIN_ARCH, overrides=over, device="cpu").init(0)
+    got = {}
+    for device in ("cpu", DEVICE):
+        api = get_model(TRAIN_ARCH, overrides=over, device=device)
+        p = _tree_to(params, device)
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        reset_launch_counts()
+        loss = api.loss(p, tb)
+        grads = torch.autograd.grad(loss, leaves)
+        _, gnorm = clip_by_global_norm(list(grads), 1.0)
+        counts = launch_counts()
+        got[device] = (float(loss.detach()), float(gnorm), [g.cpu() for g in grads], counts)
+        if device == DEVICE:
+            require(counts["flash_attention"] == 2 * TRAIN_F32_LAYERS
+                    and counts["flash_attention_bwd"] == TRAIN_F32_LAYERS,
+                    f"float32 step launches {counts}")
+            state = make_train_state(p, get_optimizer("adamw"), ("blocks",))
+            step = make_train_step(api.loss, TrainConfig(optimizer="adamw", peak_lr=TRAIN_LR))
+            _, m = step(state, tb)
+            require(abs(m["loss"] - got[device][0]) <= 1e-6 * abs(got[device][0])
+                    and m["skipped"] == 0.0,
+                    f"the step's loss {m['loss']} against {got[device][0]}")
+            f32_launches = flash_attention_bwd.routes["f32_cuda_cores"]
+        del p, leaves, grads
+    (lc, gc_, grads_c, _), (lg, gg, grads_g, _) = got["cpu"], got[DEVICE]
+    leaf_rel = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                   for a, c in zip(grads_g, grads_c))
+    require(abs(lg - lc) <= TRAIN_F32_LOSS_RTOL * abs(lc), f"float32 loss {lg} against {lc}")
+    require(abs(gg - gc_) <= TRAIN_F32_GNORM_RTOL * gc_, f"float32 grad_norm {gg} against {gc_}")
+    require(leaf_rel <= TRAIN_F32_GRAD_REL, f"float32 gradients: a leaf off by {leaf_rel}")
+    return dict(loss_card=lg, loss_cpu=lc, grad_norm_card=gg, grad_norm_cpu=gc_,
+                max_leaf_rel_err=leaf_rel, leaves=len(grads_c), f32_bwd_launches=f32_launches)
+
+
+def _train_resume() -> dict:
+    """bf16, tinyllama at 2 layers, full width: 6 steps straight against 3, a
+    Checkpointer save, a restore into a fresh state, then 3 more."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import TrainConfig, make_train_state, make_train_step
+    from repro_torch.train.tree import leaves_with_paths, tree_leaves
+    over = {"n_layers": TRAIN_F32_LAYERS}
+    api = get_model(TRAIN_ARCH, overrides=over)
+    tc = TrainConfig(optimizer="adamw", peak_lr=TRAIN_LR, total_steps=RESUME_STEPS, warmup=2)
+    stream = lm_batches(api.cfg.vocab, TRAIN_F32_B, TRAIN_F32_S, seed=2)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(stream).items()}
+               for _ in range(RESUME_STEPS)]
+    fresh = lambda seed: make_train_state(api.init(seed), get_optimizer("adamw"), ("blocks",))
+    straight, step = fresh(0), make_train_step(api.loss, tc)
+    for b in batches:
+        straight, _ = step(straight, b)
+    half = fresh(0)
+    for b in batches[:RESUME_STEPS // 2]:
+        half, _ = step(half, b)
+    # bf16 params and adamw's float32 m and v: 10 bytes a parameter, twice over
+    need = 2 * 10 * sum(t.numel() for t in tree_leaves(half.params))
+    tmp = tempfile.mkdtemp(prefix="lm_resume_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        require(free >= need, f"resume: {free} bytes free under {tmp}, need {need}")
+        t0 = time.perf_counter()
+        path = Checkpointer(tmp).save(half)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        del half
+        t0 = time.perf_counter()
+        resumed, meta = Checkpointer(tmp).restore(fresh(5))
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step2 = make_train_step(api.loss, tc)
+    for b in batches[RESUME_STEPS // 2:]:
+        resumed, _ = step2(resumed, b)
+    names = ([f"params/{n}" for n, _ in leaves_with_paths(straight.params)]
+             + [f"opt_state/{n}" for n, _ in leaves_with_paths(straight.opt_state)])
+    differ = {}
+    for n, a, c in zip(names, tree_leaves(resumed.params) + tree_leaves(resumed.opt_state),
+                       tree_leaves(straight.params) + tree_leaves(straight.opt_state)):
+        if not torch.equal(a.detach(), c.detach()):
+            differ[n] = float((a.float() - c.float()).norm() / c.float().norm().clamp_min(1e-30))
+    require(all(r <= RESUME_REL for r in differ.values()),
+            f"resume: leaves differ from the straight run {differ}")
+    return dict(step=meta["step"], bits_equal=not differ, differing_leaves=differ,
+                checkpoint_bytes=size, save_s=save_s, restore_s=restore_s,
+                disk_free_bytes=free)
+
+
+class recorded_drops:
+    """Within the block, each MoE layer's dropped share (``moe_apply``'s aux)."""
+
+    def __enter__(self) -> list:
+        self.calls, self.apply = [], model_common.moe_apply
+
+        def record(p, x, cfg, capacity=None):
+            y, aux = self.apply(p, x, cfg, capacity)
+            self.calls.append(float(aux["dropped"]))
+            return y, aux
+
+        model_common.moe_apply = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        model_common.moe_apply = self.apply
+
+
+def _train_family(arch: str, over: dict, b: int, s: int, frames: int, steps: int) -> dict:
+    """``steps`` bf16 training steps at full width and a cut depth, with the
+    config's optimizer: finite losses, no skip; step ms, peak memory."""
+    from repro_torch.launch.train import lm_state
+    from repro_torch.train.trainer import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api, tc, state = lm_state(_train_args(arch, b, s, steps, overrides=over))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = api.cfg
+    stream = lm_batches(cfg.vocab, b, s, seed=1)
+    rng = np.random.default_rng(3)
+    step = make_train_step(api.loss, tc)
+    losses, ms, drops = [], [], []
+    reset_launch_counts()
+    with bwd_shapes() as shapes, recorded_drops() as dropped:
+        for _ in range(steps):
+            batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(stream).items()}
+            if frames:
+                batch["frames"] = torch.from_numpy(
+                    rng.normal(size=(b, frames, cfg.d_model)).astype(np.float32)).to(DEVICE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(m["loss"])
+            require(m["skipped"] == 0.0 and np.isfinite(m["loss"]),
+                    f"{arch}: step skipped or loss {m['loss']}")
+        drops = list(dropped)
+    counts = launch_counts()
+    if cfg.family != "ssm":
+        require(counts["flash_attention_bwd"] > 0, f"{arch}: no backward kernel launch")
+    fields = dict(arch=arch, reduced=over, batch=b, seq=s, frames=frames or None,
+                  optimizer=cfg.optimizer, steps=steps, losses=losses, step_ms=ms,
+                  init_s=init_s, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches=counts, bwd_launches_by_shape=[
+                      dict(b=k[0], sq=k[1], sk=k[2], causal=k[3], window=k[4], dtype=str(k[5]),
+                           launches=n)
+                      for k, n in shapes.launches.items()])
+    if cfg.n_experts:
+        fields["moe_dropped_share"] = drops
+        fields["capacity"] = max(1, int(b * s * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    emit("lm_train_family", **fields)
+    del api, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, shapes=shapes.launches)
+
+
+def _train_lasso() -> dict:
+    """launch.train.train_lasso at DATASETS["rcv1"], epsilon 1, T = LASSO_T, on
+    the matrix its own generator call makes (made once here and handed to it);
+    its coordinates against a torch_sparse solve of that matrix with the
+    launcher's config (the generator's arguments differ from the solver
+    phases': nnz/row 73.2, not 74; 512 informative features, not 64; and
+    delta = 1/N^2, not 1e-6)."""
+    from repro_torch.configs.paper_lasso import DATASETS
+    from repro_torch.launch import train
+    args = _train_args("paper-lasso", 0, 0, LASSO_T)
+    ds = DATASETS["rcv1"]
+    t0 = time.perf_counter()
+    X, y = train.lasso_problem(ds, args.seed)
+    gen_s = time.perf_counter() - t0
+    lines = []
+    t0 = time.perf_counter()
+    got = train.train_lasso(args, log=lines.append, problem=(X, y))
+    wall = time.perf_counter() - t0
+    reset_launch_counts()
+    res = solve(host_to_padded(X, device=DEVICE), y, train.lasso_config(args, ds))
+    require(got["coords"] == res.coords.cpu().tolist(),
+            "train_lasso's coordinates differ from torch_sparse's on its matrix")
+    require(launch_counts()["coord_update"] == LASSO_T, "the solve ran no coord_update kernel")
+    return dict(lines=lines, accuracy=got["accuracy"], nnz=got["nnz"], gap=got["gap"],
+                solve_s=got["wall_s"], wall_s=wall, generate_s=gen_s, coords_equal=True)
+
+
+def phase_lm_train() -> tuple:
+    """Training on the card: the backward kernel's rows, tinyllama-1.1b's 30
+    full-width steps through ``launch.train.train_lm`` (the main path, counts
+    reset just before), its profiled steps, the float32 step against the CPU,
+    the resume, the other families, ``train_lasso``."""
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = _train_args(TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS)
+    lines = []
+    reset_launch_counts()
+    with bwd_shapes() as shapes:
+        t0 = time.perf_counter()
+        run = train.train_lm(args, log=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    routes, bwd_routes = dict(flash_attention.routes), dict(flash_attention_bwd.routes)
+    peak = torch.cuda.max_memory_allocated()
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    require(len(hist) == TRAIN_STEPS and all(np.isfinite(losses))
+            and not any(h["skipped"] for h in hist), f"tinyllama: losses {losses}")
+    fall = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    require(fall >= TRAIN_LOSS_FALL, f"tinyllama: the loss fell {fall} nats, not "
+            f">= {TRAIN_LOSS_FALL}")
+    n_layers = get_model(TRAIN_ARCH).cfg.n_layers
+    # remat: a layer's forward runs twice a step, its backward once
+    require(counts["flash_attention"] == 2 * n_layers * TRAIN_STEPS
+            and counts["flash_attention_bwd"] == n_layers * TRAIN_STEPS
+            and routes["bf16_tensor_cores"] == counts["flash_attention"]
+            and bwd_routes["bf16_tensor_cores"] == counts["flash_attention_bwd"],
+            f"tinyllama training launches {counts}, routes {routes}, {bwd_routes}")
+    step_ms = [h["sec"] * 1e3 for h in hist]
+    med = float(np.median(step_ms[4:]))
+    # the busy share of TRAIN_PROFILED steps (batches on the card before the window)
+    state, step_fn = run["state"], run["step_fn"]
+    stream = lm_batches(get_model(TRAIN_ARCH).cfg.vocab, TRAIN_B, TRAIN_S, seed=7)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(stream).items()}
+               for _ in range(TRAIN_PROFILED)]
+
+    def window():
+        nonlocal state
+        for b in batches:
+            state, _ = step_fn(state, b)
+
+    prof = profile_steps("lm_train", TRAIN_PROFILED, window, quiet=True, device_only=True)
+    busy = sum(prof["by_kernel"].values())
+    top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    del state, step_fn, run, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_train", arch=TRAIN_ARCH, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, losses=losses, loss_fall_first5_last5=fall,
+         step_ms=step_ms, step_ms_median_5_30=med,
+         tokens_per_s=TRAIN_B * TRAIN_S / (med / 1e3), wall_s=wall,
+         tokens_per_s_wall=TRAIN_STEPS * TRAIN_B * TRAIN_S / wall,
+         max_memory_allocated=peak, launches_per_step={k: v / TRAIN_STEPS for k, v in
+                                                       counts.items() if v},
+         profiled_steps=TRAIN_PROFILED, wall_ms_profiled=prof["wall_ms"],
+         device_busy_ms_per_step=busy / TRAIN_PROFILED,
+         device_idle_share=1.0 - busy / prof["wall_ms"],
+         top_device=[{"name": k[:80], "ms": v / TRAIN_PROFILED} for k, v in top],
+         log_tail=lines[-3:])
+    t1 = time.perf_counter()
+    parity = _train_step_parity()
+    emit("lm_train_f32_parity", seconds=time.perf_counter() - t1, **parity)
+    t1 = time.perf_counter()
+    resume = _train_resume()
+    emit("lm_train_resume", seconds=time.perf_counter() - t1, **resume)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(shapes.launches)
+    launches["f32"] = parity["f32_bwd_launches"]
+    family_counts = {}
+    for arch, (over, b, s, frames, steps) in TRAIN_FAMILIES.items():
+        got = _train_family(arch, over, b, s, frames, steps)
+        family_counts[arch] = got["counts"]
+        for key, n in got["shapes"].items():
+            launches[key] = launches.get(key, 0) + n
+    t1 = time.perf_counter()
+    lasso = _train_lasso()
+    emit("lm_train_lasso", seconds=time.perf_counter() - t1, **lasso)
+    t1 = time.perf_counter()
+    rows = lm_train_bwd_rows(launches)
+    emit("lm_train_bwd_rows", seconds=time.perf_counter() - t1)
+    emit("lm_train_phase", seconds=time.perf_counter() - t_phase)
+    return rows, dict(counts=counts, per_step=TRAIN_STEPS), family_counts
+
+
 def add_path_launches(kernels: list, paths: dict) -> None:
     """The launches of the later slices' paths beside each kernel's
     main-path count, a path's rebuild-only draws included: ``torch_dense``,
@@ -4124,17 +4623,26 @@ def main() -> int:
     phase_flash_head_dims()
     phase_shard_2x2_gloo()
     del X
-    # the other decoder archs, last and alone on the card
+    # the other decoder archs, alone on the card
     archs = phase_lm_archs()
     kernels.extend(flash_kernel_times(routes, f32_routes, flash_errs))
     kernels.append(shard["row"])
     kernels.extend(arch_flash_rows(archs))
+    # training, last: tinyllama-1.1b's steps (this slice's main path), the other families
+    bwd_rows, train_run, family_counts = phase_lm_train()
+    kernels.extend(bwd_rows)
+    for entry in kernels:
+        if entry["name"] == "flash_attention":
+            entry["launches_per_train_step"] = (train_run["counts"]["flash_attention"]
+                                                / train_run["per_step"])
     add_path_launches(kernels, {
         **{f"torch_dense_{r}": engines[r] for r in engines},
         **{f"reference_{r}": reference[r] for r in reference},
         "fit_service": service,
         **{f"jax_shard_{r}": dict(counts=c, rebuilds={}) for r, c in shard["counts"].items()},
-        **{f"lm_{arch}": dict(counts=run["counts"], rebuilds={}) for arch, run in archs.items()}})
+        **{f"lm_{arch}": dict(counts=run["counts"], rebuilds={}) for arch, run in archs.items()},
+        f"lm_train_{TRAIN_ARCH}": dict(counts=train_run["counts"], rebuilds={}),
+        **{f"lm_train_{arch}": dict(counts=c, rebuilds={}) for arch, c in family_counts.items()}})
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,2 +1,3 @@
-"""Snapshots of nested state (``repro.checkpoint`` counterpart, npz part)."""
-from repro_torch.checkpoint.checkpointer import restore_pytree, save_pytree  # noqa: F401
+"""Checkpoints of training state (``repro.checkpoint`` counterpart)."""
+from repro_torch.checkpoint.checkpointer import (Checkpointer, restore_pytree,  # noqa: F401
+                                                 save_pytree)

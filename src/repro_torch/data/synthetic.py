@@ -122,15 +122,24 @@ def make_markov_chain(vocab: int, seed: int, branching: int = 8):
 def lm_batches(vocab: int, batch: int, seq: int, seed: int = 0,
                frames_dim: Optional[int] = None,
                enc_frac: float = 0.5) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite stream of {"tokens": (B,S) int32} (+ "frames" for enc-dec)."""
+    """Infinite stream of {"tokens": (B,S) int32} (+ "frames" for enc-dec).
+
+    The JAX package's stream, token for token: its ``rng.choice(branching,
+    p=probs[c])`` per row draws one uniform u and takes the first index whose
+    normalised cumulative probability exceeds u; here the B rows' uniforms
+    are drawn at once (the same numbers, in the same order) and compared
+    with the same cumulative sums, so a position costs a few array ops, not
+    B Python calls."""
     succ, probs = make_markov_chain(vocab, seed)
+    cdf = probs.cumsum(axis=1)
+    cdf /= cdf[:, -1:]
     rng = np.random.default_rng(seed + 1)
     while True:
         toks = np.empty((batch, seq), dtype=np.int32)
         cur = rng.integers(0, vocab, size=batch)
         for t in range(seq):
             toks[:, t] = cur
-            choice = np.array([rng.choice(succ.shape[1], p=probs[c]) for c in cur])
+            choice = (cdf[cur] <= rng.random(batch)[:, None]).sum(axis=1)
             cur = succ[cur, choice]
         out = {"tokens": toks}
         if frames_dim is not None:

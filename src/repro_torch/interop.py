@@ -22,6 +22,7 @@ from repro_torch.core.samplers.two_level import TwoLevelSamplerState
 from repro_torch.core.solvers.torch_sparse import FWCarry
 from repro_torch.core.sparse.formats import PaddedCSC, PaddedCSR, TieredCSC
 from repro_torch.models.transformer import _split_groups
+from repro_torch.train.tree import leaf_paths, leaves_with_paths
 
 Fields = Mapping[str, object]
 
@@ -118,7 +119,7 @@ def _leaves(tree):
     return [tree]
 
 
-def _stacked_groups(cfg) -> Dict[str, int]:
+def stacked_groups(cfg) -> Dict[str, int]:
     """The pytree's layer groups stacked along axis 0, and their depths:
     rglru's ``blocks`` is a list of layers already (its layers differ)."""
     if cfg.family == "encdec":
@@ -141,7 +142,7 @@ def lm_params(params_np: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any
     Weights keep their ``(d_in, d_out)`` orientation, which is the port's
     too.  Dtypes are kept (the router stays float32).
     """
-    groups = _stacked_groups(cfg)
+    groups = stacked_groups(cfg)
 
     def convert(tree, layer=None):
         if isinstance(tree, Mapping):
@@ -162,4 +163,83 @@ def lm_params(params_np: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any
             raise ValueError(f"lm_params: {name} stack {sorted(stacked)} layers, the config "
                              f"has {n}")
         out[name] = [convert(params_np[name], i) for i in range(n)]
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy()
+    try:                                    # JAX's bfloat16, where numpy knows it
+        import ml_dtypes
+        return bits.view(ml_dtypes.bfloat16)
+    except ImportError:
+        return bits.view("V2")
+
+
+def _nest(flat: Mapping[str, Any]) -> Any:
+    """A nested tree from ``"a/b/c"`` paths; a level whose keys are 0..n-1
+    becomes a list (JAX's list of rglru layers)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node) and \
+                sorted(map(int, node)) == list(range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+def _flat_paths(tree) -> Dict[str, Any]:
+    return dict(leaves_with_paths(tree))
+
+
+def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The JAX ``lm_init`` pytree (numpy leaves) of the port's LM parameters:
+    the inverse of ``lm_params``, each of ``stacked_groups(cfg)`` stacked
+    along axis 0 (bfloat16 as ``ml_dtypes.bfloat16`` where it is installed,
+    else its raw two bytes)."""
+    groups = [name for name, n in stacked_groups(cfg).items() if n]
+    flat = {path: _to_numpy(torch.stack([t.detach() for t in ts]) if
+                            path.split("/")[0] in groups else ts[0])
+            for path, ts in leaf_paths(params, groups)}
+    return _nest(flat)
+
+
+def opt_state_to_numpy(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX optimizer state (numpy leaves) of the port's: adamw's ``{"m",
+    "v", "count"}``, adafactor's ``{"stats", "count"}`` with ``{"vr", "vc"}``
+    or ``{"v"}`` at each parameter's path (the port keeps them in JAX's
+    layout, keyed by path)."""
+    out: Dict[str, Any] = {"count": _to_numpy(state["count"])}
+    for name in ("m", "v", "stats"):
+        if name in state:
+            out[name] = _nest({k: _to_numpy(v) for k, v in _flat_paths(state[name]).items()})
+    return out
+
+
+def opt_state(tree_np: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's optimizer state from the JAX package's (numpy leaves)."""
+    out: Dict[str, Any] = {"count": _t(tree_np["count"], device, torch.int32)}
+    for name in ("m", "v"):
+        if name in tree_np:
+            out[name] = {k: _t(v, device, torch.float32)
+                         for k, v in _flat_paths(tree_np[name]).items()}
+    if "stats" in tree_np:
+        stats: Dict[str, Dict[str, torch.Tensor]] = {}
+        for k, v in _flat_paths(tree_np["stats"]).items():
+            path, stat = k.rsplit("/", 1)
+            stats.setdefault(path, {})[stat] = _t(v, device, torch.float32)
+        out["stats"] = stats
     return out

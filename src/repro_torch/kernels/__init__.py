@@ -10,7 +10,8 @@ are the lane forms of the draw and the update (B configs of a sweep group
 in one launch).
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``; ``flash_attention``, which has a kernel per dtype,
-also counts each route in ``flash_attention.routes``, and the draw kernel's
+also counts each route in ``flash_attention.routes`` (its backward,
+``flash_attention.flash_attention_bwd``, in ``flash_attention_bwd.routes``), and the draw kernel's
 rebuild-only launches (``bsls_draw.rebuild_touched``) count in
 ``two_level_draw.rebuilds`` (``two_level_draw_lanes.rebuilds`` for stacked
 state).
@@ -21,13 +22,14 @@ from typing import Dict
 
 from repro_torch.kernels.bsls_draw.ops import two_level_draw, two_level_draw_lanes
 from repro_torch.kernels.coord_update.ops import coord_update, coord_update_lanes
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
 from repro_torch.kernels.scatter.ops import scatter_add_ordered
 from repro_torch.kernels.spmv.ops import ell_matvec, ell_rmatvec
 
 WRAPPERS = {"ell_matvec": ell_matvec, "ell_rmatvec": ell_rmatvec,
             "two_level_draw": two_level_draw, "coord_update": coord_update,
-            "flash_attention": flash_attention, "two_level_draw_lanes": two_level_draw_lanes,
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "two_level_draw_lanes": two_level_draw_lanes,
             "coord_update_lanes": coord_update_lanes,
             "scatter_add_ordered": scatter_add_ordered}
 
@@ -40,5 +42,6 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     flash_attention.routes = dict.fromkeys(flash_attention.routes, 0)
+    flash_attention_bwd.routes = dict.fromkeys(flash_attention_bwd.routes, 0)
     two_level_draw.rebuilds = 0
     two_level_draw_lanes.rebuilds = 0

@@ -63,8 +63,8 @@ struct FaShape {
 template <typename T, int HD, int RM>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, int sq, int sk, int h, int kvh, int causal,
-                     int window, float scale) {
+                     T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
+                     int kvh, int causal, int window, float scale) {
   using S = FaShape<HD, RM>;
   constexpr int BQ = S::BQ, QS = S::QS, KS = S::KS, DM = HD / 8;
   extern __shared__ float smem[];
@@ -185,6 +185,10 @@ __global__ void __launch_bounds__(FA_THREADS)
     const int row = q_lo + ty + 16 * i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp (models/flash.py's m + log(max(l, 1e-30))) for the
+    // backward, (B, H, Sq) = JAX's (B, KV, G, Sq); l is the whole row's sum here
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(bi) * h + head) * sq + row] = m[i] + logf(den);
     T* o = out + (static_cast<long long>(bi) * sq + row) * q_stride + head * HD;
 #pragma unroll
     for (int d = 0; d < DM; ++d) o[tx + 8 * d] = acc[i][d] / den;
@@ -192,8 +196,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 }
 
 template <typename T, int HD, int RM>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
-           int h, int kvh, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
+           int sk, int h, int kvh, int causal, int window, float scale, cudaStream_t stream) {
   using S = FaShape<HD, RM>;
   auto kernel = flash_fwd_kernel<T, HD, RM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -202,22 +206,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   const dim3 grid((sq + S::BQ - 1) / S::BQ, h, b);
   kernel<<<grid, FA_THREADS, S::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, h, kvh, causal, window, scale);
+      static_cast<T*>(out), lse, sq, sk, h, kvh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int by_head_dim(int hd, const void* q, const void* k, const void* v, void* out, int b, int sq,
-                int sk, int h, int kvh, int causal, int window, float scale,
+int by_head_dim(int hd, const void* q, const void* k, const void* v, void* out, float* lse,
+                int b, int sq, int sk, int h, int kvh, int causal, int window, float scale,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 32: return launch<T, 32, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 64: return launch<T, 64, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 16: return launch<T, 16, 4>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 32: return launch<T, 32, 4>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 64: return launch<T, 64, 4>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
     case 128:
-      return launch<T, 128, 4>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+      return launch<T, 128, 4>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
     case 256:
-      return launch<T, 256, 2>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+      return launch<T, 256, 2>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -226,9 +230,11 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v, void* out, 
 
 // scale: the softmax scale 1/sqrt(true head dim) rounded to float32, as JAX
 // rounds it; the wrapper pads a head dim outside the table with zeros, which
-// add nothing to q·k, so the scale is the true one, not 1/sqrt(hd).
+// add nothing to q·k, so the scale is the true one, not 1/sqrt(hd).  lse: NULL,
+// or (B, H, Sq) float32 that takes each row's log-sum-exp (training's forward).
 extern "C" int port_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                    int b, int sq, int sk, int h, int kvh, int hd, int causal,
-                                    int window, float scale, cudaStream_t stream) {
-  return by_head_dim<float>(hd, q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+                                    float* lse, int b, int sq, int sk, int h, int kvh, int hd,
+                                    int causal, int window, float scale, cudaStream_t stream) {
+  return by_head_dim<float>(hd, q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale,
+                            stream);
 }

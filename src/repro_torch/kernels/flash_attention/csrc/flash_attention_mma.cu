@@ -48,15 +48,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "port_common.cuh"
 
 namespace {
+
+using namespace port::tc;
 
 constexpr int TC_THREADS = 128;   // 4 warps of 16 query rows
 constexpr int TC_BQ = 64;
 constexpr int TC_BK = 64;
 constexpr float TC_NEG = -1e30f;
 constexpr float TC_LOG2E = 1.4426950408889634f;
+constexpr float TC_LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct TcShape {
@@ -67,61 +71,6 @@ struct TcShape {
   static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 1; // resident blocks asked of ptxas
   static constexpr size_t BYTES = static_cast<size_t>(TC_BQ * LD + 4 * TILE) * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a·b for one m16n8k16 tile (bf16 in, float32 accumulators).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, one MUFU.EX2 (results below 2^-126 flush to zero)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // A (rows, HD) bf16 tile at `src` (row stride
 // `stride` elements, rows >= live zero-filled) into shared memory.
@@ -140,8 +89,8 @@ template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, TcShape<HD>::MIN_BLOCKS)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int sq, int sk, int h, int kvh, int causal, int window,
-                         float scale_log2) {
+                         float* __restrict__ lse, int sq, int sk, int h, int kvh, int causal,
+                         int window, float scale_log2) {
   using S = TcShape<HD>;
   constexpr int LD = S::LD;
   constexpr int NS = TC_BK / 8;   // score n-tiles per KV tile
@@ -307,6 +256,11 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<HD>::MIN_BLOCKS)
     const float inv = 1.0f / fmaxf(sum, 1e-30f);
     const int row = w_lo + g + 8 * r;
     if (row >= sq) continue;
+    // the log-sum-exp of the row's scaled scores, natural log (models/flash.py's
+    // m + log(max(l, 1e-30))), for the backward; (B, H, Sq) = JAX's (B, KV, G, Sq)
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<long long>(bi) * h + head) * sq + row] =
+          m[r] * TC_LN2 + logf(fmaxf(sum, 1e-30f));
     __nv_bfloat16* dst = out + (static_cast<long long>(bi) * sq + row) * q_stride + head * HD;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -316,8 +270,8 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<HD>::MIN_BLOCKS)
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk, int h,
-           int kvh, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
+           int sk, int h, int kvh, int causal, int window, float scale, cudaStream_t stream) {
   using S = TcShape<HD>;
   auto kernel = flash_fwd_mma_kernel<HD>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -327,23 +281,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   // scale (1/sqrt(hd) rounded to float32 as JAX rounds it) times log2(e)
   kernel<<<grid, TC_THREADS, S::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sq, sk, h, kvh,
-      causal, window, scale * TC_LOG2E);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, h,
+      kvh, causal, window, scale * TC_LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// lse: NULL, or (B, H, Sq) float32 that takes each row's log-sum-exp (training's
+// forward); `out` is the same either way.
 extern "C" int port_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                         int b, int sq, int sk, int h, int kvh, int hd,
-                                         int causal, int window, float scale,
+                                         float* lse, int b, int sq, int sk, int h, int kvh,
+                                         int hd, int causal, int window, float scale,
                                          cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 32: return launch<32>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 64: return launch<64>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 128: return launch<128>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
-    case 256: return launch<256>(q, k, v, out, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 16: return launch<16>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 32: return launch<32>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 64: return launch<64>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 128: return launch<128>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
+    case 256: return launch<256>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,10 +8,13 @@ token-parallel forward goes through the flash-attention kernel op, which
 launches the hand-written kernel on CUDA tensors and runs the plain
 blockwise version (``models/flash.py``) on CPU tensors.
 
-Here: GQA attention, the dense FFNs and the sort-based top-k MoE.  The
-chunked CE loss and ``blocked_attention`` come with training (ROADMAP
-A13d); the JAX package's sharding constraint is the identity on one device
-and has no counterpart.
+Here: GQA attention, the dense FFNs, the sort-based top-k MoE (with
+training's capacity factor, local groups and scatter combine) and the
+chunked cross-entropy of training (``ce_loss``).  Under autograd the
+attention's gradient comes from the kernel op's hand-written backward.  The
+JAX package's ``blocked_attention`` (its serving prefill, which the port
+runs through flash) and its sharding constraint (the identity on one
+device) have no counterpart.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -209,26 +213,47 @@ def _stack_init(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype) -> t
     return out
 
 
-def moe_apply(p, x, cfg: ModelConfig, capacity: int):
+def moe_apply(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
     """Top-k MoE with sort-based capacity dispatch.
 
-    x: (T, d) flattened tokens; ``capacity``: slots per expert.  Returns
-    (T, d) and the aux dict ``{"moe_aux", "dropped"}``.  The forward and
-    decode pass ``capacity = T``: an expert takes at most one lane a token,
-    so nothing is dropped.  The JAX package's capacity factor, its
-    ``moe_local_groups`` split and its ``"scatter"`` combine bound or shard
-    training's buffer; they come with ``lm_loss`` (ROADMAP.md A13d).
+    x: (T, d) flattened tokens; ``capacity``: slots per expert, or None for
+    training's ``int(T·k/E·capacity_factor)`` (at least 1), as the JAX
+    package computes it.  Returns (T, d) and the aux dict ``{"moe_aux",
+    "dropped"}``.  The forward and decode pass ``capacity = T``: an expert
+    takes at most one lane a token, so nothing is dropped.
 
-    The JAX package's order, step for step: softmax, a sorted top-k, the
-    gates normalised; a stable sort of the flat expert ids; each kept lane
-    at ``expert · cap + its rank`` in the expert's queue, a lane past the
-    capacity at the overflow slot ``E · cap`` (dropped).  The combine adds
-    each token's k terms in ``x.dtype`` in the sorted order, by increasing
-    expert id, as XLA's ``.at[token].add`` does on the CPU: here a gather
-    and k adds, so the card adds in that order too (no atomics).
+    ``cfg.moe_local_groups > 1`` (and dividing T): the tokens split into that
+    many groups, each routing its own tokens at the capacity of its T / g
+    (or ``capacity``); the aux terms are the groups' mean (JAX's vmap, then
+    ``tree_map(mean)``).
     """
+    g = cfg.moe_local_groups
+    t_all = x.shape[0]
+    if g > 1 and t_all % g == 0:
+        tl = t_all // g
+        cap = capacity or max(1, int(tl * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+        outs = [_moe_dispatch(p, x[i * tl:(i + 1) * tl], cfg, cap) for i in range(g)]
+        aux = {name: torch.stack([a[name] for _, a in outs]).mean() for name in outs[0][1]}
+        return torch.cat([y for y, _ in outs]), aux
+    cap = capacity or max(1, int(t_all * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return _moe_dispatch(p, x, cfg, cap)
+
+
+def _moe_dispatch(p, x, cfg: ModelConfig, cap: int):
+    """One group's dispatch, experts and combine, the JAX package's order
+    step for step: softmax, a sorted top-k, the gates normalised; a stable
+    sort of the flat expert ids; each kept lane at ``expert · cap + its
+    rank`` in the expert's queue, a lane past the capacity at the overflow
+    slot ``E · cap`` (dropped).  The combine adds each token's k terms in
+    ``x.dtype`` in the sorted order, by increasing expert id, as XLA's
+    ``.at[token].add`` does on the CPU: here a gather and k adds, so the
+    card adds in that order too (no atomics).  ``cfg.moe_combine`` is
+    accepted as ``"gather"`` or ``"scatter"`` and both run this one path:
+    JAX's expert-side ``"scatter"`` form adds the same terms,
+    ``out_e[slot] · gate``, in the same order a token, so its sums are
+    these."""
     t, d = x.shape
-    e, k, cap = cfg.n_experts, cfg.top_k, capacity
+    e, k = cfg.n_experts, cfg.top_k
     dev = x.device
     probs, gates, idx = moe_route(p, x, cfg)
 
@@ -258,7 +283,8 @@ def moe_apply(p, x, cfg: ModelConfig, capacity: int):
 
     gates_sorted = gates.reshape(-1)[sort_idx]
     gath = torch.where(keep[:, None], out_e[dest.clamp_max(e * cap - 1)], 0)
-    y = combine_in_order(gath * gates_sorted[:, None].to(x.dtype), sort_idx, t, k)
+    contrib = gath * gates_sorted[:, None].to(x.dtype)
+    y = combine_in_order(contrib, sort_idx, t, k)
 
     if cfg.n_shared_experts:
         y = y + ffn_apply(p["shared"], x, cfg)
@@ -289,3 +315,53 @@ def combine_in_order(contrib, sort_idx, t: int, k: int):
     for j in range(k):
         y = y + contrib[lanes[:, j]]
     return y
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (memory-bounded loss head)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(xc, head, tc, mc, vmask_neg, tied: bool, logit_softcap: float):
+    logits = (torch.einsum("bsd,vd->bsv", xc, head) if tied else xc @ head).float()
+    if logit_softcap:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    logits = logits + vmask_neg
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return ((lse - tgt) * mc).sum()
+
+
+def ce_loss(x, head, targets, loss_mask, vocab: int, padded_vocab: int, *,
+            tied: bool = False, logit_softcap: float = 0.0, chunk_seq: int = 256):
+    """Causal-LM cross-entropy with the (B, S, padded_vocab) logits never
+    whole: sequence chunks of ``chunk_seq`` each compute their float32
+    logits, log-sum-exp and target logit, and are recomputed in the backward
+    (``torch.utils.checkpoint``); the chunks' sums are added in order, as
+    the JAX package's checkpointed scan adds them.  A sequence that is not
+    a multiple of the chunk is zero-padded (masked out); logits of the
+    padded vocabulary get -1e30.
+
+    x: (B, S, D) final hiddens; head: (D, Vp), or (Vp, D) when ``tied``;
+    targets, loss_mask: (B, S) (the mask may broadcast).  Returns the mean
+    NLL over the masked positions (float32).
+    """
+    b, s, _ = x.shape
+    ck = min(chunk_seq, s)
+    n_chunks = -(-s // ck)
+    pad = n_chunks * ck - s
+    mf = torch.broadcast_to(loss_mask, (b, s)).float()
+    targets = targets.long()
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mf = F.pad(mf, (0, pad))
+    vmask_neg = torch.where(torch.arange(padded_vocab, device=x.device) < vocab, 0.0,
+                            -1e30).float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * ck, (c + 1) * ck)
+        total = total + checkpoint(_chunk_nll, x[:, sl], head, targets[:, sl], mf[:, sl],
+                                   vmask_neg, tied, logit_softcap, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / torch.clamp(mf.sum(), min=1.0)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import loss_targets, remat_call
 
 Params = Dict[str, Any]
 
@@ -106,15 +107,26 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def encode(p, frames, cfg: ModelConfig):
+def encode(p, frames, cfg: ModelConfig, *, remat: bool = False):
     x = frames.to(cfg.torch_dtype)
     for layer in p["enc_blocks"]:
-        x = enc_block_apply(layer, x, cfg)
+        x = remat_call(lambda l, h: enc_block_apply(l, h, cfg), layer, x, remat=remat)
     return cm.rmsnorm(x, p["enc_norm"], cfg.norm_eps)
 
 
-def lm_loss(p, batch, cfg: ModelConfig):
-    raise NotImplementedError("lm_loss (training) is not ported yet (ROADMAP.md A13d)")
+def lm_loss(p, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Causal LM loss of the decoder (float32); batch = {"frames": (B,
+    S_enc, d), "tokens": (B, S_dec) int}.  Encoder and decoder blocks are
+    each recomputed in the backward when ``remat``."""
+    tokens = batch["tokens"]
+    enc_out = encode(p, batch["frames"], cfg, remat=remat)
+    x = p["embed"][tokens]
+    for layer in p["dec_blocks"]:
+        x = remat_call(lambda l, h, m: dec_block_apply(l, h, m, cfg), layer, x, enc_out,
+                       remat=remat)
+    x = cm.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    targets, mask = loss_targets(tokens)
+    return cm.ce_loss(x, p["head"], targets, mask, cfg.vocab, cfg.padded_vocab)
 
 
 def lm_forward(p, batch, cfg: ModelConfig, *, last_only: bool = False):

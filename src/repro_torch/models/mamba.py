@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _logits
+from repro_torch.models.transformer import _logits, loss_targets, remat_call
 
 CHUNK = 256
 
@@ -81,13 +81,25 @@ def scan_chunk(a, b, h):
     """One chunk of the linear recurrence h_t = a_t·h_{t−1} + b_t along axis
     1: a log-step inclusive scan of (a, b) under (a₁a₂, a₂b₁ + b₂), then
     h_t = a_cum·h + b_cum.  a, b: (B, ck, ...); h: (B, ...).  Returns every
-    h_t, (B, ck, ...)."""
+    h_t, (B, ck, ...).
+
+    Two bodies of the same ops and bits: ``torch.cat`` when autograd
+    records, ``out=`` stores into fresh buffers otherwise (autograd cannot
+    record ``out=``).  Each is faster than one body of slice stores, which
+    forms a temporary and copies it a product (``tools/time_mamba_scan.py``
+    times the three; ``PERF.md`` §6)."""
     n, step = a.shape[1], 1
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h.requires_grad)
     while step < n:
-        a_next, b_next = torch.empty_like(a), torch.empty_like(b)
-        a_next[:, :step], b_next[:, :step] = a[:, :step], b[:, :step]
-        torch.mul(a[:, :-step], a[:, step:], out=a_next[:, step:])
-        torch.addcmul(b[:, step:], a[:, step:], b[:, :-step], out=b_next[:, step:])
+        if grad:
+            a_next = torch.cat([a[:, :step], torch.mul(a[:, :-step], a[:, step:])], dim=1)
+            b_next = torch.cat([b[:, :step], torch.addcmul(b[:, step:], a[:, step:],
+                                                           b[:, :-step])], dim=1)
+        else:
+            a_next, b_next = torch.empty_like(a), torch.empty_like(b)
+            a_next[:, :step], b_next[:, :step] = a[:, :step], b[:, :step]
+            torch.mul(a[:, :-step], a[:, step:], out=a_next[:, step:])
+            torch.addcmul(b[:, step:], a[:, step:], b[:, :-step], out=b_next[:, step:])
         a, b = a_next, b_next
         step *= 2
     return torch.addcmul(b, a, h[:, None])
@@ -179,8 +191,19 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def lm_loss(p, batch, cfg: ModelConfig):
-    raise NotImplementedError("lm_loss (training) is not ported yet (ROADMAP.md A13d)")
+def lm_loss(p, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Causal LM loss (float32), each block recomputed in the backward when
+    ``remat``; batch = {"tokens": (B, S) int}."""
+    tokens = batch["tokens"]
+    x = p["embed"][tokens]
+    run = lambda layer, h: block_apply(layer, h, cfg)[0]
+    for layer in p["blocks"]:
+        x = remat_call(run, layer, x, remat=remat)
+    x = cm.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    targets, mask = loss_targets(tokens)
+    head = p["embed"] if cfg.tie_embeddings else p["head"]
+    return cm.ce_loss(x, head, targets, mask, cfg.vocab, cfg.padded_vocab,
+                      tied=cfg.tie_embeddings)
 
 
 def lm_forward(p, tokens, cfg: ModelConfig, *, last_only: bool = False):

@@ -49,7 +49,7 @@ def get_model(arch_id: str, *, smoke: bool = False, overrides: Optional[dict] = 
         cfg=cfg,
         device=dev,
         init=lambda seed=0: m.lm_init(torch.Generator(dev).manual_seed(seed), cfg),
-        loss=lambda p, batch: m.lm_loss(p, batch, cfg),
+        loss=lambda p, batch, remat=True: m.lm_loss(p, batch, cfg, remat=remat),
         forward=lambda p, batch, last_only=False: m.lm_forward(p, batch, cfg,
                                                                last_only=last_only),
         init_cache=lambda batch, max_len: m.lm_init_cache(cfg, batch, max_len, dev),

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import _causal_conv, chunk_len, scan_chunk
-from repro_torch.models.transformer import _embed, _logits
+from repro_torch.models.transformer import _embed, _logits, loss_targets, remat_call
 
 LRU_C = 8.0
 
@@ -147,22 +147,37 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def lm_loss(p, batch, cfg: ModelConfig):
-    raise NotImplementedError("lm_loss (training) is not ported yet (ROADMAP.md A13d)")
+def _apply_block(blk, x, cfg: ModelConfig):
+    """One pattern block: the RG-LRU or local-attention mixer, then the MLP."""
+    if "kind_r" in blk:
+        x, _ = rec_block_apply(blk["kind_r"], x, cfg)
+    else:
+        a = blk["kind_a"]
+        x = x + cm.attn_apply(a["attn"], cm.rmsnorm(x, a["ln"], cfg.norm_eps), cfg,
+                              window=cfg.window)
+    return _mlp_apply(blk["mlp"], x, cfg)
+
+
+def _backbone(p, x, cfg: ModelConfig, *, remat: bool = False):
+    for blk in p["blocks"]:
+        x = remat_call(lambda b, h: _apply_block(b, h, cfg), blk, x, remat=remat)
+    return cm.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+
+
+def lm_loss(p, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Causal LM loss (float32), each block recomputed in the backward when
+    ``remat``; batch = {"tokens": (B, S) int}."""
+    tokens = batch["tokens"]
+    x = _backbone(p, _embed(p, tokens, cfg), cfg, remat=remat)
+    targets, mask = loss_targets(tokens)
+    head = p["embed"] if cfg.tie_embeddings else p["head"]
+    return cm.ce_loss(x, head, targets, mask, cfg.vocab, cfg.padded_vocab,
+                      tied=cfg.tie_embeddings)
 
 
 def lm_forward(p, tokens, cfg: ModelConfig, *, last_only: bool = False):
     """Sequence logits (B, S, padded_vocab), or the last position's."""
-    x = _embed(p, tokens, cfg)
-    for blk in p["blocks"]:
-        if "kind_r" in blk:
-            x, _ = rec_block_apply(blk["kind_r"], x, cfg)
-        else:
-            a = blk["kind_a"]
-            x = x + cm.attn_apply(a["attn"], cm.rmsnorm(x, a["ln"], cfg.norm_eps), cfg,
-                                  window=cfg.window)
-        x = _mlp_apply(blk["mlp"], x, cfg)
-    x = cm.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    x = _backbone(p, _embed(p, tokens, cfg), cfg)
     if last_only:
         x = x[:, -1:, :]
     return _logits(p, x, cfg)

@@ -13,8 +13,10 @@ past the window it equals the windowed forward, where the JAX package's
 clamped write does not (ROADMAP.md C).
 
 The forward and decode run the MoE at full capacity (every token kept), so
-decode logits match the parallel forward.  ``lm_loss`` (A13d) is not ported
-yet and raises ``NotImplementedError``.
+decode logits match the parallel forward.  Training's ``lm_loss`` runs it at
+the config's capacity factor, recomputes each block in the backward when
+``remat`` (the JAX package's ``jax.checkpoint`` with ``nothing_saveable``),
+and takes the attention's gradient from the flash kernel's backward.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
@@ -136,8 +139,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, use_moe: bool = False) ->
     return p
 
 
-def block_apply(p, x, cfg: ModelConfig, use_moe: bool = False, positions=None):
-    """Returns (x, the MoE layer's load-balance aux term or 0)."""
+def block_apply(p, x, cfg: ModelConfig, use_moe: bool = False, positions=None,
+                full_capacity: bool = True):
+    """Returns (x, the MoE layer's load-balance aux term or 0).
+    ``full_capacity``: the MoE at capacity = the tokens (inference; nothing
+    dropped); else at the config's capacity factor (training)."""
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         x = x + mla_apply(p["attn"], h, cfg, positions)
@@ -147,8 +153,10 @@ def block_apply(p, x, cfg: ModelConfig, use_moe: bool = False, positions=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if use_moe:
         b, s, d = h.shape
-        # capacity = T: no token is dropped, and decode matches the forward
-        y, moe_aux = cm.moe_apply(p["moe"], h.reshape(b * s, d), cfg, capacity=b * s)
+        # inference: capacity = T, so no token is dropped and decode matches
+        # the forward; training: capacity-bounded dispatch
+        y, moe_aux = cm.moe_apply(p["moe"], h.reshape(b * s, d), cfg,
+                                  capacity=b * s if full_capacity else None)
         return x + y.reshape(b, s, d), moe_aux["moe_aux"].float()
     return x + cm.ffn_apply(p["ffn"], h, cfg), aux
 
@@ -241,19 +249,49 @@ def _logits(p, x, cfg: ModelConfig):
     return logits
 
 
-def _backbone(p, x, cfg: ModelConfig, positions=None):
+def remat_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, recomputed in the backward when ``remat`` and autograd
+    records (the JAX package's ``jax.checkpoint`` with ``nothing_saveable``:
+    only the block's inputs are kept)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _backbone(p, x, cfg: ModelConfig, positions=None, *, remat: bool = False,
+              full_capacity: bool = True):
     """(final-normed hiddens, the summed MoE aux term)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, layers, use_moe in _groups(p, cfg):
+        run = lambda layer, h, use_moe=use_moe: block_apply(layer, h, cfg, use_moe, positions,
+                                                            full_capacity)
         for layer in layers:
-            x, aux = block_apply(layer, x, cfg, use_moe, positions)
+            x, aux = remat_call(run, layer, x, remat=remat)
             aux_total = aux_total + aux
     return cm.rmsnorm(x, p["final_norm"], cfg.norm_eps), aux_total
 
 
-def lm_loss(p, batch, cfg: ModelConfig):
-    raise NotImplementedError("lm_loss (training, flash.py's backward) is not ported yet "
-                              "(ROADMAP.md A13d)")
+def loss_targets(tokens):
+    """(targets, mask): position i predicts token i + 1; the last position
+    is masked (JAX's ``roll(tokens, -1)`` and ``arange(s) < s - 1``)."""
+    s = tokens.shape[1]
+    return (torch.roll(tokens, -1, dims=1),
+            (torch.arange(s, device=tokens.device) < s - 1)[None, :])
+
+
+def lm_loss(p, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Causal LM loss (float32).  batch = {"tokens": (B, S) int}; the MoE at
+    its capacity factor, plus ``0.01 · aux / n_layers`` of its load-balance
+    term; the chunked CE keeps the logits memory-bounded (``cm.ce_loss``)."""
+    tokens = batch["tokens"]
+    x, aux = _backbone(p, _embed(p, tokens, cfg), cfg, remat=remat, full_capacity=False)
+    targets, mask = loss_targets(tokens)
+    head = p["embed"] if cfg.tie_embeddings else p["head"]
+    loss = cm.ce_loss(x, head, targets, mask, cfg.vocab, cfg.padded_vocab,
+                      tied=cfg.tie_embeddings, logit_softcap=cfg.logit_softcap)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 def lm_forward(p, tokens, cfg: ModelConfig, *, last_only: bool = False):

@@ -50,7 +50,14 @@ non-causal with q and k of different lengths (encdec's cross-attention, hd
 4,096, hd 256, one kv head); mamba's, rglru's and encdec's smoke LMs have
 their forward on the card against the CPU's within 1e-4, and their decode ≡
 forward within 5e-4, rglru's ring and a windowed dense config's past the
-window.
+window.  Training: the attention backward kernel against its plain version
+(float32 within 2e-5 of max |plain|, bf16 by the forward's two bounds) at
+causal GQA, ragged, cross, window, MLA and hd 112 shapes, the log-sum-exp
+output leaving the forward's out bit for bit and the backward's bits equal
+launch to launch; autograd through the op launches both kernels; one
+float32 training step of five families' smoke LMs on the card against the
+CPU (loss 1e-5 relative, grad_norm 1e-4 relative, each gradient leaf 5e-4
+of its max).
 """
 import dataclasses
 
@@ -294,8 +301,8 @@ def test_dense_card_solve_matches_cpu_solve(problem, selection):
     card = solve(pair, y, cfg)
     assert launch_counts() == {"ell_matvec": 40, "ell_rmatvec": 41, "two_level_draw": 0,
                                "coord_update": 0, "flash_attention": 0,
-                               "two_level_draw_lanes": 0, "coord_update_lanes": 0,
-                               "scatter_add_ordered": 0}
+                               "flash_attention_bwd": 0, "two_level_draw_lanes": 0,
+                               "coord_update_lanes": 0, "scatter_add_ordered": 0}
     cpu = solve(X, y, dataclasses.replace(cfg, device="cpu"))
     assert torch.equal(card.coords.cpu(), cpu.coords)
     for name in ("w", "gaps", "losses"):
@@ -1275,3 +1282,144 @@ def test_card_compress_topk_matches_cpu(problem, selection):
     assert torch.equal(coords.cpu(), ccoords)
     assert float((w.cpu() - cw).abs().max()) <= 1e-4
     assert float((gaps.cpu() - cgaps).abs().max()) <= 1e-4
+
+
+# ---- training: the attention backward kernel, the training step ------------
+
+# the backward kernel against its plain version (models/flash.py _flash_bwd on
+# the card, the same inputs): float32 max |d| <= 2e-5 max |plain| (both sum in
+# float32, in other orders); bf16 the forward's two forms, 0.06 (absolute and
+# relative) and 4 bf16 spacings of max(|plain|, the row's RMS over hd, the
+# tensor's RMS): a row whose terms cancel (a causal first query's dq) is ~0 in
+# both, apart by float32 rounding of terms of the tensor's size
+BWD_CASES = [
+    (2, 256, 256, 8, 2, 64, 64, True, 0),        # causal GQA
+    (1, 200, 200, 4, 4, 32, 32, True, 0),        # ragged tiles
+    (1, 256, 384, 4, 2, 128, 128, False, 0),     # non-causal, S_q != S_k
+    (1, 512, 512, 4, 1, 256, 256, True, 128),    # window, MQA, hd 256
+    (1, 256, 256, 4, 4, 192, 128, True, 0),      # MLA's (192, 128), padded to 256
+    (1, 256, 256, 4, 2, 112, 112, True, 0),      # kimi-k2's 112, padded to 128
+]
+
+
+def _check_bwd(got, want, dtype):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=0.06, atol=0.06)
+        scale = torch.maximum(torch.maximum(want.abs(), want.pow(2).mean(-1, keepdim=True).sqrt()),
+                              want.pow(2).mean().sqrt())
+        assert (diff <= 4 * torch.finfo(torch.bfloat16).eps * scale).all()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,hdv,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, hd, hdv, causal,
+                                                       window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_with_lse
+    from repro_torch.models.flash import _flash_bwd, _flash_fwd_impl
+    gen = torch.Generator().manual_seed(sq + sk + hd + hdv)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda, dtype)
+                   for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hdv),
+                                 (b, sq, h, hdv)))
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    # the log-sum-exp output leaves the forward's out bit for bit
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+    _, lse_plain = _flash_fwd_impl(q, k, v, causal, window, sq, sk)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-5, atol=1e-5)
+    reset_launch_counts()
+    grads = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    assert launch_counts()["flash_attention_bwd"] == 1
+    want = _flash_bwd(causal, window, sq, sk, (q, k, v, out, lse), do)
+    for g, w, t in zip(grads, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype
+        _check_bwd(g, w, dtype)
+    # no atomics: the same bits on every launch
+    assert all(torch.equal(a, c) for a, c in
+               zip(grads, flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                              window=window)))
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    """Under autograd the op's forward writes the log-sum-exp and its
+    backward is the hand-written kernel (one launch each), never a plain
+    path; without a gradient the forward-only launch runs."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, torch.bfloat16).requires_grad_(True)
+               for shape in ((2, 128, 8, 64), (2, 128, 2, 64), (2, 128, 2, 64)))
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    out.float().square().sum().backward()
+    assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_bwd"] == 1
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    assert flash_attention_bwd.routes == {"bf16_tensor_cores": 1, "f32_cuda_cores": 0}
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-236b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b", "seamless-m4t-medium"])
+def test_training_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A float32 training step of each family's smoke LM on the card against
+    the same step on the CPU: loss within 1e-5 (relative), grad_norm within
+    1e-4 (relative) and each gradient leaf's max |card - cpu| within 5e-4 of
+    its max |cpu| (the bounds of ``chip_smoke.py``'s float32 step); the card
+    runs the forward and backward kernels.  The optimizer's update is held
+    on its own: the CPU's clipped gradients fed to ``opt.update`` on both
+    devices from the same params and fresh state give new params and state
+    whose leaves are within 1e-6 of the leaf's max |cpu| (the whole step's
+    params are not compared: at step 1 Adam moves a leaf by about
+    lr · sign(g), so the card's gradient error moves near-zero entries by up
+    to 2 · lr)."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.interop import stacked_groups
+    from repro_torch.train.optimizer import clip_by_global_norm, get_optimizer
+    from repro_torch.train.trainer import TrainConfig, make_train_state, make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+    def fresh(device):      # the same float32 weights, new tensors (steps update in place)
+        return _to(get_model(arch, smoke=True, device="cpu").init(0), device)
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        api = get_model(arch, smoke=True, device=device)
+        params = fresh(device)
+        groups = [n for n, c in stacked_groups(api.cfg).items() if c]
+        state = make_train_state(params, get_optimizer(api.cfg.optimizer), groups)
+        batch = next(lm_batches(api.cfg.vocab, 2, 64, seed=0,
+                                frames_dim=api.cfg.d_model if api.cfg.family == "encdec"
+                                else None))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        grads = torch.autograd.grad(api.loss(state.params, batch), tree_leaves(state.params))
+        clipped, gnorm = clip_by_global_norm(list(grads), 1.0)
+        step = make_train_step(api.loss, TrainConfig(optimizer=api.cfg.optimizer,
+                                                     peak_lr=1e-3, total_steps=10, warmup=2))
+        reset_launch_counts()
+        _, m = step(state, batch)
+        runs[device] = (m, float(gnorm), [g.cpu() for g in grads], launch_counts(),
+                        [g.cpu() for g in clipped])
+    (m_cpu, n_cpu, g_cpu, _, clip_cpu), (m_gpu, n_gpu, g_gpu, counts, _) = \
+        runs["cpu"], runs["cuda"]
+    assert m_gpu["skipped"] == 0.0 and abs(m_gpu["grad_norm"] - n_gpu) <= 1e-6 * n_gpu
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"])
+    assert abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= 1e-4 * m_cpu["grad_norm"]
+    for a, c in zip(g_gpu, g_cpu):
+        assert float((a - c).abs().max()) <= 5e-4 * max(float(c.abs().max()), 1e-30)
+    if arch != "falcon-mamba-7b":                       # mamba has no attention
+        assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0
+
+    updated = {}
+    for device in ("cpu", "cuda"):
+        cfg = get_model(arch, smoke=True, device=device).cfg
+        opt = get_optimizer(cfg.optimizer)
+        state = make_train_state(fresh(device), opt,
+                                 [n for n, c in stacked_groups(cfg).items() if c])
+        opt.update(tree_unflatten(state.params, [g.to(device) for g in clip_cpu]),
+                   state.opt_state, state.params, 1e-3, state.stacked)
+        updated[device] = [t.detach().cpu().double() for t in
+                           tree_leaves(state.params) + tree_leaves(state.opt_state)]
+    for a, c in zip(updated["cuda"], updated["cpu"]):
+        assert float((a - c).abs().max()) <= 1e-6 * max(float(c.abs().max()), 1e-30)

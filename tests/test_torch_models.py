@@ -4,8 +4,8 @@ Both packages run the same weights (the JAX ``lm_init`` pytree carried over
 by ``interop.lm_params``) and the same tokens, in float32:
 
 * the configs of all ten archs are field-for-field copies (``param_count``
-  included); an unknown arch and training (``lm_loss``, A13d) are refused
-  for every family;
+  included); an unknown arch is refused, and every family's training loss
+  (``lm_loss``, against JAX's in ``tests/test_torch_lm_loss.py``) is finite;
 * ``rmsnorm``, ``rope``, ``ffn_apply``, ``attn_apply`` (or ``mla_apply``)
   and ``moe_apply`` within 1e-5;
 * ``forward`` logits (and ``last_only``) within 1e-4, ``decode_step``
@@ -84,7 +84,8 @@ def test_configs_are_copies(arch):
 
 
 def test_unported_archs_are_refused():
-    """Only an unknown arch is refused; every family refuses training (A13d)."""
+    """Only an unknown arch is refused; every family trains (A13d): its
+    ``lm_loss`` is a finite float32 scalar."""
     assert sorted(get_config(arch).family for arch in ARCH_IDS) == sorted(
         ["encdec", "ssm", "dense", "dense", "dense", "dense", "dense", "moe", "moe", "hybrid"])
     with pytest.raises(KeyError):
@@ -94,8 +95,12 @@ def test_unported_archs_are_refused():
     for family, arch in FAMILIES.items():
         api = get_model(arch, smoke=True, device="cpu")
         assert api.cfg.family == family
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13d"):
-            api.loss(api.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+        batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64)}
+        if family == "encdec":
+            batch["frames"] = torch.zeros(1, 4, api.cfg.d_model)
+        loss = api.loss(api.init(0), batch)
+        assert loss.shape == () and loss.dtype == torch.float32
+        assert bool(torch.isfinite(loss))
 
 
 def test_norm_rope_ffn_attn_match_jax(pair):

@@ -463,5 +463,15 @@ def test_unported_features_raise_naming_their_roadmap_item(problem, tmp_path):
     assert all(torch.equal(getattr(back, p), getattr(blocks, p))
                for p in ("csc_rows", "csc_vals", "csr_cols", "csr_vals"))
     assert autotune(store, backend="jax_shard", device="cpu", steps=4).backend == "jax_shard"
-    with pytest.raises(NotImplementedError, match="A13"):
-        ShardedLoader(iter([]))
+    # the training loader is ported (A13d): it yields the store's shards as
+    # tensors on the device it is given, in order
+    shards = [{"row_start": np.int64(r), "indptr": x.indptr, "indices": x.indices,
+               "labels": lab} for r, x, lab in store.iter_shards()]
+    loader = ShardedLoader(iter(shards), device="cpu", prefetch=1)
+    got = list(loader)
+    loader.close()
+    assert len(got) == store.n_shards >= 1 and not loader.thread.is_alive()
+    for batch, want in zip(got, shards):
+        assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in batch.values())
+        assert all(np.array_equal(batch[k].numpy(), want[k]) for k in want)
