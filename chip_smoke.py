@@ -82,14 +82,17 @@ decode steps timed, no engine serves it); and flash against SDPA at MLA's
 seamless' cross-attention (1,024 tokens against 1,536 frames), each at its
 arch's forward shape.
 
-Last (``lm_train``), training on the card: flash attention's backward kernel
+Last (``lm_train``), training on the card: the bf16 backward's wgmma and
+TMA tile helpers against ``torch.matmul``; flash attention's backward kernel
 (``flash_attention_bwd.cu``) against its plain version at tinyllama's
-training shape (bf16 and float32), MLA's (192, 128), kimi-k2's 112,
-recurrentgemma's window and seamless' cross-attention, timed against its
-bound, the plain version and SDPA's backward; ``tinyllama-1.1b`` at full
-width and depth trained 30 steps of 8 × 2,048 tokens in bf16 with adamw
-through ``launch.train.train_lm`` (the loss must fall 0.3 nats; 3 steps
-profiled); a float32 step at 2 of 22 layers on the card against the CPU;
+training shape (bf16 and float32; the bf16 row's bits equal over 10
+back-to-back launches), MLA's (192, 128), kimi-k2's 112, recurrentgemma's
+window and seamless' cross-attention, each row with the route it took,
+timed against its bound, the plain version and SDPA's backward;
+``tinyllama-1.1b`` at full width and depth trained 30 steps of 8 × 2,048
+tokens in bf16 with adamw through ``launch.train.train_lm`` (the loss must
+fall 0.3 nats; 3 steps profiled); a float32 step at 2 of 22 layers on the
+card against the CPU;
 a checkpoint resume equal to the straight run; deepseek-v2 (adafactor,
 capacity factor 1.25), kimi-k2, falcon-mamba, recurrentgemma and seamless
 at full width and a cut depth, two steps each; and
@@ -4080,6 +4083,8 @@ RESUME_STEPS, RESUME_REL = 6, 1e-6
 # cancel (a causal first query's dq) is ~0 in both, apart by float32 rounding of terms
 # of the tensor's size
 BWD_F32_REL = 2e-5
+# back-to-back launches of tinyllama's bf16 row held to the first one's bits
+BWD_BIT_REPEATS = 9
 # (name, arch, B, S_q, S_k, causal, window, dtype): tinyllama's training shape in both
 # dtypes, then the other families' at their training runs' shapes
 BWD_ROWS = (
@@ -4168,6 +4173,25 @@ def _bwd_errors(grads, want, dtype) -> dict:
     return out
 
 
+def bwd_tile_helpers() -> None:
+    """The bf16 backward's wgmma and TMA helpers on their own
+    (``kernels/flash_attention/tiles.py``) at hd 64 over four key tiles,
+    against ``torch.matmul`` in float32 on the same inputs: within 1e-5 of
+    each result's max."""
+    from repro_torch.kernels.flash_attention.tiles import tile_products, tile_products_plain
+    gen = torch.Generator(DEVICE).manual_seed(64)
+    q, k, dout = (torch.randn(dims, generator=gen, device=DEVICE).to(torch.bfloat16)
+                  for dims in ((64, 64), (256, 64), (64, 64)))
+    s, y, z = tile_products(q, k, dout)
+    torch.cuda.synchronize()
+    s_ref = tile_products_plain(q, k, dout)[0]
+    _, y_ref, z_ref = tile_products_plain(q, k, dout, s)
+    rel = {name: float((got - want).abs().max() / want.abs().max())
+           for name, got, want in (("s", s, s_ref), ("y", y, y_ref), ("z", z, z_ref))}
+    require(all(r <= 1e-5 for r in rel.values()), f"wgmma tile helpers: {rel}")
+    emit("bwd_tile_helpers", key_tiles=4, max_rel_err=rel)
+
+
 def lm_train_bwd_rows(launches: dict) -> list:
     """The backward kernel at each of ``BWD_ROWS``' shapes, on seeded inputs:
     the forward's out with the log-sum-exp output on, bit for bit the forward
@@ -4190,7 +4214,10 @@ def lm_train_bwd_rows(launches: dict) -> list:
         require(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window)),
                 f"{name}: the log-sum-exp output changed the forward's out")
         bwd = lambda: flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+        before = dict(flash_attention_bwd.routes)
         grads = bwd()
+        taken = [r for r, n in flash_attention_bwd.routes.items() if n != before[r]]
+        require(len(taken) == 1, f"{name}: the backward took routes {taken}")
         bq = min(512, sq)
         plain_fn = lambda: _flash_bwd(causal, window, bq, plain_block_k(sk),
                                       (q, k, v, out, lse), do)
@@ -4198,9 +4225,12 @@ def lm_train_bwd_rows(launches: dict) -> list:
         plain_dq = want[0]
         errs = _bwd_errors(grads, want, dtype)
         del want
-        require(all(torch.equal(a, c) for a, c in zip(grads, bwd())),
+        # the ordered dq adds under contention: tinyllama's row launches 10 times
+        repeats = BWD_BIT_REPEATS if name == "flash_attention_bwd" else 1
+        again = [bwd() for _ in range(repeats)]
+        require(all(all(torch.equal(a, c) for a, c in zip(grads, got)) for got in again),
                 f"{name}: the backward's bits differ launch to launch")
-        del grads
+        del again, grads
         ms = device_ms([bwd] * 5)
         plain = device_ms([plain_fn] * 2)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -4241,8 +4271,15 @@ def lm_train_bwd_rows(launches: dict) -> list:
                          library_max_abs_dq_diff=lib_diff, library_note=lib_note, errors=errs,
                          shape=dict(arch=arch, b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, hdv=hdv,
                                     causal=causal, window=window, dtype=str(dtype)),
-                         kernel_head_dim=padded_head_dim(hd, hdv), launches_at_shape=at,
+                         kernel_head_dim=(padded_head_dim(hd, hdv) if dtype == torch.float32
+                                          else fa_ops.bwd_head_dims(hd, hdv)),
+                         kernel_route=taken[0], bits_equal_launches=1 + repeats,
+                         launches_at_shape=at,
                          tflop_per_s=ops / ms / 1e9, seconds=time.perf_counter() - t0))
+        emit("lm_train_bwd_row", name=name, kernel_route=taken[0], ms=ms, library_ms=lib,
+             plain_ms=plain, bound_ms=bd, tflop_per_s=ops / ms / 1e9, launches=n,
+             bits_equal_launches=1 + repeats,
+             max_bf16_ulps={g: e.get("max_bf16_ulps_of_scale") for g, e in errs.items()})
         del q, k, v, do, out, lse, qt, kt, vt, dot, mask, plain_dq
         torch.cuda.empty_cache()
     return rows
@@ -4474,7 +4511,7 @@ def phase_lm_train() -> tuple:
     require(counts["flash_attention"] == 2 * n_layers * TRAIN_STEPS
             and counts["flash_attention_bwd"] == n_layers * TRAIN_STEPS
             and routes["bf16_tensor_cores"] == counts["flash_attention"]
-            and bwd_routes["bf16_tensor_cores"] == counts["flash_attention_bwd"],
+            and bwd_routes["bf16_wgmma"] == counts["flash_attention_bwd"],
             f"tinyllama training launches {counts}, routes {routes}, {bwd_routes}")
     step_ms = [h["sec"] * 1e3 for h in hist]
     med = float(np.median(step_ms[4:]))
@@ -4527,6 +4564,7 @@ def phase_lm_train() -> tuple:
     lasso = _train_lasso()
     emit("lm_train_lasso", seconds=time.perf_counter() - t1, **lasso)
     t1 = time.perf_counter()
+    bwd_tile_helpers()
     rows = lm_train_bwd_rows(launches)
     emit("lm_train_bwd_rows", seconds=time.perf_counter() - t1)
     emit("lm_train_phase", seconds=time.perf_counter() - t_phase)

@@ -13,28 +13,32 @@
 //   pass 1, by q tile:  dq = scale · Σ_k P ⊙ (dout·vᵀ − delta) · k;
 //   pass 2, by kv tile: dv = Σ_q Pᵀ·dout, dk = scale · Σ_q (P ⊙ (dout·vᵀ − delta))ᵀ·q.
 //
-// Two routes, one contract:
-// * bf16: the tensor cores (mma.sync, float32 sums; P and dS rounded to bf16 as
-//   the operands of the products that follow them, as the bf16 forward rounds
-//   P), below;
+// Two routes, one contract (float32 sums; P and dS rounded to bf16 on the
+// bf16 route as the operands of the products that follow them, as the bf16
+// forward rounds P):
+// * bf16: one key-major pass on wgmma with TMA (namespace wg, below): S and dP
+//   computed once, five products a tile pair, dq added into a float32
+//   workspace in a fixed order, then a finish kernel;
 // * float32: the CUDA cores, float32 throughout (TF32 would break the float32
-//   tolerance, as in the forward).
+//   tolerance, as in the forward), in JAX's two passes: dq (a block per (query
+//   tile, head, batch row)) and dk/dv (a block per (key tile, kv head, batch
+//   row)).
 // Common design:
-// * three launches on the stream, counted as one by the wrapper: delta (a warp
-//   a query row), dq (a block per (query tile, head, batch row)) and dk/dv (a
-//   block per (key tile, kv head, batch row)).
-// * GQA without atomics: the dk/dv block loops over the G query heads of its
-//   kv head inside the block, then over the query tiles that can see its keys
-//   (causal: from its first key; window: up to its last key + window), so a
-//   key's sums are made by one thread in a fixed order and a step gives the
-//   same bits every time.
+// * launches on the stream counted as one by the wrapper: delta (a warp a
+//   query row), then the route's kernels.
+// * no atomics on any value: a kv head's G query heads are looped inside one
+//   block or work item, over the query tiles that can see its keys (causal:
+//   from its first key; window: up to its last key + window), so a key's sums
+//   are made in a fixed order; the bf16 route's dq adds follow a counter a
+//   query tile; a launch gives the same bits every time.
 // * tiles are visited over the forward's bounds (flash_attention.cu); keys
 //   and queries past a ragged end, and hidden keys, have P = 0, as JAX's
 //   exp(NEG − lse) = 0.  Non-causal attention with Sq != Sk (cross-attention)
 //   visits every tile.
-// * compiled for head dims 16, 32, 64, 128 and 256; the wrapper zero-pads any
-//   other head dim (and a v head dim of its own) as the forward does and
-//   slices the padded lanes of dq and dk off.
+// * float32 is compiled for head dims 16, 32, 64, 128 and 256, bf16 for
+//   (64, 64), (128, 128), MLA's (192, 128) and (256, 256); the wrapper
+//   zero-pads other head dims to the next (ops.py) and slices the padded
+//   lanes off.
 // CUDA-core route (float32 only): tiles are staged in shared memory,
 // d-major, with padded strides; thread (ty, tx) of 16 × 8 owns rows ty + 16i
 // and columns tx + 8j of each score tile, and rows ty + 16i, columns tx + 8d
@@ -43,16 +47,16 @@
 // products that contract over the score tile.
 //
 // Bound on the H100: operations.  The backward needs about 2.5× the forward's
-// 4·B·H·hd·(keys seen) flops (5 products of the forward's 2); this kernel
-// does 7 (S and dP are recomputed in both passes; at head dim 256, 10 in the
-// dk/dv pass's two column ranges).  The tensor-core route is bounded at 989
-// TFLOP/s (bf16) and reaches a part of it with mma.sync (wgmma with TMA is the
-// step after); the float32 route runs at 67 TFLOP/s peak.
+// 4·B·H·hd·(keys seen) flops (5 products of the forward's 2).  The bf16 route
+// does those 5 (plus the diagonal tiles' masked halves) at 989 TFLOP/s peak,
+// and moves the dq workspace through L2 a tile pair at a time; the float32
+// route does 7 (S and dP in both passes) at 67 TFLOP/s peak.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
 #include "port_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -401,341 +405,788 @@ __global__ void __launch_bounds__(BW_THREADS)
   }
 }
 
-// ---- bf16 on the tensor cores --------------------------------------------------
+// ---- bf16: one key-major pass on wgmma with TMA (sm_90a) -----------------------------
 //
-// The same two passes with mma.sync.m16n8k16 (bf16 in, float32 sums): a block of
-// 4 warps owns 64 query rows (dq) or 64 keys (dk, dv), a warp 16 of them; tiles of
-// 64 keys (dq) or 64 queries (dk, dv) stream through a 2-stage cp.async ring in
-// bf16.  S and dP come out of the MMAs as C fragments; P and dS are formed there
-// in float32 and rounded to bf16 as the A fragments of the next products
-// (dq += dS·K; dv += Pᵀ·dout, dk += dSᵀ·q), with K, dout and q read through
-// ldmatrix.trans.  The dk/dv pass computes Sᵀ = K·qᵀ and dPᵀ = V·doutᵀ, so its
-// rows are keys and no fragment is transposed in registers.
+// A work item is (key tile, kv head, batch row); persistent blocks (one an SM)
+// take items in order from an atomic counter, so an item only ever waits on an
+// item already taken.  A block is three warpgroups:
+// * warpgroup 0, warp 0 (the producer): takes the item, loads its K and V once
+//   by TMA, then for each step (a query tile of 64 rows of one of the G query
+//   heads) its q and dout boxes by TMA and its lse (log2 domain) and delta
+//   rows into a ring of STAGES stages under mbarriers;
+// * warpgroup 0, warps 1 and 2, a thread each (the dq loader and storer): for
+//   each step, the step's float32 dq_acc tile by TMA into one of SLOTS buffers
+//   once the tile's counter allows, and back after the consumers have added
+//   into it;
+// * warpgroups 1 and 2 (the consumers, setmaxnreg to 240 registers): the five
+//   products of a step on wgmma, m64n64k16, float32 sums:
+//     Sᵀ = K·qᵀ and dPᵀ = V·doutᵀ (both operands K-major in shared memory),
+//     P = exp2(Sᵀ·scale·log2e − lse·log2e), dSᵀ = P ⊙ (dPᵀ − delta) (P and dS
+//     rounded to bf16 as the A operands of what follows, as the forward rounds P),
+//     dV += Pᵀ·dout and dK += dSᵀ·q (A from registers, B MN-major),
+//     dQ-partial = dS·K (dSᵀ staged in a swizzled panel, both operands MN-major),
+//   then add the dQ-partial into the step's dq buffer.  dK and dV stay in
+//   registers for the whole item.  S and dP are computed once (the mma.sync
+//   kernels computed them in both of their passes).
+//   Head dim 64: an item holds 128 keys, each consumer its own 64 (the key
+//   split), with all of dK's and dV's columns; each adds the dQ-partial over
+//   its own keys, consumer 1 after consumer 0.  Wider (128, MLA's (192, 128),
+//   256): 64 keys, the consumers split the 64-column panels of dK, dV and dQ
+//   (the column split: registers for dK and dV, and twice the items at the
+//   narrow grids of kimi-k2 and recurrentgemma); consumer 1 computes Sᵀ and
+//   consumer 2 dPᵀ, each forms P and dS for half of the query columns, and they
+//   trade the halves through shared memory, so nothing is computed twice.
+// The mask is applied only on tiles that a causal or window edge, or a ragged
+// end, cuts.  Query tiles are walked from the last down and the G heads inside,
+// so an item trails the one before it by about one step.
+// dq without atomics on any value: the loader loads a (batch, head, query tile)
+// of dq_acc only when the tile's counter equals the number of key tiles
+// before this one that see the tile (acquire), and the storer bumps the
+// counter after its store has landed (release); so each dq element sums its
+// key tiles in ascending order and every launch gives the same bits.  Items
+// are taken in chunks of up to four key tiles of each (batch, kv head), so that
+// the adds into a tile follow each other closely (it stays in L2).  A finish
+// kernel writes dq = bf16(dq_acc · scale) at the true head dim.
+namespace wg {
 
-constexpr int TB_THREADS = 128;   // 4 warps of 16 rows
-constexpr int TB_ROWS = 64;       // a tile's rows: query rows, keys or queries
-constexpr float TB_LOG2E = 1.4426950408889634f;
+using namespace port::sm90;
 
-template <int HD>
-struct TbShape {
-  static constexpr int LD = HD + 8;   // padded row, in bf16 (conflict-free ldmatrix)
-  static constexpr int CH = HD / 8;   // 16-byte chunks per row
-  static constexpr int KD = HD / 16;  // k-steps over the head dim
-  static constexpr int NO = HD / 8;   // n-tiles over the head dim
-  // the dk/dv pass's blocks split the head dim in SPLIT column ranges (each
-  // block recomputes Sᵀ and dPᵀ): at 256, dk and dv of 16 keys a warp would
-  // hold 256 registers a thread
-  static constexpr int SPLIT = HD > 128 ? 2 : 1;
-  static constexpr int NACC = NO / SPLIT;
-  static constexpr int TILE = TB_ROWS * LD;
-  // two tiles of the block's own rows and a 2-stage ring of two streamed tiles
-  static constexpr size_t BYTES = static_cast<size_t>(6 * TILE) * 2;
-  // the dk/dv pass also stages each query tile's lse and delta
-  static constexpr size_t DKV_BYTES = BYTES + 2 * 2 * TB_ROWS * sizeof(float);
+constexpr int BM = 64;            // queries a step
+constexpr int KW = 64;            // keys a consumer warpgroup in Sᵀ and dPᵀ
+constexpr int THREADS = 384;
+constexpr int ROW = 128;          // bytes of a panel row (64 bf16, 32 float32)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int HEADERS = 8;        // the ring of step headers, producer to the dq loader
+constexpr float LOG2E = 1.4426950408889634f;
+enum : int { BAR_WG1 = 1, BAR_WG2 = 2, BAR_CONSUMERS = 3 };
+
+template <int HD, int HDV>
+struct Shape {
+  static constexpr bool KEYSPLIT = HD == 64 && HDV == 64;
+  static constexpr int BN = KEYSPLIT ? 2 * KW : KW;   // keys an item
+  static constexpr int PK = HD / 64, PV = HDV / 64;   // 64-column bf16 panels
+  // as many stages and dq buffers as the 227 KB of shared memory hold
+  static constexpr int STAGES = HD == 64 ? 4 : HD == 128 ? 3 : 1;
+  static constexpr int SLOTS = HD == 64 ? 3 : HD == 256 ? 1 : 2;
+  static constexpr int K_BYTES = PK * BN * ROW;
+  static constexpr int V_BYTES = PV * BN * ROW;
+  static constexpr int Q_BYTES = PK * BM * ROW;
+  static constexpr int DO_BYTES = PV * BM * ROW;
+  static constexpr int STAGE_BYTES = Q_BYTES + DO_BYTES;
+  static constexpr int DS_BYTES = (KEYSPLIT ? 2 : 1) * KW * ROW;   // dSᵀ panels
+  static constexpr int XCH_BYTES = KEYSPLIT ? 0 : 2 * 128 * 64;
+  static constexpr int DQ_BYTES = BM * HD * 4;        // HD / 32 float32 panels
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + K_BYTES;
+  static constexpr int OFF_STAGE = OFF_V + V_BYTES;
+  static constexpr int OFF_DS = OFF_STAGE + STAGES * STAGE_BYTES;
+  static constexpr int OFF_XCH = OFF_DS + DS_BYTES;
+  static constexpr int OFF_DQ = OFF_XCH + XCH_BYTES;
+  static constexpr int OFF_ROWS = OFF_DQ + SLOTS * DQ_BYTES;   // lse2, delta a stage
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BM * 4;
+  // full[STAGES], empty[STAGES], kv_full, kv_empty, the step headers' ring
+  // (full, empty), then a dq buffer's ready (its TMA load), half (consumer 1
+  // has added: the key split), full (every consumer has) and free (its TMA
+  // store has read it out)
+  static constexpr int B_FULL = 0, B_EMPTY = STAGES, B_KV_FULL = 2 * STAGES,
+                       B_KV_EMPTY = B_KV_FULL + 1, B_HDR = B_KV_FULL + 2,
+                       B_HDR_EMPTY = B_HDR + HEADERS, B_READY = B_HDR_EMPTY + HEADERS,
+                       B_HALF = B_READY + SLOTS, B_DQ_FULL = B_HALF + SLOTS,
+                       B_FREE = B_DQ_FULL + SLOTS, N_BAR = B_FREE + SLOTS;
+  static constexpr int HDR = 8;                       // ints a step header (and a buffer's tile)
+  static constexpr int OFF_HDR = OFF_BAR + N_BAR * 8;
+  static constexpr int OFF_TILES = OFF_HDR + HEADERS * HDR * 4;
+  static constexpr int OFF_ITEM = OFF_TILES + SLOTS * HDR * 4;   // the item; the step count
+  static constexpr int BYTES = OFF_ITEM + 16 + 1024;  // + the base's alignment
+  static_assert(BYTES <= 232448, "shared memory");
 };
 
-// A (64, HD) bf16 tile at `src` (row stride `stride`; rows >= live zero-filled).
-template <int HD>
-__device__ __forceinline__ void tb_load(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                        long long stride, int live) {
-  using S = TbShape<HD>;
-  for (int e = threadIdx.x; e < TB_ROWS * S::CH; e += TB_THREADS) {
-    const int r = e / S::CH, c = e % S::CH;
-    const bool ok = r < live;
-    cp_async16(dst + r * S::LD + c * 8, src + (ok ? r * stride + c * 8 : 0), ok);
+// the dK, dV and dQ panels [lo, hi) of consumer CW
+template <int HD, int HDV, int CW>
+struct Panels {
+  using S = Shape<HD, HDV>;
+  static constexpr int K_LO = S::KEYSPLIT ? 0 : (CW ? (S::PK + 1) / 2 : 0);
+  static constexpr int K_HI = S::KEYSPLIT ? S::PK : (CW ? S::PK : (S::PK + 1) / 2);
+  static constexpr int V_LO = S::KEYSPLIT ? 0 : (CW ? (S::PV + 1) / 2 : 0);
+  static constexpr int V_HI = S::KEYSPLIT ? S::PV : (CW ? S::PV : (S::PV + 1) / 2);
+  static constexpr int Q_LO = S::KEYSPLIT ? 0 : (CW ? S::PK / 2 : 0);
+  static constexpr int Q_HI = S::KEYSPLIT ? S::PK : (CW ? S::PK : S::PK / 2);
+  static constexpr int NK = K_HI - K_LO, NV = V_HI - V_LO, NQ = Q_HI - Q_LO;
+  // dQ's product joins dV's and dK's in one wgmma group when the registers allow
+  static constexpr bool ONE_GROUP = NK + NV + NQ <= 4;
+};
+
+struct Args {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  const float* lse;
+  const float* delta;
+  int* counters;        // [0]: the work counter; then (B, H, query tiles), zeroed
+  __nv_bfloat16* dk;    // (B, Sk, KV, HD)
+  __nv_bfloat16* dv;    // (B, Sk, KV, HDV)
+  int b, sq, sk, h, kvh, causal, window, n_items, nq, nk, chunk;
+  float scale, scale_log2;
+};
+
+struct Item {
+  int n, bi, kvh;
+};
+
+// items in order: chunks of `chunk` key tiles, each chunk over every (batch,
+// kv head) group, the key tiles of a group's chunk in a row; so the key tiles
+// that add into a dq tile one after another run close in time (its tile stays
+// in L2), and an item's predecessor (the key tile before, same group) is
+// always taken before it
+__device__ __forceinline__ Item decode(int item, const Args& a) {
+  const int per_chunk = a.b * a.kvh * a.chunk;
+  const int r = item % per_chunk, g = r / a.chunk;
+  return Item{item / per_chunk * a.chunk + r % a.chunk, g / a.kvh, g % a.kvh};
+}
+
+// the query tiles [t_lo, t_hi) that can see keys [k_lo, k_lo + bn)
+__device__ __forceinline__ void span(const Args& a, int k_lo, int bn, int& t_lo, int& t_hi) {
+  const int q_begin = a.causal ? k_lo : 0;
+  const int q_end = a.window ? min(a.sq, k_lo + bn - 1 + a.window) : a.sq;
+  t_lo = q_begin / BM;
+  t_hi = q_end > q_begin ? (q_end + BM - 1) / BM : t_lo;
+}
+
+// the first key tile that sees query tile t (the tiles that do are consecutive)
+__device__ __forceinline__ int first_key_tile(const Args& a, int t, int bn) {
+  if (!a.window) return 0;
+  const int x = t * BM - bn + 1 - a.window;
+  return x < 0 ? 0 : x / bn + 1;
+}
+
+__device__ __forceinline__ bool visible(const Args& a, int row, int col) {
+  return (row < a.sq) & (col < a.sk) & (!a.causal | (row >= col)) &
+         (!a.window | (row - col < a.window));
+}
+
+// P and dS of the accumulator elements in column blocks [J0, J0 + NJ) (query
+// columns 8·J0 ..), packed to bf16 pairs: pp[m] = (P[2m], P[2m + 1]).
+template <int J0, int NJ, bool MASK>
+__device__ __forceinline__ void softmax_grad(const Args& a, const float (&s)[32],
+                                             const float (&dp)[32], uint32_t (&pp)[16],
+                                             uint32_t (&ps)[16], const float* lse2,
+                                             const float* del, int q_lo, int key0, int l) {
+#pragma unroll
+  for (int j = J0; j < J0 + NJ; ++j) {
+    const int c = 8 * j + 2 * (l & 3);
+    const float2 lse_c = *reinterpret_cast<const float2*>(lse2 + c);
+    const float2 del_c = *reinterpret_cast<const float2*>(del + c);
+    float p[4], d[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 4 * j + 2 * i + e;
+        float v = exp2_approx(s[r] * a.scale_log2 - (e ? lse_c.y : lse_c.x));
+        if (MASK) v = visible(a, q_lo + c + e, key0 + 8 * i) ? v : 0.0f;
+        p[2 * i + e] = v;
+        d[2 * i + e] = v * (dp[r] - (e ? del_c.y : del_c.x));
+      }
+    pp[2 * j] = bf16x2(p[0], p[1]);
+    pp[2 * j + 1] = bf16x2(p[2], p[3]);
+    ps[2 * j] = bf16x2(d[0], d[1]);
+    ps[2 * j + 1] = bf16x2(d[2], d[3]);
   }
 }
 
-// s (16 x 64) = rows warp·16.. of tile `a` times tile `b`ᵀ, over the head dim.
-template <int HD>
-__device__ __forceinline__ void tb_scores(float (&s)[8][4], const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b, int warp, int lane) {
-  using S = TbShape<HD>;
+template <int J0, int NJ>
+__device__ __forceinline__ void softmax_grad(const Args& a, bool edge, const float (&s)[32],
+                                             const float (&dp)[32], uint32_t (&pp)[16],
+                                             uint32_t (&ps)[16], const float* lse2,
+                                             const float* del, int q_lo, int key0, int l) {
+  if (edge)
+    softmax_grad<J0, NJ, true>(a, s, dp, pp, ps, lse2, del, q_lo, key0, l);
+  else
+    softmax_grad<J0, NJ, false>(a, s, dp, pp, ps, lse2, del, q_lo, key0, l);
+}
+
+// dSᵀ pairs [M0, M0 + NM) into the swizzled panel at `panel` (rows keys)
+template <int M0, int NM>
+__device__ __forceinline__ void stage_ds(unsigned char* panel, const uint32_t (&ps)[16], int w,
+                                         int l) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[n][c] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < S::KD; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (warp * 16 + (lane & 15)) * S::LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (p * 16 + (lane & 7) + (lane >> 4) * 8) * S::LD + kk * 16 +
-                      ((lane >> 3) & 1) * 8);
-      mma(s[2 * p], af, bf[0], bf[1]);
-      mma(s[2 * p + 1], af, bf[2], bf[3]);
-    }
+  for (int m = M0; m < M0 + NM; ++m) {
+    const int row = 16 * w + (l >> 2) + 8 * (m & 1), col = 8 * (m >> 1) + 2 * (l & 3);
+    *reinterpret_cast<uint32_t*>(panel + swizzled(row, col)) = ps[m];
   }
 }
 
-// acc (16 x 8·NACC) += p (16 x 64, C fragments rounded to bf16) times columns
-// [col0, col0 + 8·NACC) of tile `b` (64 x HD).
-template <int HD, int NACC>
-__device__ __forceinline__ void tb_accumulate(float (&acc)[NACC][4], const float (&p)[8][4],
-                                              const __nv_bfloat16* b, int col0, int lane) {
-  using S = TbShape<HD>;
-  b += col0;
+// buf[row][col .. col + 1] += (x, y) in a dq buffer (32-float panels, swizzled)
+__device__ __forceinline__ void add_dq(unsigned char* buf, int row, int col, float x, float y) {
+  float2* p = reinterpret_cast<float2*>(buf + (col >> 5) * (BM * ROW) + row * ROW +
+                                        ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4);
+  const float2 v = *p;
+  *p = make_float2(v.x + x, v.y + y);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][32]) {
 #pragma unroll
-  for (int kk = 0; kk < TB_ROWS / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+  for (int p = 0; p < N; ++p)
 #pragma unroll
-    for (int q = 0; q < NACC / 2; ++q) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LD + q * 16 +
-                        (lane >> 4) * 8);
-      mma(acc[2 * q], pa, bf[0], bf[1]);
-      mma(acc[2 * q + 1], pa, bf[2], bf[3]);
-    }
+    for (int r = 0; r < 32; ++r) d[p][r] = 0.0f;
+}
+
+// rows 16w + l/4 + 8i, columns 64·(p0 + p) + 8j + 2(l % 4) of accumulators d
+// into bf16 rows of `dst` (row stride `stride`), times `mul`, rows < `live`
+template <int N>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long stride, int p0,
+                                           const float (&d)[N][32], float mul, int live, int w,
+                                           int l) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * w + (l >> 2) + 8 * i;
+    if (row >= live) continue;
+    __nv_bfloat16* o = dst + row * stride;
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 64 * (p0 + p) + 8 * j + 2 * (l & 3)) =
+            bf16x2(d[p][4 * j + 2 * i] * mul, d[p][4 * j + 2 * i + 1] * mul);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(TB_THREADS)
-    dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int kvh, int causal,
-                  int window, float scale, float scale_log2) {
-  using S = TbShape<HD>;
-  constexpr int NO = S::NO;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][LD]
-  __nv_bfloat16* dos = qs + S::TILE;                                 // [64][LD]
-  __nv_bfloat16* kvs = dos + S::TILE;                                // [stage][K, V][64][LD]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int head = blockIdx.y, bi = blockIdx.z;
-  const int iq = gridDim.x - 1 - blockIdx.x;   // the most causal work first
-  const int kv_head = head / (h / kvh);
-  const int q_lo = iq * TB_ROWS, w_lo = q_lo + warp * 16;
-  const long long q_stride = static_cast<long long>(h) * HD;
-  const long long k_stride = static_cast<long long>(kvh) * HD;
-  const long long qoff = (static_cast<long long>(bi) * sq + q_lo) * q_stride + head * HD;
-  const __nv_bfloat16* kb = k + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-  const __nv_bfloat16* vb = v + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-  const long long row0 = (static_cast<long long>(bi) * h + head) * sq;
-
-  const int nk = (sk + TB_ROWS - 1) / TB_ROWS;
-  const int hi = causal ? min((q_lo + 2 * TB_ROWS - 1) / TB_ROWS, nk) : nk;
-  const int lo = window ? max(q_lo - window + 1, 0) / TB_ROWS : 0;
-
-  tb_load<HD>(qs, q + qoff, q_stride, sq - q_lo);
-  tb_load<HD>(dos, dout + qoff, q_stride, sq - q_lo);
-  if (lo < hi) {
-    const int at = lo * TB_ROWS;
-    tb_load<HD>(kvs, kb + at * k_stride, k_stride, sk - at);
-    tb_load<HD>(kvs + S::TILE, vb + at * k_stride, k_stride, sk - at);
-  }
-  cp_async_commit();
-
-  float lse2[2], dl[2], acc[NO][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = w_lo + g + 8 * r;
-    lse2[r] = row < sq ? lse[row0 + row] * TB_LOG2E : 0.0f;
-    dl[r] = row < sq ? delta[row0 + row] : 0.0f;
-  }
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
-
-  for (int it = lo; it < hi; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();   // tile it has landed, and every warp is done with tile it - 1
-    if (it + 1 < hi) {
-      const int at = (it + 1) * TB_ROWS;
-      __nv_bfloat16* dst = kvs + ((it + 1 - lo) & 1) * 2 * S::TILE;
-      tb_load<HD>(dst, kb + at * k_stride, k_stride, sk - at);
-      tb_load<HD>(dst + S::TILE, vb + at * k_stride, k_stride, sk - at);
+template <int HD, int HDV>
+__device__ __forceinline__ void produce(const Args& a, unsigned char* sm) {
+  using S = Shape<HD, HDV>;
+  const int lane = threadIdx.x & 31;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+  int* item_slot = reinterpret_cast<int*>(sm + S::OFF_ITEM);
+  int* hdr = reinterpret_cast<int*>(sm + S::OFF_HDR);
+  float* rows = reinterpret_cast<float*>(sm + S::OFF_ROWS);
+  const int groups = a.h / a.kvh;
+  int stage = 0, phase = 0, u = 0;
+  // step u's dq tile to the dq loader (counter < 0: no more steps)
+  auto post = [&](int counter, int expected, int head, int q_lo, int bi) {
+    if (lane == 0) {
+      const int r = u % HEADERS;
+      mbar_wait(bars + S::B_HDR_EMPTY + r, ((u / HEADERS) & 1) ^ 1);
+      int* h_ = hdr + r * S::HDR;
+      h_[0] = counter;
+      h_[1] = expected;
+      h_[2] = head;
+      h_[3] = q_lo;
+      h_[4] = bi;
+      mbar_arrive(bars + S::B_HDR + r);
     }
-    cp_async_commit();
-    const __nv_bfloat16* ks = kvs + ((it - lo) & 1) * 2 * S::TILE;
-    const __nv_bfloat16* vs = ks + S::TILE;
-    const int k_lo = it * TB_ROWS;
-
-    float s[8][4], dp[8][4];
-    tb_scores<HD>(s, qs, ks, warp, lane);
-    tb_scores<HD>(dp, dos, vs, warp, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = w_lo + g + 8 * r;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k_lo + n * 8 + 2 * t4 + e;
-          const float p = visible(row, col, sq, sk, causal, window)
-                              ? exp2_approx(s[n][2 * r + e] * scale_log2 - lse2[r]) : 0.0f;
-          s[n][2 * r + e] = p * (dp[n][2 * r + e] - dl[r]);   // dS
-        }
-    }
-    tb_accumulate<HD, NO>(acc, s, ks, 0, lane);   // dq += dS·K
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = w_lo + g + 8 * r;
-    if (row >= sq) continue;
-    __nv_bfloat16* dst = dq + (static_cast<long long>(bi) * sq + row) * q_stride + head * HD;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t4) =
-          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(TB_THREADS)
-    dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
-                   int sk, int h, int kvh, int causal, int window, float scale,
-                   float scale_log2) {
-  using S = TbShape<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][LD] this block's keys
-  __nv_bfloat16* vs = ks + S::TILE;                                  // [64][LD]
-  __nv_bfloat16* ring = vs + S::TILE;                                // [stage][q, dout][64][LD]
-  float* lse_s = reinterpret_cast<float*>(ring + 4 * S::TILE);       // [stage][64], log2 domain
-  float* del_s = lse_s + 2 * TB_ROWS;                                // [stage][64]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  constexpr int NACC = S::NACC;
-  const int ik = blockIdx.x, kv_head = blockIdx.y / S::SPLIT, bi = blockIdx.z;
-  const int col0 = (blockIdx.y % S::SPLIT) * NACC * 8;   // this block's dk/dv columns
-  const int groups = h / kvh;
-  const int k_lo = ik * TB_ROWS, w_lo = k_lo + warp * 16;
-  const long long q_stride = static_cast<long long>(h) * HD;
-  const long long k_stride = static_cast<long long>(kvh) * HD;
-  const long long koff = (static_cast<long long>(bi) * sk + k_lo) * k_stride + kv_head * HD;
-
-  // the query tiles that can see keys [k_lo, k_lo + 64), for each of the G heads
-  const int q_begin = causal ? k_lo : 0;
-  const int q_end = window ? min(sq, k_lo + TB_ROWS - 1 + window) : sq;
-  const int t_lo = q_begin / TB_ROWS;
-  const int nt = q_end > q_begin ? (q_end + TB_ROWS - 1) / TB_ROWS - t_lo : 0;
-  const int total = groups * nt;
-
-  // tile j = (head g, query tile t_lo + j % nt) into stage `stage`
-  auto issue = [&](int j, int stage) {
-    const int head = kv_head * groups + j / nt;
-    const int q_lo = (t_lo + j % nt) * TB_ROWS;
-    const long long qoff = (static_cast<long long>(bi) * sq + q_lo) * q_stride + head * HD;
-    __nv_bfloat16* dst = ring + stage * 2 * S::TILE;
-    tb_load<HD>(dst, q + qoff, q_stride, sq - q_lo);
-    tb_load<HD>(dst + S::TILE, dout + qoff, q_stride, sq - q_lo);
-    const long long row0 = (static_cast<long long>(bi) * h + head) * sq;
-    for (int t = threadIdx.x; t < TB_ROWS; t += TB_THREADS) {
-      const int row = q_lo + t;
-      lse_s[stage * TB_ROWS + t] = row < sq ? lse[row0 + row] * TB_LOG2E : 0.0f;
-      del_s[stage * TB_ROWS + t] = row < sq ? delta[row0 + row] : 0.0f;
-    }
+    ++u;
   };
-
-  tb_load<HD>(ks, k + koff, k_stride, sk - k_lo);
-  tb_load<HD>(vs, v + koff, k_stride, sk - k_lo);
-  if (total > 0) issue(0, 0);
-  cp_async_commit();
-
-  float dka[NACC][4], dva[NACC][4];
+  for (int it = 0;; ++it) {
+    int item = 0;
+    Item m{0, 0, 0};
+    do {   // past the last key tile in the last chunk: no item
+      if (lane == 0) item = atomicAdd(a.counters, 1);
+      item = __shfl_sync(0xffffffffu, item, 0);
+      if (item >= a.n_items) item = -1;
+      if (item >= 0) m = decode(item, a);
+    } while (item >= 0 && m.n >= a.nk);
+    mbar_wait(bars + S::B_KV_EMPTY, (it & 1) ^ 1);
+    if (lane == 0) {
+      *item_slot = item;
+      if (item < 0) {
+        mbar_arrive(bars + S::B_KV_FULL);
+      } else {
+        mbar_arrive_tx(bars + S::B_KV_FULL, S::K_BYTES + S::V_BYTES);
 #pragma unroll
-  for (int n = 0; n < NACC; ++n)
+        for (int p = 0; p < S::PK; ++p)
+          tma_load_4d(sm + S::OFF_K + p * S::BN * ROW, &a.tk, bars + S::B_KV_FULL, 64 * p, m.kvh,
+                      m.n * S::BN, m.bi);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.0f;
-
-  for (int j = 0; j < total; ++j) {
-    cp_async_wait<0>();
-    __syncthreads();   // tile j has landed, and every warp is done with tile j - 1
-    if (j + 1 < total) issue(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    const int stage = j & 1;
-    const __nv_bfloat16* qs = ring + stage * 2 * S::TILE;
-    const __nv_bfloat16* dos = qs + S::TILE;
-    const float* ls = lse_s + stage * TB_ROWS;
-    const float* ds = del_s + stage * TB_ROWS;
-    const int q_lo = (t_lo + j % nt) * TB_ROWS;
-
-    float st[8][4], dpt[8][4];
-    tb_scores<HD>(st, ks, qs, warp, lane);    // Sᵀ: this warp's 16 keys against 64 queries
-    tb_scores<HD>(dpt, vs, dos, warp, lane);  // dPᵀ
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = w_lo + g + 8 * r;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n * 8 + 2 * t4 + e;
-          const float p = visible(q_lo + c, key, sq, sk, causal, window)
-                              ? exp2_approx(st[n][2 * r + e] * scale_log2 - ls[c]) : 0.0f;
-          st[n][2 * r + e] = p;                                 // Pᵀ
-          dpt[n][2 * r + e] = p * (dpt[n][2 * r + e] - ds[c]);  // dSᵀ
-        }
+        for (int p = 0; p < S::PV; ++p)
+          tma_load_4d(sm + S::OFF_V + p * S::BN * ROW, &a.tv, bars + S::B_KV_FULL, 64 * p, m.kvh,
+                      m.n * S::BN, m.bi);
+      }
     }
-    tb_accumulate<HD, NACC>(dva, st, dos, col0, lane);    // dv += Pᵀ·dout
-    tb_accumulate<HD, NACC>(dka, dpt, qs, col0, lane);    // dk += dSᵀ·q
-  }
-
+    if (item < 0) {
+      post(-1, 0, 0, 0, 0);
+      return;
+    }
+    int t_lo, t_hi;
+    span(a, m.n * S::BN, S::BN, t_lo, t_hi);
+    const int steps = (t_hi - t_lo) * groups;
+    for (int j = 0; j < steps; ++j) {
+      const int t = t_hi - 1 - j / groups, head = m.kvh * groups + j % groups, q_lo = t * BM;
+      // the rows' loads are in flight while the stage drains
+      const long long row0 = (static_cast<long long>(m.bi) * a.h + head) * a.sq;
+      float lse_r[2], del_r[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = w_lo + g + 8 * r;
-    if (key >= sk) continue;
-    const long long off =
-        (static_cast<long long>(bi) * sk + key) * k_stride + kv_head * HD + col0;
+      for (int u = 0; u < 2; ++u) {
+        const int q = q_lo + lane + 32 * u;
+        lse_r[u] = q < a.sq ? a.lse[row0 + q] * LOG2E : 0.0f;
+        del_r[u] = q < a.sq ? a.delta[row0 + q] : 0.0f;
+      }
+      mbar_wait(bars + S::B_EMPTY + stage, phase ^ 1);
+      float* lse_s = rows + stage * 2 * BM;
 #pragma unroll
-    for (int n = 0; n < NACC; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t4) =
-          pack_bf16(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t4) =
-          pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+      for (int u = 0; u < 2; ++u) {
+        lse_s[lane + 32 * u] = lse_r[u];
+        lse_s[BM + lane + 32 * u] = del_r[u];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        unsigned char* st = sm + S::OFF_STAGE + stage * S::STAGE_BYTES;
+        uint64_t* full = bars + S::B_FULL + stage;
+        mbar_arrive_tx(full, S::STAGE_BYTES);
+#pragma unroll
+        for (int p = 0; p < S::PK; ++p)
+          tma_load_4d(st + p * BM * ROW, &a.tq, full, 64 * p, head, q_lo, m.bi);
+#pragma unroll
+        for (int p = 0; p < S::PV; ++p)
+          tma_load_4d(st + S::Q_BYTES + p * BM * ROW, &a.tdo, full, 64 * p, head, q_lo, m.bi);
+      }
+      post(1 + (m.bi * a.h + head) * a.nq + t, m.n - first_key_tile(a, t, S::BN), head, q_lo,
+           m.bi);
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 }
 
-template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const void* out, const void* dout,
-               const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq,
-               int sk, int h, int kvh, int causal, int window, float scale,
-               cudaStream_t stream) {
-  using S = TbShape<HD>;
-  using B = __nv_bfloat16;
-  const long long rows = static_cast<long long>(b) * sq * h;
-  delta_kernel<B><<<static_cast<unsigned>((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)),
-                    BW_THREADS, 0, stream>>>(static_cast<const B*>(out),
-                                             static_cast<const B*>(dout), delta, rows, sq, h,
-                                             HD);
-  cudaError_t err = cudaGetLastError();
+// The dq writers, two threads.  The loader: step u's float32 dq_acc tile into
+// buffer u % SLOTS, once the storer has read the buffer's last tile out and
+// the tile's counter says every earlier key tile has added.  The storer: each
+// buffer back to dq_acc once the consumers have added into it, then the
+// tile's counter bumped once the store has landed.  The loader waits on other
+// blocks' counters, the storer only on this block's consumers, so no item
+// (this block's own earlier one among them) waits on a tile this block keeps.
+template <int HD, int HDV>
+__device__ __forceinline__ void load_dq(const Args& a, unsigned char* sm) {
+  using S = Shape<HD, HDV>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+  const volatile int* hdr = reinterpret_cast<const volatile int*>(sm + S::OFF_HDR);
+  int* tiles = reinterpret_cast<int*>(sm + S::OFF_TILES);
+  volatile int* total = reinterpret_cast<volatile int*>(sm + S::OFF_ITEM) + 1;
+  for (int u = 0;; ++u) {
+    const int r = u % HEADERS;
+    mbar_wait(bars + S::B_HDR + r, (u / HEADERS) & 1);
+    const volatile int* h_ = hdr + r * S::HDR;
+    const int cur[5] = {h_[0], h_[1], h_[2], h_[3], h_[4]};
+    mbar_arrive(bars + S::B_HDR_EMPTY + r);
+    if (cur[0] < 0) {   // no more steps: the storer stops after step u - 1
+      *total = u;
+      return;
+    }
+    const int slot = u % S::SLOTS;
+    if (u >= S::SLOTS) mbar_wait(bars + S::B_FREE + slot, ((u / S::SLOTS) - 1) & 1);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) tiles[slot * S::HDR + i] = cur[i];
+    while (ld_acquire(a.counters + cur[0]) != cur[1]) {
+    }
+    fence_proxy_async_global();
+    unsigned char* buf = sm + S::OFF_DQ + slot * S::DQ_BYTES;
+    mbar_arrive_tx(bars + S::B_READY + slot, S::DQ_BYTES);
+#pragma unroll
+    for (int p = 0; p < HD / 32; ++p)
+      tma_load_4d(buf + p * BM * ROW, &a.tdq, bars + S::B_READY + slot, 32 * p, cur[2], cur[3],
+                  cur[4]);
+  }
+}
+
+template <int HD, int HDV>
+__device__ __forceinline__ void store_dq(const Args& a, unsigned char* sm) {
+  using S = Shape<HD, HDV>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+  const volatile int* tiles = reinterpret_cast<const volatile int*>(sm + S::OFF_TILES);
+  const volatile int* total = reinterpret_cast<const volatile int*>(sm + S::OFF_ITEM) + 1;
+  for (int v = 0;; ++v) {
+    const int slot = v % S::SLOTS;
+    const uint32_t full = smem_u32(bars + S::B_DQ_FULL + slot);
+    while (!mbar_try_wait(full, (v / S::SLOTS) & 1)) {
+      if (v >= *total) {
+        return;
+      }
+    }
+    const volatile int* t_ = tiles + slot * S::HDR;
+    const int counter = t_[0], expected = t_[1], head = t_[2], q_lo = t_[3], bi = t_[4];
+    const unsigned char* buf = sm + S::OFF_DQ + slot * S::DQ_BYTES;
+#pragma unroll
+    for (int p = 0; p < HD / 32; ++p) tma_store_4d(&a.tdq, buf + p * BM * ROW, 32 * p, head, q_lo, bi);
+    tma_store_commit_read();
+    mbar_arrive(bars + S::B_FREE + slot);
+    tma_store_wait();
+    fence_proxy_async_global();
+    st_release(a.counters + counter, expected + 1);
+  }
+}
+
+template <int HD, int HDV, int CW>
+__device__ __forceinline__ void consume(const Args& a, unsigned char* sm) {
+  using S = Shape<HD, HDV>;
+  using P = Panels<HD, HDV, CW>;
+  constexpr bool KS = S::KEYSPLIT;
+  const int tid = threadIdx.x - 128 * (1 + CW), w = tid >> 5, l = tid & 31;
+  const int bar_wg = CW ? BAR_WG2 : BAR_WG1;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+  const volatile int* item_slot = reinterpret_cast<const volatile int*>(sm + S::OFF_ITEM);
+  const float* rows = reinterpret_cast<const float*>(sm + S::OFF_ROWS);
+  const uint32_t a_k = smem_u32(sm + S::OFF_K), a_v = smem_u32(sm + S::OFF_V);
+  const int key_row = KS ? CW * KW : 0;   // this consumer's first row of the K and V tiles
+  const int groups = a.h / a.kvh;
+  int stage = 0, phase = 0, u = 0;
+
+  for (int it = 0;; ++it) {
+    mbar_wait(bars + S::B_KV_FULL, it & 1);
+    const int item = *item_slot;
+    if (item < 0) break;
+    const Item m = decode(item, a);
+    const int k_lo = m.n * S::BN, kb = k_lo + key_row;
+    int t_lo, t_hi;
+    span(a, k_lo, S::BN, t_lo, t_hi);
+    const int steps = (t_hi - t_lo) * groups;
+    float dk[P::NK][32], dv[P::NV][32];
+    zero(dk);
+    zero(dv);
+
+    for (int j = 0; j < steps; ++j, ++u) {
+      const int q_lo = (t_hi - 1 - j / groups) * BM;
+      const bool edge = !(q_lo + BM <= a.sq && kb + KW <= a.sk &&
+                          (!a.causal || q_lo >= kb + KW - 1) &&
+                          (!a.window || q_lo + BM - 1 - kb < a.window));
+      mbar_wait(bars + S::B_FULL + stage, phase);
+      const uint32_t a_q = smem_u32(sm + S::OFF_STAGE + stage * S::STAGE_BYTES);
+      const uint32_t a_do = a_q + S::Q_BYTES;
+      const float* lse2 = rows + stage * 2 * BM;
+      const float* del = lse2 + BM;
+      const int key0 = kb + 16 * w + (l >> 2);
+      // this consumer's dSᵀ panel (the key split: one each)
+      unsigned char* ds_panel = sm + S::OFF_DS + (KS ? CW * KW * ROW : 0);
+      const uint32_t a_ds = smem_u32(ds_panel);
+      uint32_t pp[16], ps[16];
+
+      if constexpr (KS) {
+        float s[32], dp[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          mma_ss<0, 0>(s, desc(a_k + (kk >> 2) * S::BN * ROW + key_row * ROW + (kk & 3) * 32, 16, 1024),
+                       desc(a_q + (kk >> 2) * BM * ROW + (kk & 3) * 32, 16, 1024), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HDV / 16; ++kk)
+          mma_ss<0, 0>(dp, desc(a_v + (kk >> 2) * S::BN * ROW + key_row * ROW + (kk & 3) * 32, 16, 1024),
+                       desc(a_do + (kk >> 2) * BM * ROW + (kk & 3) * 32, 16, 1024), kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        pin(s);
+        pin(dp);
+        softmax_grad<0, 8>(a, edge, s, dp, pp, ps, lse2, del, q_lo, key0, l);
+        stage_ds<0, 16>(ds_panel, ps, w, l);
+        fence_proxy_async();
+      } else {
+        // consumer 0 computes Sᵀ, consumer 1 dPᵀ; each forms P and dS for its half
+        // of the query columns (consumer 0: 0-31, registers 0-15) and trades
+        float x[32];
+        wg_fence();
+        if constexpr (CW == 0) {
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            mma_ss<0, 0>(x, desc(a_k + (kk >> 2) * S::BN * ROW + (kk & 3) * 32, 16, 1024),
+                         desc(a_q + (kk >> 2) * BM * ROW + (kk & 3) * 32, 16, 1024), kk > 0);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < HDV / 16; ++kk)
+            mma_ss<0, 0>(x, desc(a_v + (kk >> 2) * S::BN * ROW + (kk & 3) * 32, 16, 1024),
+                         desc(a_do + (kk >> 2) * BM * ROW + (kk & 3) * 32, 16, 1024), kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        pin(x);
+        constexpr int KEEP = CW ? 16 : 0, GIVE = 16 - KEEP;
+        float4* mine = reinterpret_cast<float4*>(sm + S::OFF_XCH + CW * 128 * 64);
+        float4* theirs = reinterpret_cast<float4*>(sm + S::OFF_XCH + (1 - CW) * 128 * 64);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mine[i * 128 + tid] =
+              make_float4(x[GIVE + 4 * i], x[GIVE + 4 * i + 1], x[GIVE + 4 * i + 2], x[GIVE + 4 * i + 3]);
+        bar_sync(BAR_CONSUMERS, 256);
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 y = theirs[i * 128 + tid];
+          const float other[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = KEEP + 4 * i + c;
+            s[r] = CW ? other[c] : x[r];
+            dp[r] = CW ? x[r] : other[c];
+          }
+        }
+        softmax_grad<KEEP / 4, 4>(a, edge, s, dp, pp, ps, lse2, del, q_lo, key0, l);
+        // the packed half to the other consumer, through the buffer it filled
+        uint4* out4 = reinterpret_cast<uint4*>(theirs);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          out4[i * 128 + tid] = make_uint4(pp[KEEP / 2 + 4 * i], pp[KEEP / 2 + 4 * i + 1],
+                                           pp[KEEP / 2 + 4 * i + 2], pp[KEEP / 2 + 4 * i + 3]);
+          out4[(2 + i) * 128 + tid] = make_uint4(ps[KEEP / 2 + 4 * i], ps[KEEP / 2 + 4 * i + 1],
+                                                 ps[KEEP / 2 + 4 * i + 2], ps[KEEP / 2 + 4 * i + 3]);
+        }
+        stage_ds<KEEP / 2, 8>(ds_panel, ps, w, l);
+        fence_proxy_async();
+        bar_sync(BAR_CONSUMERS, 256);
+        const uint4* in4 = reinterpret_cast<const uint4*>(mine);
+        constexpr int OTHER = 8 - KEEP / 2;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint4 y = in4[i * 128 + tid], z = in4[(2 + i) * 128 + tid];
+          pp[OTHER + 4 * i] = y.x;
+          pp[OTHER + 4 * i + 1] = y.y;
+          pp[OTHER + 4 * i + 2] = y.z;
+          pp[OTHER + 4 * i + 3] = y.w;
+          ps[OTHER + 4 * i] = z.x;
+          ps[OTHER + 4 * i + 1] = z.y;
+          ps[OTHER + 4 * i + 2] = z.z;
+          ps[OTHER + 4 * i + 3] = z.w;
+        }
+      }
+      if constexpr (KS) bar_sync(bar_wg, 128);   // this consumer's dSᵀ panel is written
+
+      // dV += Pᵀ·dout, dK += dSᵀ·q over this consumer's panels
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int p = 0; p < P::NV; ++p)
+          mma_rs<1>(dv[p], pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2], pp[4 * kk + 3],
+                    desc(a_do + (P::V_LO + p) * BM * ROW + kk * 16 * ROW, BM * ROW, 1024), 1);
+#pragma unroll
+        for (int p = 0; p < P::NK; ++p)
+          mma_rs<1>(dk[p], ps[4 * kk], ps[4 * kk + 1], ps[4 * kk + 2], ps[4 * kk + 3],
+                    desc(a_q + (P::K_LO + p) * BM * ROW + kk * 16 * ROW, BM * ROW, 1024), 1);
+      }
+      wg_commit();
+      // dQ-partial = dS·K over this consumer's dQ panels, added into the step's
+      // dq tile
+      const int slot = u % S::SLOTS;
+      unsigned char* buf = sm + S::OFF_DQ + slot * S::DQ_BYTES;
+      auto dq_product = [&](float (&d)[32], int p) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_ss<1, 1>(d, desc(a_ds + kk * 16 * ROW, KW * ROW, 1024),
+                       desc(a_k + (P::Q_LO + p) * S::BN * ROW + (key_row + 16 * kk) * ROW,
+                            S::BN * ROW, 1024),
+                       kk > 0);
+      };
+      auto add = [&](const float (&d)[32], int p) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jb = 0; jb < 8; ++jb)
+            add_dq(buf, 16 * w + (l >> 2) + 8 * i, 64 * (P::Q_LO + p) + 8 * jb + 2 * (l & 3),
+                   d[4 * jb + 2 * i], d[4 * jb + 2 * i + 1]);
+      };
+      auto release_stage = [&]() {   // dV and dK are done: the stage is read out
+#pragma unroll
+        for (int p = 0; p < P::NV; ++p) pin(dv[p]);
+#pragma unroll
+        for (int p = 0; p < P::NK; ++p) pin(dk[p]);
+        bar_sync(bar_wg, 128);
+        if (tid == 0) mbar_arrive(bars + S::B_EMPTY + stage);
+        if (++stage == S::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      auto ready = [&]() {   // the tile is loaded (and, key split, consumer 0 has added)
+        mbar_wait(bars + S::B_READY + slot, (u / S::SLOTS) & 1);
+        if (KS && CW == 1) mbar_wait(bars + S::B_HALF + slot, (u / S::SLOTS) & 1);
+      };
+      if constexpr (P::ONE_GROUP) {
+        float dq[P::NQ][32];
+#pragma unroll
+        for (int p = 0; p < P::NQ; ++p) dq_product(dq[p], p);
+        wg_commit();
+        wg_wait<1>();
+        release_stage();
+        wg_wait<0>();
+        ready();
+#pragma unroll
+        for (int p = 0; p < P::NQ; ++p) {
+          pin(dq[p]);
+          add(dq[p], p);
+        }
+      } else {   // a panel at a time, for the registers
+        wg_wait<0>();
+        release_stage();
+        ready();
+#pragma unroll
+        for (int p = 0; p < P::NQ; ++p) {
+          float dq[32];
+          wg_fence();
+          dq_product(dq, p);
+          wg_commit();
+          wg_wait<0>();
+          pin(dq);
+          add(dq, p);
+        }
+      }
+      fence_proxy_async();
+      bar_sync(bar_wg, 128);
+      if (tid == 0) mbar_arrive(bars + ((KS && CW == 0) ? S::B_HALF : S::B_DQ_FULL) + slot);
+    }
+    if (tid == 0) mbar_arrive(bars + S::B_KV_EMPTY);
+
+    // dK = scale·Σ dSᵀ·q, dV = Σ Pᵀ·dout, this consumer's keys and columns
+    const long long k_off = (static_cast<long long>(m.bi) * a.sk + kb) * a.kvh + m.kvh;
+    store_rows(a.dk + k_off * HD, static_cast<long long>(a.kvh) * HD, P::K_LO, dk, a.scale,
+               a.sk - kb, w, l);
+    store_rows(a.dv + k_off * HDV, static_cast<long long>(a.kvh) * HDV, P::V_LO, dv, 1.0f,
+               a.sk - kb, w, l);
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(THREADS, 1) bwd_kernel(const __grid_constant__ Args a) {
+  using S = Shape<HD, HDV>;
+  extern __shared__ __align__(1024) unsigned char raw[];
+  // the base rounded up to 1,024 bytes (the swizzle's period), as an offset so
+  // that the compiler keeps the pointers in the shared window
+  unsigned char* sm = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(bars + S::B_FULL + i, 1);    // the producer's expect_tx
+      mbar_init(bars + S::B_EMPTY + i, 2);   // one arrival a consumer
+    }
+    mbar_init(bars + S::B_KV_FULL, 1);
+    mbar_init(bars + S::B_KV_EMPTY, 2);
+    for (int i = 0; i < HEADERS; ++i) {
+      mbar_init(bars + S::B_HDR + i, 1);
+      mbar_init(bars + S::B_HDR_EMPTY + i, 1);
+    }
+    for (int i = 0; i < S::SLOTS; ++i) {
+      mbar_init(bars + S::B_READY + i, 1);
+      mbar_init(bars + S::B_HALF + i, 1);
+      mbar_init(bars + S::B_DQ_FULL + i, S::KEYSPLIT ? 1 : 2);
+      mbar_init(bars + S::B_FREE + i, 1);
+    }
+    reinterpret_cast<volatile int*>(sm + S::OFF_ITEM)[1] = 0x7fffffff;   // the step count
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // the warpgroup, uniform across the warp as the compiler can see (so that each
+  // branch is compiled to its own register count)
+  const int group = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (group == 0) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32)
+      produce<HD, HDV>(a, sm);
+    else if (threadIdx.x == 32)
+      load_dq<HD, HDV>(a, sm);
+    else if (threadIdx.x == 64)
+      store_dq<HD, HDV>(a, sm);
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    if (group == 1)
+      consume<HD, HDV, 0>(a, sm);
+    else
+      consume<HD, HDV, 1>(a, sm);
+  }
+}
+
+// dq (B, Sq, H, hd_out) = bf16(dq_acc · scale), the padded lanes sliced off;
+// four elements a thread where no lane is sliced off
+__global__ void dq_finish_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                                 long long rows, int hd_acc, int hd_out, float scale) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (hd_acc == hd_out) {
+    const long long n4 = rows * hd_out / 4;
+    for (long long i = first; i < n4; i += step) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(acc) + i);
+      const uint2 o = make_uint2(bf16x2(v.x * scale, v.y * scale), bf16x2(v.z * scale, v.w * scale));
+      *reinterpret_cast<uint2*>(dq + 4 * i) = o;
+    }
+    return;
+  }
+  const long long n = rows * hd_out;
+  for (long long i = first; i < n; i += step) {
+    const long long r = i / hd_out;
+    dq[i] = __float2bfloat16_rn(acc[r * hd_acc + i % hd_out] * scale);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// a (B, S, heads, width) tensor in boxes of one panel row x `rows` rows
+cudaError_t map4(CUtensorMap* map, const void* ptr, int b, int s, int heads, int width, int rows,
+                 bool f32 = false) {
+  const cuuint64_t el = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(width) * el,
+                                 static_cast<cuuint64_t>(heads) * width * el,
+                                 static_cast<cuuint64_t>(s) * heads * width * el};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(ROW / el), 1, static_cast<cuuint32_t>(rows),
+                             1};
+  return make_map(map, ptr, 4, dims, strides, box,
+                  f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+template <int HD, int HDV>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, float* dq_acc, int* counters, void* dq, void* dk, void* dv, int b,
+           int sq, int sk, int h, int kvh, int hd_out, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using S = Shape<HD, HDV>;
+  Args a;
+  cudaError_t err = map4(&a.tq, q, b, sq, h, HD, BM);
+  if (err == cudaSuccess) err = map4(&a.tk, k, b, sk, kvh, HD, S::BN);
+  if (err == cudaSuccess) err = map4(&a.tv, v, b, sk, kvh, HDV, S::BN);
+  if (err == cudaSuccess) err = map4(&a.tdo, dout, b, sq, h, HDV, BM);
+  if (err == cudaSuccess) err = map4(&a.tdq, dq_acc, b, sq, h, HD, BM, true);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dq_k = dq_mma_kernel<HD>;
-  err = cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(S::BYTES));
+  a.lse = lse;
+  a.delta = delta;
+  a.counters = counters;
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.b = b;
+  a.sq = sq;
+  a.sk = sk;
+  a.h = h;
+  a.kvh = kvh;
+  a.causal = causal;
+  a.window = window;
+  a.nq = (sq + BM - 1) / BM;
+  a.nk = (sk + S::BN - 1) / S::BN;
+  // a wave of items (one an SM) holds about four key tiles of each group
+  const int groups = b * kvh, wave = sm_count() / 4;
+  a.chunk = groups <= wave ? 1 : (groups + wave - 1) / wave < 4 ? (groups + wave - 1) / wave : 4;
+  a.n_items = (a.nk + a.chunk - 1) / a.chunk * a.chunk * groups;
+  a.scale = scale;
+  a.scale_log2 = scale * LOG2E;
+  auto kern = bwd_kernel<HD, HDV>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_k<<<dim3((sq + TB_ROWS - 1) / TB_ROWS, h, b), TB_THREADS, S::BYTES, stream>>>(
-      static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
-      static_cast<const B*>(dout), lse, delta, static_cast<B*>(dq), sq, sk, h, kvh, causal,
-      window, scale, scale * TB_LOG2E);
+  const int grid = a.n_items < sm_count() ? a.n_items : sm_count();
+  kern<<<grid, THREADS, S::BYTES, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkv_k = dkv_mma_kernel<HD>;
-  err = cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(S::DKV_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_k<<<dim3((sk + TB_ROWS - 1) / TB_ROWS, kvh * S::SPLIT, b), TB_THREADS, S::DKV_BYTES,
-          stream>>>(
-      static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
-      static_cast<const B*>(dout), lse, delta, static_cast<B*>(dk), static_cast<B*>(dv), sq,
-      sk, h, kvh, causal, window, scale, scale * TB_LOG2E);
+  const long long rows = static_cast<long long>(b) * sq * h;
+  const long long n = rows * hd_out;
+  const long long want = (n + 255) / 256, cap = 8LL * sm_count();
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  dq_finish_kernel<<<blocks, 256, 0, stream>>>(dq_acc, static_cast<__nv_bfloat16*>(dq), rows, HD,
+                                               hd_out, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace wg
 
 template <int HD>
 int launch(const void* q_, const void* k_, const void* v_, const void* out_, const void* dout_,
@@ -793,30 +1244,39 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v, const void*
 
 }  // namespace
 
-// q, out, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Sk, KV, hd), one padded
-// head dim for all; lse: (B, H, Sq) float32 from the forward; delta: (B, H,
-// Sq) float32 scratch; bf16: 1 for bfloat16 tensors, 0 for float32; scale:
-// 1/sqrt(true head dim) rounded to float32.
+// q, k: (B, S, heads, hd); v, out, dout: (.., hdv); lse: (B, H, Sq) float32 from
+// the forward; delta: (B, H, Sq) float32 scratch; scale: 1/sqrt(true head dim)
+// rounded to float32.  bf16 = 0: float32 inputs on the CUDA cores, hd == hdv
+// one padded width, dq, dk, dv at it.  bf16 = 1: bfloat16 inputs on wgmma,
+// (hd, hdv) one of (64, 64), (128, 128), (192, 128), (256, 256); dq_acc
+// (B, Sq, H, hd) float32 and counters (1 + B·H·ceil(Sq/64)) int32, zeroed by
+// the caller; dq written at hd_out (<= hd), dk and dv at hd and hdv.
 extern "C" int port_flash_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* out, const void* dout, const float* lse,
-                                        float* delta, void* dq, void* dk, void* dv, int b,
-                                        int sq, int sk, int h, int kvh, int hd, int causal,
+                                        float* delta, void* dq, void* dk, void* dv,
+                                        float* dq_acc, int* counters, int b, int sq, int sk,
+                                        int h, int kvh, int hd, int hdv, int hd_out, int causal,
                                         int window, float scale, int bf16,
                                         cudaStream_t stream) {
-#define PORT_FA_BWD_MMA(HD)                                                                 \
-  return launch_mma<HD>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kvh, causal, \
-                        window, scale, stream)
-  if (bf16) {   // the tensor cores
-    switch (hd) {
-      case 16: PORT_FA_BWD_MMA(16);
-      case 32: PORT_FA_BWD_MMA(32);
-      case 64: PORT_FA_BWD_MMA(64);
-      case 128: PORT_FA_BWD_MMA(128);
-      case 256: PORT_FA_BWD_MMA(256);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  if (!bf16) {
+    if (hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
+    return by_head_dim(hd, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kvh,
+                       causal, window, scale, stream);
   }
-#undef PORT_FA_BWD_MMA
-  return by_head_dim(hd, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kvh,
-                            causal, window, scale, stream);
+  using B = __nv_bfloat16;
+  const long long rows = static_cast<long long>(b) * sq * h;
+  delta_kernel<B><<<static_cast<unsigned>((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)),
+                    BW_THREADS, 0, stream>>>(static_cast<const B*>(out), static_cast<const B*>(dout),
+                                             delta, rows, sq, h, hdv);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define PORT_FA_BWD_WG(HD, HDV)                                                              \
+  return wg::launch<HD, HDV>(q, k, v, dout, lse, delta, dq_acc, counters, dq, dk, dv, b, sq, sk, \
+                             h, kvh, hd_out, causal, window, scale, stream)
+  if (hd == 64 && hdv == 64) PORT_FA_BWD_WG(64, 64);
+  if (hd == 128 && hdv == 128) PORT_FA_BWD_WG(128, 128);
+  if (hd == 192 && hdv == 128) PORT_FA_BWD_WG(192, 128);
+  if (hd == 256 && hdv == 256) PORT_FA_BWD_WG(256, 256);
+#undef PORT_FA_BWD_WG
+  return static_cast<int>(cudaErrorInvalidValue);
 }

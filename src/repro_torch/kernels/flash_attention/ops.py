@@ -14,8 +14,8 @@ Training: when autograd records (grad enabled and q, k or v requires grad),
 ``torch.autograd.Function`` whose forward is the same kernel writing the
 log-sum-exp too (``flash_attention_with_lse``) and whose backward is the
 hand-written backward kernel ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``: bf16 on the tensor cores, float32 on the CUDA
-cores); on CPU tensors both are the plain pair of
+(``flash_attention_bwd``: bf16 in one key-major pass on wgmma with TMA,
+float32 on the CUDA cores); on CPU tensors both are the plain pair of
 ``models/flash.py`` (``_flash_fwd_impl``, ``_flash_bwd``).  Calls that
 record no gradient (the LM forward, serving) keep the forward-only launch.
 
@@ -26,13 +26,20 @@ that holds both hd and hdv, v to the same width, the kernel gets the true
 ``1/sqrt(hd)`` as an argument, and the output is sliced back to hdv.  The
 padded lanes add exact zeros to q·k and to P·V, and q is not rescaled, so
 no rounding is added; hd 64 gives the bits it gave before the padding
-existed (``1/sqrt(64)`` is exact).  The backward pads dout as v and slices
-the padded lanes of dq and dk off.
+existed (``1/sqrt(64)`` is exact).  The float32 backward pads dout as v and
+slices the padded lanes of dq and dk off.  The bf16 backward has a table of
+its own, ``BWD_WIDTHS`` (``bwd_head_dims``): (64, 64), (128, 128), MLA's
+(192, 128) native, (256, 256); q and k are padded to the pair's first width,
+v, out and dout to its second (16, 32 → 64; 112 → 128).  Its dq sums in a
+float32 workspace ``dq_acc`` (B, Sq, H, hd) in a fixed order, under one
+counter per (batch, head, query tile); the wrapper allocates both zeroed, and
+a finish kernel writes dq at the true head dim.
 
 ``flash_attention.launches`` counts the forward kernel's launches on both
 routes (with or without the log-sum-exp), ``flash_attention.routes`` each;
 ``flash_attention_bwd.launches`` and ``.routes`` count the backward's (its
-three kernels — delta, dq, dk/dv — as one launch).
+kernels — delta, then dq and dk/dv, or the wgmma pass and its finish — as one
+launch).
 """
 from __future__ import annotations
 
@@ -49,7 +56,11 @@ from repro_torch.models.flash import flash_attention as flash_attention_plain
 HEAD_DIMS = (16, 32, 64, 128, 256)
 ROUTES = {torch.bfloat16: ("bf16_tensor_cores", "port_flash_attention_bf16"),
           torch.float32: ("f32_cuda_cores", "port_flash_attention")}
-BWD_ROUTES = {torch.bfloat16: "bf16_tensor_cores", torch.float32: "f32_cuda_cores"}
+BWD_ROUTES = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_cores"}
+# the bf16 backward's (hd, hdv) pairs, in order of size
+BWD_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
+# query rows of a tile of the bf16 backward (its dq counters are one a tile)
+BWD_QUERY_TILE = 64
 # the plain pair's blocks (models/flash.py's defaults)
 PLAIN_BLOCKS = (512, 1024)
 
@@ -61,6 +72,15 @@ def padded_head_dim(hd: int, hdv: int) -> int:
         if width >= max(hd, hdv):
             return width
     raise ValueError(f"flash_attention: head dims {hd}, {hdv} exceed {HEAD_DIMS[-1]}")
+
+
+def bwd_head_dims(hd: int, hdv: int) -> Tuple[int, int]:
+    """The bf16 backward's (hd, hdv) for a head dim pair: the first of
+    ``BWD_WIDTHS`` that holds both (MLA's (192, 128) natively)."""
+    for width, vwidth in BWD_WIDTHS:
+        if width >= hd and vwidth >= hdv:
+            return width, vwidth
+    raise ValueError(f"flash_attention_bwd: head dims {hd}, {hdv} exceed {BWD_WIDTHS[-1]}")
 
 
 def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -143,23 +163,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype}, expected "
                          f"{(b, kvh, h // kvh, sq)} float32")
     _lib.require_cuda("flash_attention_bwd", lse)
-    qp, kp, vp, scale, hdv = pad_head_dims(q, k, v)
-    width = qp.shape[-1]
-    outp, doutp = _pad(out, width), _pad(dout, width)
-    dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     route = BWD_ROUTES[q.dtype]
+    hdv = v.shape[-1]
+    if route == "bf16_wgmma":
+        width, vwidth = bwd_head_dims(hd, hdv)
+        qp, kp = _pad(q, width), _pad(k, width)
+        vp, outp, doutp = _pad(v, vwidth), _pad(out, vwidth), _pad(dout, vwidth)
+        scale = 1.0 / math.sqrt(hd)
+        dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+        dq_acc = torch.zeros((b, sq, h, width), dtype=torch.float32, device=q.device)
+        counters = torch.zeros(1 + b * h * -(-sq // BWD_QUERY_TILE), dtype=torch.int32,
+                               device=q.device)
+    else:
+        qp, kp, vp, scale, _ = pad_head_dims(q, k, v)
+        width = vwidth = qp.shape[-1]
+        outp, doutp = _pad(out, width), _pad(dout, width)
+        dq, dq_acc, counters = torch.empty_like(qp), None, None
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     code = _lib.library().port_flash_attention_bwd(
         _lib.ptr(qp), _lib.ptr(kp), _lib.ptr(vp), _lib.ptr(outp), _lib.ptr(doutp),
-        _lib.ptr(lse), _lib.ptr(delta), _lib.ptr(dq), _lib.ptr(dk), _lib.ptr(dv), b, sq, sk, h,
-        kvh, width, int(causal), int(window), scale, int(q.dtype == torch.bfloat16),
-        _lib.stream())
+        _lib.ptr(lse), _lib.ptr(delta), _lib.ptr(dq), _lib.ptr(dk), _lib.ptr(dv),
+        _lib.ptr(dq_acc), _lib.ptr(counters), b, sq, sk, h, kvh, width, vwidth, hd,
+        int(causal), int(window), scale, int(route == "bf16_wgmma"), _lib.stream())
     _lib.check(code, f"flash_attention_bwd ({route})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.routes[route] += 1
+    if dq.shape[-1] != hd:
+        dq = dq[..., :hd].contiguous()
     if width != hd:
-        dq, dk = dq[..., :hd].contiguous(), dk[..., :hd].contiguous()
-    return dq, dk, (dv if width == hdv else dv[..., :hdv].contiguous())
+        dk = dk[..., :hd].contiguous()
+    return dq, dk, (dv if vwidth == hdv else dv[..., :hdv].contiguous())
 
 
 flash_attention_bwd.launches = 0

@@ -9,7 +9,9 @@ forward's log-sum-exp against JAX's ``_flash_fwd_impl`` within 1e-5, the
 output within 1e-6.  The autograd ``Function`` (``kernels/flash_attention``
 ``FlashAttention``) on CPU tensors against ``torch.autograd`` through the
 plain forward within 1e-5, and the op records through it only when a
-gradient is wanted.
+gradient is wanted.  The bf16 kernel's choice of head-dim widths (MLA's
+(192, 128) native; 16, 32, 112 padded; past 256 refused), and the plain
+version of its tile helpers' check (``tiles.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -102,6 +104,54 @@ def test_no_gradient_keeps_the_forward_only_call():
         assert flash_attention(q, k, v).grad_fn is None
     assert flash_attention(q, k, v).grad_fn is not None
     assert fa_ops.flash_attention_bwd.launches == 0     # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("pair,want", [
+    ((192, 128), (192, 128)),      # MLA's pair, native
+    ((16, 16), (64, 64)),
+    ((32, 32), (64, 64)),
+    ((112, 112), (128, 128)),
+    ((64, 64), (64, 64)),
+    ((256, 256), (256, 256)),
+    ((150, 100), (192, 128)),
+    ((100, 150), (256, 256)),
+    ((264, 64), None),             # past 256: refused
+    ((64, 300), None),
+])
+def test_bf16_backward_width_choice(pair, want):
+    """The bf16 backward's widths (``ops.bwd_head_dims``): MLA's (192, 128)
+    natively, 16, 32 and 112 zero-padded to the next pair of ``BWD_WIDTHS``,
+    anything past 256 refused."""
+    if want is None:
+        with pytest.raises(ValueError, match="exceed"):
+            fa_ops.bwd_head_dims(*pair)
+    else:
+        assert fa_ops.bwd_head_dims(*pair) == want
+    assert fa_ops.BWD_ROUTES[torch.bfloat16] == "bf16_wgmma"
+
+
+def test_tile_products_plain_version_and_checks():
+    """``tiles.tile_products`` on CPU tensors is its plain version: s_j = k_j·qᵀ,
+    y = Σ bf16(s_j)·dout, z = Σ bf16(s_j)ᵀ·k_j against numpy in float64
+    (within 1e-4 of each result's max: float32 sums); the wrapper refuses
+    shapes and dtypes the kernel does not take."""
+    from repro_torch.kernels.flash_attention.tiles import tile_products
+    rng = np.random.default_rng(3)
+    q, k, dout = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+                  for shape in ((64, 64), (192, 64), (64, 64)))
+    s, y, z = tile_products(q, k, dout)
+    qn, kn, dn = (t.float().numpy().astype(np.float64) for t in (q, k, dout))
+    s_np = np.stack([kn[64 * j:64 * (j + 1)] @ qn.T for j in range(3)])
+    p = s.to(torch.bfloat16).double().numpy()
+    y_np = sum(p[j] @ dn for j in range(3))
+    z_np = sum(p[j].T @ kn[64 * j:64 * (j + 1)] for j in range(3))
+    for got, want in ((s, s_np), (y, y_np), (z, z_np)):
+        assert got.shape == want.shape
+        assert np.abs(got.double().numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    with pytest.raises(ValueError, match="expected"):
+        tile_products(q, k[:100], dout)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tile_products(q.float(), k, dout)
 
 
 def test_kernel_route_checks_and_plain_shapes():

@@ -50,14 +50,15 @@ non-causal with q and k of different lengths (encdec's cross-attention, hd
 4,096, hd 256, one kv head); mamba's, rglru's and encdec's smoke LMs have
 their forward on the card against the CPU's within 1e-4, and their decode ≡
 forward within 5e-4, rglru's ring and a windowed dense config's past the
-window.  Training: the attention backward kernel against its plain version
+window.  Training: the bf16 backward's wgmma and TMA tile helpers against
+``torch.matmul``; the attention backward kernel against its plain version
 (float32 within 2e-5 of max |plain|, bf16 by the forward's two bounds) at
-causal GQA, ragged, cross, window, MLA and hd 112 shapes, the log-sum-exp
-output leaving the forward's out bit for bit and the backward's bits equal
-launch to launch; autograd through the op launches both kernels; one
-float32 training step of five families' smoke LMs on the card against the
-CPU (loss 1e-5 relative, grad_norm 1e-4 relative, each gradient leaf 5e-4
-of its max).
+causal GQA (also over many key tiles), ragged, ragged cross, cross, window,
+MLA and hd 112 shapes, the log-sum-exp output leaving the forward's out bit
+for bit and the backward's bits equal over 5 launches; autograd through the
+op launches both kernels; one float32 training step of five families' smoke
+LMs on the card against the CPU (loss 1e-5 relative, grad_norm 1e-4
+relative, each gradient leaf 5e-4 of its max).
 """
 import dataclasses
 
@@ -1297,9 +1298,13 @@ BWD_CASES = [
     (1, 200, 200, 4, 4, 32, 32, True, 0),        # ragged tiles
     (1, 256, 384, 4, 2, 128, 128, False, 0),     # non-causal, S_q != S_k
     (1, 512, 512, 4, 1, 256, 256, True, 128),    # window, MQA, hd 256
-    (1, 256, 256, 4, 4, 192, 128, True, 0),      # MLA's (192, 128), padded to 256
+    (1, 256, 256, 4, 4, 192, 128, True, 0),      # MLA's (192, 128): bf16 native, float32 at 256
     (1, 256, 256, 4, 2, 112, 112, True, 0),      # kimi-k2's 112, padded to 128
+    (2, 1024, 1024, 8, 2, 64, 64, True, 0),      # GQA over many key tiles (ordered dq adds)
+    (1, 200, 328, 4, 4, 64, 64, False, 0),       # ragged non-causal cross
 ]
+# back-to-back launches held to the first one's bits
+BWD_REPEATS = 5
 
 
 def _check_bwd(got, want, dtype):
@@ -1337,9 +1342,31 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, h
         assert g.shape == t.shape and g.dtype == dtype
         _check_bwd(g, w, dtype)
     # no atomics: the same bits on every launch
-    assert all(torch.equal(a, c) for a, c in
-               zip(grads, flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
-                                              window=window)))
+    again = [flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+             for _ in range(BWD_REPEATS - 1)]
+    assert all(torch.equal(a, c) for got in again for a, c in zip(grads, got))
+
+
+@pytest.mark.parametrize("nk", [1, 4])
+def test_wgmma_tile_helpers_match_matmul(cuda, nk):
+    """The bf16 backward's building blocks (``csrc/sm90.cuh``) on their own at
+    hd 64 over nk key tiles: TMA boxes into swizzled panels, the K-major
+    product s_j = k_j·qᵀ, the register-A product with an MN-major B
+    (Σ bf16(s_j)·dout) and the product of two MN-major operands, one written
+    by the threads (Σ bf16(s_j)ᵀ·k_j), against ``torch.matmul`` in float32:
+    s within 1e-5 of its max, the sums (from the kernel's own s) within 1e-5
+    of theirs (float32 sums in another order)."""
+    from repro_torch.kernels.flash_attention.tiles import tile_products, tile_products_plain
+    gen = torch.Generator().manual_seed(nk)
+    q, k, dout = (torch.randn(shape, generator=gen).to(cuda, torch.bfloat16)
+                  for shape in ((64, 64), (64 * nk, 64), (64, 64)))
+    s, y, z = tile_products(q, k, dout)
+    torch.cuda.synchronize()
+    s_ref, _, _ = tile_products_plain(q, k, dout)
+    _, y_ref, z_ref = tile_products_plain(q, k, dout, s)
+    assert s.shape == (nk, 64, 64) and y.shape == z.shape == (64, 64)
+    for got, want in ((s, s_ref), (y, y_ref), (z, z_ref)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_flash_attention_autograd_runs_the_kernels(cuda):
@@ -1355,7 +1382,7 @@ def test_flash_attention_autograd_runs_the_kernels(cuda):
     assert launch_counts()["flash_attention"] == 1
     assert launch_counts()["flash_attention_bwd"] == 1
     from repro_torch.kernels.flash_attention import flash_attention_bwd
-    assert flash_attention_bwd.routes == {"bf16_tensor_cores": 1, "f32_cuda_cores": 0}
+    assert flash_attention_bwd.routes == {"bf16_wgmma": 1, "f32_cuda_cores": 0}
     with torch.no_grad():
         flash_attention(q, k, v)
     assert launch_counts()["flash_attention_bwd"] == 1
