@@ -31,8 +31,11 @@ LIBSVM's rcv1.binary training set (N = 20,242 rows, D = 47,236 features,
   group of one rank, T = 500, private and non-private, against its CPU run,
   its oracle ``distributed/reference.py`` and ``torch_sparse``
   (``shard_1x1``); the in-order scatter kernel ``scatter_add_ordered`` at
-  three shapes against its plain version on the CPU, bit for bit
-  (``scatter_vs_plain``); flash attention at head dims outside its table
+  four shapes (one target taking 300,000 lanes onto -0.0 among them) and on
+  its contract cases (``kernels/scatter/cases.py``) against its plain
+  version on the CPU, bit for bit, one call of each timed shape under the
+  profiler launching only the scatter's own kernels and no synchronising
+  call (``scatter_vs_plain``, ``scatter_contract``); flash attention at head dims outside its table
   (``flash_head_dims``); and ``jax_shard`` on a 2×2 grid, four processes on
   the card over gloo at a cut size, against the same grid on the CPU
   (``shard_2x2_gloo``).
@@ -108,6 +111,7 @@ It imports neither JAX nor the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -164,6 +168,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import pad_head_dims, padded_head_dim  # noqa: E402
 from repro_torch.kernels.scatter import scatter_add_ordered  # noqa: E402
+from repro_torch.kernels.scatter.cases import CASES as SCATTER_CASES, one_hot_target  # noqa: E402
 from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref  # noqa: E402
 from repro_torch.core.solvers.jax_shard import shard_em_scale  # noqa: E402
 from repro_torch.distributed.collectives import make_mesh  # noqa: E402
@@ -314,6 +319,16 @@ def device_ms(launches, sleep_cycles: int = 200_000_000) -> float:
     return start.elapsed_time(end) / len(launches)
 
 
+@functools.cache
+def max_sm_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``'s ``clocks.max.sm``), Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    require(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.split()[0]) * 1e6
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(bound ms, what bounds it) at the card's published peaks."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
@@ -330,7 +345,8 @@ def phase_device() -> dict:
     line = smi.stdout.strip().splitlines()[0]
     print(line, flush=True)
     info = {"kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-            "nvidia_smi": line, "torch": torch.__version__, "cuda": torch.version.cuda}
+            "nvidia_smi": line, "torch": torch.__version__, "cuda": torch.version.cuda,
+            "max_sm_clock_hz": max_sm_hz()}
     emit("device", **info)
     return info
 
@@ -3208,36 +3224,129 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
 
 
-def _scatter_case(dst, idx, src, live) -> dict:
+# the in-order scatter's kernels (csrc/scatter_add_ordered.cu); no kernel of one of its
+# calls may hold a word of SCATTER_FORBIDDEN (a library's sort or scatter), and the host
+# makes none of SYNC_CALLS inside one
+SCATTER_KERNELS = ("flag_count", "compact", "small_route", "digit_count", "digit_move", "chains")
+SCATTER_FORBIDDEN = ("sort", "radix", "cub", "index_put")
+SYNC_CALLS = ("Synchronize", "aten::item", "aten::_local_scalar_dense", "aten::nonzero")
+# the cycles of one dependent float32 add on an SM: the unit of a chain's floor
+ADD_CYCLES = 4
+
+
+def scatter_bound(lanes: int, live_lanes: float, index_bytes: int, n: int, longest: float,
+                  flags: bool = True) -> dict:
+    """The scatter's least time: the larger of the bytes it must move (a byte
+    a flag, a live lane's index and term, dst read and out written) at the
+    HBM rate, and its longest chain of dependent adds at ADD_CYCLES an add at
+    the card's maximum SM clock ("operations")."""
+    nbytes = (lanes if flags else 0) + live_lanes * (index_bytes + 4.0) + 8.0 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_chain = longest * ADD_CYCLES / max_sm_hz() * 1e3
+    return dict(bound_ms=max(t_bytes, t_chain),
+                bound_by="bytes" if t_bytes >= t_chain else "operations",
+                bytes_floor_ms=t_bytes, chain_floor_ms=t_chain)
+
+
+def scatter_profile(call, calls: int = 10) -> dict:
+    """``calls`` back-to-back ``call()``s of the scatter's wrapper under
+    ``torch.profiler``: every device event they make must be one of the
+    scatter's kernels (no copy, memset or library kernel, no name holding a
+    word of SCATTER_FORBIDDEN), and the host must make no synchronising call
+    inside them.  The profiler drops records of short windows (seen: every
+    record of one call, in one session of two), so the window holds several
+    calls, and one whose profile holds none of the scatter's kernels is
+    taken again, at most twice."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for retakes in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _profiler_warmup()
+            with torch.profiler.record_function("scatter_call"):
+                for _ in range(calls):
+                    call()
+            torch.cuda.synchronize()
+            _profiler_warmup()
+        events = prof.events()
+        mark = next(e for e in events if e.name == "scatter_call" and e.device_type == cpu)
+        lo, hi = mark.time_range.start, mark.time_range.end
+        host = [e.name for e in events if e.device_type == cpu and e.name != "scatter_call"
+                and lo <= e.time_range.start <= hi]
+        device = [e.name for e in events if e.device_type == cuda and e.name != "scatter_call"
+                  and WARMUP_KERNEL not in e.name]
+        ours = [d for d in device if any(k in d for k in SCATTER_KERNELS)]
+        device_us = {k: sum(e.time_range.end - e.time_range.start for e in events
+                            if e.device_type == cuda and k in e.name) / calls
+                     for k in SCATTER_KERNELS}
+        others = sorted({d[:80] for d in device if d not in ours})
+        forbidden = sorted({d[:80] for d in device
+                            if any(w in d.lower() for w in SCATTER_FORBIDDEN)})
+        syncs = sorted({h for h in host if any(w in h for w in SYNC_CALLS)})
+        require(not others and not forbidden and not syncs,
+                f"scatter_add_ordered: one call launched {others} (forbidden {forbidden}) and "
+                f"called {syncs}")
+        if ours:
+            return dict(profiled_calls=calls,
+                        profiled_kernels=sorted({k for k in SCATTER_KERNELS
+                                                 if any(k in d for d in ours)}),
+                        profiled_device_us_per_call=device_us,
+                        profiled_launches=len(ours), profiled_other_device_events=0,
+                        profiled_sync_calls=0, profile_retakes=retakes)
+        emit("profile_retake", run="scatter_call", profiled_launches=0,
+             device_events=len(device), host_events=len(host))
+    raise RuntimeError("chip_smoke: scatter_add_ordered: the profiler recorded none of its "
+                       "kernels, three times")
+
+
+def _scatter_case(dst, idx, src, live, timed: bool = True) -> dict:
     """The kernel on the card against the plain version on the CPU, bit for
-    bit, and the device ms of the kernel's wrapper (its sort included) and of
-    ``index_put_(accumulate=True)`` over the live lanes (the library call)."""
-    want = scatter_add_ordered_ref(dst, idx, src, live)
+    bit, twice; if ``timed``, the device ms of the wrapper (its allocations
+    included) and of ``index_put_(accumulate=True)`` over the live lanes (the
+    library call), each warmed by one call, the bound of these inputs, and
+    one call under the profiler (``scatter_profile``)."""
     t0 = time.perf_counter()
-    scatter_add_ordered_ref(dst, idx, src, live)
+    want = scatter_add_ordered_ref(dst, idx, src, live)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    on = [t.to(DEVICE) for t in (dst, idx, src, live)]
-    got = scatter_add_ordered(*on)
-    bitwise = _bits_equal(got, want)
-    require(bitwise, f"scatter_add_ordered: {int((got.cpu() != want).sum())} targets differ "
+    on = [None if t is None else t.to(DEVICE) for t in (dst, idx, src, live)]
+    got = [scatter_add_ordered(*on).cpu() for _ in range(2)]
+    bitwise = all(_bits_equal(g, want) for g in got)
+    require(bitwise, f"scatter_add_ordered: {int((got[0] != want).sum())} targets differ "
             "from the plain version")
-    ms = device_ms([lambda: scatter_add_ordered(*on)] * 20)
-    at, terms = on[1].reshape(-1)[on[3].reshape(-1)], on[2].reshape(-1)[on[3].reshape(-1)]
-    lib = device_ms([lambda: on[0].clone().index_put_((at,), terms, accumulate=True)] * 20)
-    lanes, n = idx.numel(), dst.numel()
-    live_n = int(live.sum())
-    b, by = bound(lanes * (idx.element_size() + src.element_size() + 1) + 8.0 * n, live_n)
-    return dict(targets=n, lanes=lanes, live_lanes=live_n,
-                longest_chain=int(torch.bincount(idx.reshape(-1)[live.reshape(-1)]).max()),
-                bitwise_equal=bitwise, ms=ms, plain_cpu_ms=plain_ms, library_ms=lib,
-                bound_ms=b, bound_by=by)
+    flat = idx.reshape(-1)
+    kept = flat if live is None else flat[live.reshape(-1)]
+    fields = dict(targets=dst.numel(), lanes=flat.numel(), live_lanes=kept.numel(),
+                  index_bytes=flat.element_size(),
+                  longest_chain=int(torch.bincount(kept).max()) if kept.numel() else 0,
+                  bitwise_equal=bitwise, max_abs_err=float((got[0] - want).abs().max())
+                  if want.numel() else 0.0)
+    if not timed:
+        return fields
+    call = lambda: scatter_add_ordered(*on)
+    call()
+    ms = device_ms([call] * 20)
+    keep = None if live is None else on[3].reshape(-1)
+    at = on[1].reshape(-1) if keep is None else on[1].reshape(-1)[keep]
+    terms = on[2].reshape(-1) if keep is None else on[2].reshape(-1)[keep]
+    lib_call = lambda: on[0].clone().index_put_((at,), terms, accumulate=True)
+    lib_call()
+    lib = device_ms([lib_call] * 20)
+    fields.update(ms=ms, plain_cpu_ms=plain_ms, library_ms=lib,
+                  **scatter_bound(fields["lanes"], fields["live_lanes"], fields["index_bytes"],
+                                  fields["targets"], fields["longest_chain"], live is not None),
+                  **scatter_profile(call))
+    return fields
 
 
 def phase_scatter_vs_plain(X: HostCSR) -> None:
     """``scatter_add_ordered`` on the card against its plain version on the
-    CPU, bit for bit, at three shapes: the oracle's setup Xᵀq at the
+    CPU, bit for bit, at four shapes: the oracle's setup Xᵀq at the
     rcv1.binary shape, the head column's full tile (every row's lanes onto
-    α), and random repeated targets."""
+    α), random repeated targets, and one target taking 300,000 lanes onto
+    -0.0 (``cases.one_hot_target``); then on every contract case of
+    ``kernels/scatter/cases.py`` (every lane dead, ``live=None``, int32
+    indices, dead lanes holding -1, n or 2^31 - 1, 2-D lanes, no lanes)."""
+    t_phase = time.perf_counter()
     g = np.random.default_rng(21)
     idx, val, live = _ell_rows(X)
     q = torch.from_numpy(g.standard_normal(N).astype(np.float32))
@@ -3249,9 +3358,14 @@ def phase_scatter_vs_plain(X: HostCSR) -> None:
              "head_column_tile": (alpha, idx, gamma[:, None] * val, live),
              "random_repeated": (torch.from_numpy(g.standard_normal(1000).astype(np.float32)),
                                  rep, torch.from_numpy(g.standard_normal(k).astype(np.float32)),
-                                 torch.from_numpy(g.random(k) < 0.9))}
+                                 torch.from_numpy(g.random(k) < 0.9)),
+             "one_target_300k": tuple(torch.from_numpy(a) for a in one_hot_target(300_000))}
     for name, args in cases.items():
         emit("scatter_vs_plain", case=name, **_scatter_case(*args))
+    for name, make in SCATTER_CASES.items():
+        args = [None if a is None else torch.from_numpy(a) for a in make()]
+        emit("scatter_contract", case=name, **_scatter_case(*args, timed=False))
+    emit("scatter_vs_plain_done", seconds=time.perf_counter() - t_phase)
 
 
 def phase_flash_head_dims() -> None:
@@ -3302,24 +3416,14 @@ def _spans(tel) -> dict:
     return {e["name"]: e["dur_s"] for e in tel.events if e["ev"] == "span"}
 
 
-def _alpha_scatter_row(src: ShardSource, res, launches: int) -> dict:
-    """The kernels line's row of ``scatter_add_ordered``: its device ms over
-    the α-delta scatters of 40 of the 1×1 run's steps (the full padded tile,
-    Kc × Kr lanes, live where the column's rows hold entries), against the
-    plain version's CPU ms on the same inputs (copied to the host first, so
-    only the plain scatters are timed), ``index_put_``'s ms and the bound of
-    those inputs; ``max_abs_err`` is the largest |card − plain| over all 40,
-    each of which must be equal bit for bit."""
-    blk = src.local(1, 1, 0, 0, DEVICE)
-    g = torch.Generator(DEVICE).manual_seed(5)
-    cases = []
-    for j in res.coords[:40].tolist():
-        rows = blk.csc_rows[j].long()
-        ok = blk.csc_vals[j] != 0
-        cols = blk.csr_cols[rows].long()
-        vals = torch.where(ok[:, None], blk.csr_vals[rows], 0.0)
-        gsc = torch.randn(rows.shape[0], generator=g, device=DEVICE) / N
-        cases.append((torch.zeros(D, device=DEVICE), cols, gsc[:, None] * vals, vals != 0))
+def _scatter_set(cases: list) -> dict:
+    """Device ms a launch of ``cases`` back to back (each warmed by one
+    call), the plain version's CPU ms on the same inputs (copied to the host
+    first), ``index_put_``'s ms over their live lanes, the mean bound, and
+    the cases that differ from the plain version (each must equal it bit for
+    bit)."""
+    for c in cases:
+        scatter_add_ordered(*c)
     ms = device_ms([lambda c=c: scatter_add_ordered(*c) for c in cases])
     host = [tuple(t.cpu() for t in c) for c in cases]
     t0 = time.perf_counter()
@@ -3328,23 +3432,73 @@ def _alpha_scatter_row(src: ShardSource, res, launches: int) -> dict:
     gots = [scatter_add_ordered(*c).cpu() for c in cases]
     differ = sum(not _bits_equal(got, want) for got, want in zip(gots, wants))
     err = max(float((got - want).abs().max()) for got, want in zip(gots, wants))
-    require(differ == 0, f"scatter_add_ordered: {differ} of {len(cases)} α-delta scatters "
-            f"differ from plain (max |d| {err})")
     live = [(c[1].reshape(-1)[c[3].reshape(-1)], c[2].reshape(-1)[c[3].reshape(-1)])
             for c in cases]
-    lib = device_ms([lambda c=c, lv=lv: c[0].clone().index_put_((lv[0],), lv[1],
-                                                                 accumulate=True)
-                     for c, lv in zip(cases, live)])
-    lanes = cases[0][1].numel()
-    live_n = sum(int(lv[0].numel()) for lv in live) / len(live)
-    b, by = bound(lanes * (8.0 + 4.0 + 1.0) + 8.0 * D, live_n)
-    return dict(name="scatter_add_ordered", route="cuda",
-                source="src/repro_torch/kernels/scatter/csrc/scatter_add_ordered.cu",
-                replaces="none: no Pallas counterpart (the C2 repair; the order of "
-                         "src/repro/distributed/fw_shard.py:228 .at[cols].add on the CPU)",
-                launches=launches, max_abs_err=err, bitwise_equal_cases=len(cases) - differ,
-                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib,
-                lanes=lanes, mean_live_lanes=live_n)
+    lib_calls = [lambda c=c, lv=lv: c[0].clone().index_put_((lv[0],), lv[1], accumulate=True)
+                 for c, lv in zip(cases, live)]
+    lib_calls[0]()
+    lib = device_ms(lib_calls)
+    bounds = [scatter_bound(c[1].numel(), lv[0].numel(), c[1].element_size(), c[0].numel(),
+                            int(torch.bincount(lv[0]).max()) if lv[0].numel() else 0)
+              for c, lv in zip(cases, live)]
+    by = [b["bound_by"] for b in bounds]
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, differ=differ, max_abs_err=err,
+                bound_ms=sum(b["bound_ms"] for b in bounds) / len(bounds),
+                bound_by=max(set(by), key=by.count),
+                cases_by_bound={k: by.count(k) for k in set(by)},
+                mean_live_lanes=sum(int(lv[0].numel()) for lv in live) / len(live),
+                longest_chain=max(int(torch.bincount(lv[0]).max()) if lv[0].numel() else 0
+                                  for lv in live),
+                lanes=cases[0][1].numel(), targets=cases[0][0].numel())
+
+
+def _alpha_scatter_row(src: ShardSource, res, launches: int) -> dict:
+    """The kernels line's row of ``scatter_add_ordered``: its device ms over
+    the three scatters of 40 of the 1×1 run's steps, each set back to back:
+    α's deltas (the full padded tile, Kc × Kr lanes, live where the column's
+    rows hold entries, onto D) and v̄'s and q̄'s (the column's Kc lanes onto
+    N), each against the plain version's CPU ms on the same inputs,
+    ``index_put_``'s ms and the mean bound of those inputs
+    (``scatter_bound``); ``max_abs_err`` is the largest |card − plain| over
+    all 120, each of which must be equal bit for bit; one α and one v̄ call
+    under the profiler (``scatter_profile``)."""
+    blk = src.local(1, 1, 0, 0, DEVICE)
+    g = torch.Generator(DEVICE).manual_seed(5)
+    sets = {"alpha": [], "vbar": [], "qbar": []}
+    for j in res.coords[:40].tolist():
+        rows = blk.csc_rows[j].long()
+        ok = blk.csc_vals[j] != 0
+        cols = blk.csr_cols[rows].long()
+        vals = torch.where(ok[:, None], blk.csr_vals[rows], 0.0)
+        gsc = torch.randn(rows.shape[0], generator=g, device=DEVICE) / N
+        sets["alpha"].append((torch.zeros(D, device=DEVICE), cols, gsc[:, None] * vals,
+                              vals != 0))
+        for name in ("vbar", "qbar"):
+            dst = torch.randn(N, generator=g, device=DEVICE)
+            terms = torch.where(ok, torch.randn(rows.shape[0], generator=g, device=DEVICE)
+                                * blk.csc_vals[j], 0.0)
+            sets[name].append((dst, rows, terms, ok))
+    out = {name: _scatter_set(cases) for name, cases in sets.items()}
+    differ = sum(o["differ"] for o in out.values())
+    err = max(o["max_abs_err"] for o in out.values())
+    require(differ == 0, f"scatter_add_ordered: {differ} of 120 scatters of 40 steps differ "
+            f"from plain (max |d| {err})")
+    a = out["alpha"]
+    row = dict(name="scatter_add_ordered", route="cuda",
+               source="src/repro_torch/kernels/scatter/csrc/scatter_add_ordered.cu",
+               replaces="none: no Pallas counterpart (the C2 repair; the order of "
+                        "src/repro/distributed/fw_shard.py:228 .at[cols].add on the CPU)",
+               launches=launches, max_abs_err=err, bitwise_equal_cases=120 - differ,
+               ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+               bound_by=a["bound_by"], library_ms=a["library_ms"], lanes=a["lanes"],
+               mean_live_lanes=a["mean_live_lanes"], longest_chain=a["longest_chain"],
+               cases_by_bound=a["cases_by_bound"])
+    for name in ("vbar", "qbar"):
+        row.update({f"{name}_{k}": v for k, v in out[name].items()
+                    if k not in ("differ", "max_abs_err")})
+    row["alpha_profile"] = scatter_profile(lambda: scatter_add_ordered(*sets["alpha"][0]))
+    row["vbar_profile"] = scatter_profile(lambda: scatter_add_ordered(*sets["vbar"][0]))
+    return row
 
 
 def phase_shard_1x1(X: HostCSR, y, refs, tie) -> dict:

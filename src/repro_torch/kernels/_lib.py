@@ -60,8 +60,10 @@ SIGNATURES = {
     "port_flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
     "port_flash_attention_bwd": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
     "port_wgmma_tile_check": [_P, _P, _P, _I, _P, _P, _P, _P],
-    "port_scatter_add_ordered": [_P, _P, _P, _I, _P, _I, _P, _P],
+    "port_scatter_add_ordered": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    "port_scatter_scratch_words": [_I],
 }
+RESTYPES = {"port_scatter_scratch_words": ctypes.c_longlong}
 
 
 def digest() -> str:
@@ -133,7 +135,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     lib.port_error_string.argtypes = [ctypes.c_int]
     lib.port_error_string.restype = ctypes.c_char_p
     return lib

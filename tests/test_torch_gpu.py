@@ -89,6 +89,9 @@ from repro_torch.models import common as model_common
 from repro_torch.models.flash import flash_attention as flash_attention_plain
 from repro_torch.models.registry import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+from repro_torch.kernels.scatter import scatter_add_ordered
+from repro_torch.kernels.scatter.cases import CASES as SCATTER_CASES
+from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref
 from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments
 
@@ -1183,6 +1186,21 @@ def test_card_scatter_order_is_fixed(cuda):
         assert torch.equal(first, scatter_add(dst, idx, src, live))
     plain = scatter_add(dst.cpu(), idx.cpu(), src.cpu(), live.cpu())    # input order
     assert torch.equal(first.cpu(), plain)                              # the kernel's order too
+
+
+@pytest.mark.parametrize("name", sorted(SCATTER_CASES))
+def test_card_scatter_contract_cases(cuda, name):
+    """The table of contract cases that ``tests/test_torch_scatter.py``
+    holds the plain version to JAX with: the kernel equals the plain version
+    on the CPU bit for bit, twice, one launch a call (none without lanes)."""
+    host = [None if a is None else torch.from_numpy(a) for a in SCATTER_CASES[name]()]
+    want = scatter_add_ordered_ref(*host).view(torch.int32)
+    on = [None if t is None else t.to(cuda) for t in host]
+    before = launch_counts()["scatter_add_ordered"]
+    for _ in range(2):
+        assert torch.equal(scatter_add_ordered(*on).cpu().view(torch.int32), want)
+    assert launch_counts()["scatter_add_ordered"] == before + (2 if host[1].numel() else 0)
+    assert torch.equal(on[0].cpu(), host[0])                    # functional
 
 
 @pytest.mark.parametrize("private", [False, True])

@@ -7,8 +7,12 @@ float32 chain onto ``dst``; its plain version states that order with
 version to XLA's CPU scatter and to ``numpy.add.at`` bit for bit, on inputs
 whose sums depend on the order: heavily repeated targets, terms spread over
 16 decades, dead lanes (dropped by JAX as out-of-range indices) and ``-0.0``
-in both ``dst`` and ``src``.  They also pin the fact the plain version is
-built on: ``index_put_(accumulate=True)`` is not in input order on the CPU
+in both ``dst`` and ``src``; and on the table of contract cases
+(``kernels/scatter/cases.py``: every lane dead, ``live=None``, int32 and
+int64 indices, dead lanes holding -1, n or 2^31 - 1, one target taking
+70,000 lanes onto -0.0, 2-D lanes as ``lane_scatter`` passes them, no
+lanes), which the card's test runs against the kernel.  They also pin the
+fact the plain version is built on: ``index_put_(accumulate=True)`` is not in input order on the CPU
 from 32,768 lanes on (parallel atomics), ``index_add_`` is.  The kernel
 itself is held to the plain version on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``'s ``scatter_vs_plain``).
@@ -21,19 +25,9 @@ import torch
 from repro_torch.core.fw_torch import scatter_add
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.scatter import scatter_add_ordered
+from repro_torch.kernels.scatter.cases import CASES as CONTRACT_CASES, jax_indices
+from repro_torch.kernels.scatter.cases import power_law as _case
 from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref
-
-
-def _case(seed, n, k, dead_frac):
-    g = np.random.default_rng(seed)
-    # a power-law target distribution: a few targets take most lanes
-    idx = np.minimum((g.pareto(0.7, size=k) * 2).astype(np.int64), n - 1)
-    src = (g.standard_normal(k) * 10.0 ** g.integers(-8, 8, size=k)).astype(np.float32)
-    src[g.random(k) < 0.05] = -0.0
-    dst = (g.standard_normal(n) * 10.0 ** g.integers(-4, 4, size=n)).astype(np.float32)
-    dst[g.random(n) < 0.2] = -0.0
-    live = g.random(k) >= dead_frac
-    return dst, idx, src, live
 
 
 def _bits(a):
@@ -70,6 +64,22 @@ def test_wrapper_and_scatter_add_run_the_plain_version_on_the_cpu(seed, n, k, de
     np.testing.assert_array_equal(
         _bits(all_live.numpy()),
         _bits(scatter_add_ordered_ref(args[0], args[1], args[2], torch.ones(k, dtype=bool))))
+    assert torch.equal(args[0], torch.from_numpy(dst))         # functional
+
+
+@pytest.mark.parametrize("name", sorted(CONTRACT_CASES))
+def test_contract_case_plain_version_equals_jax_bitwise(name):
+    """Each contract case: the plain version, the wrapper and ``scatter_add``
+    on the CPU equal JAX's ``.at[].add`` bit for bit and launch no kernel."""
+    dst, idx, src, live = CONTRACT_CASES[name]()
+    jax_idx = jax_indices(idx, live, dst.size).astype(np.int32)
+    want = _bits(np.asarray(jnp.asarray(dst).at[jnp.asarray(jax_idx)].add(jnp.asarray(src))))
+    args = [torch.from_numpy(dst), torch.from_numpy(idx), torch.from_numpy(src),
+            None if live is None else torch.from_numpy(live)]
+    before = launch_counts()["scatter_add_ordered"]
+    for fn in (scatter_add_ordered_ref, scatter_add_ordered, scatter_add):
+        np.testing.assert_array_equal(_bits(fn(*args).numpy()), want)
+    assert launch_counts()["scatter_add_ordered"] == before
     assert torch.equal(args[0], torch.from_numpy(dst))         # functional
 
 
