@@ -88,9 +88,10 @@ arch's forward shape.
 Last (``lm_train``), training on the card: the bf16 backward's wgmma and
 TMA tile helpers against ``torch.matmul``; flash attention's backward kernel
 (``flash_attention_bwd.cu``) against its plain version at tinyllama's
-training shape (bf16 and float32; the bf16 row's bits equal over 10
-back-to-back launches), MLA's (192, 128), kimi-k2's 112, recurrentgemma's
-window and seamless' cross-attention, each row with the route it took,
+training shape (bf16 and float32; the bf16 row's and the float32 rows' bits
+equal over 10 back-to-back launches), MLA's (192, 128), kimi-k2's 112,
+recurrentgemma's window and seamless' cross-attention (bf16, and float32 at
+the window and cross shapes), each row with the route it took,
 timed against its bound, the plain version and SDPA's backward;
 ``tinyllama-1.1b`` at full width and depth trained 30 steps of 8 × 2,048
 tokens in bf16 with adamw through ``launch.train.train_lm`` (the loss must
@@ -4237,10 +4238,12 @@ RESUME_STEPS, RESUME_REL = 6, 1e-6
 # cancel (a causal first query's dq) is ~0 in both, apart by float32 rounding of terms
 # of the tensor's size
 BWD_F32_REL = 2e-5
-# back-to-back launches of tinyllama's bf16 row held to the first one's bits
+# back-to-back launches of tinyllama's bf16 row, and of every float32 row, held to the
+# first one's bits
 BWD_BIT_REPEATS = 9
 # (name, arch, B, S_q, S_k, causal, window, dtype): tinyllama's training shape in both
-# dtypes, then the other families' at their training runs' shapes
+# dtypes, then the other families' at their training runs' shapes, and the float32
+# route at seamless' cross and recurrentgemma's window shapes
 BWD_ROWS = (
     ("flash_attention_bwd", "tinyllama-1.1b", 8, 2048, 2048, True, 0, torch.bfloat16),
     ("flash_attention_bwd_f32", "tinyllama-1.1b", 8, 2048, 2048, True, 0, torch.float32),
@@ -4250,6 +4253,10 @@ BWD_ROWS = (
      torch.bfloat16),
     ("flash_attention_bwd_cross", "seamless-m4t-medium", 4, 1024, 1536, False, 0,
      torch.bfloat16),
+    ("flash_attention_bwd_cross_f32", "seamless-m4t-medium", 4, 1024, 1536, False, 0,
+     torch.float32),
+    ("flash_attention_bwd_window2048_f32", "recurrentgemma-2b", 1, 4096, 4096, True, 2048,
+     torch.float32),
 )
 # the other families, full width at a cut depth, each with its config's optimizer:
 # (overrides, B, S, frames, steps); deepseek at capacity_factor 1.25 (96 slots an expert);
@@ -4379,8 +4386,10 @@ def lm_train_bwd_rows(launches: dict) -> list:
         plain_dq = want[0]
         errs = _bwd_errors(grads, want, dtype)
         del want
-        # the ordered dq adds under contention: tinyllama's row launches 10 times
-        repeats = BWD_BIT_REPEATS if name == "flash_attention_bwd" else 1
+        # the ordered dq adds under contention: tinyllama's bf16 row and the float32
+        # rows launch 10 times
+        repeats = (BWD_BIT_REPEATS if name == "flash_attention_bwd" or dtype == torch.float32
+                   else 1)
         again = [bwd() for _ in range(repeats)]
         require(all(all(torch.equal(a, c) for a, c in zip(grads, got)) for got in again),
                 f"{name}: the backward's bits differ launch to launch")

@@ -7,53 +7,55 @@
 // JAX package's training takes the gradient from the custom VJP of
 // src/repro/models/flash.py (_flash_bwd, :114-181), which is pure JAX.  Its
 // plain version is the port of that VJP, repro_torch/models/flash.py
-// _flash_bwd; this kernel follows its two passes and its arithmetic:
+// _flash_bwd (two passes); this kernel computes its arithmetic in one pass
+// (kernels/flash_attention/ref.py flash_bwd_key_major_plain states the order):
 //   delta = Σ_d dout·out per query row (float32);
 //   P = exp(s·scale − lse), 0 where the causal or window mask hides a key;
-//   pass 1, by q tile:  dq = scale · Σ_k P ⊙ (dout·vᵀ − delta) · k;
-//   pass 2, by kv tile: dv = Σ_q Pᵀ·dout, dk = scale · Σ_q (P ⊙ (dout·vᵀ − delta))ᵀ·q.
+//   dq = scale · Σ_k P ⊙ (dout·vᵀ − delta) · k;
+//   dv = Σ_q Pᵀ·dout, dk = scale · Σ_q (P ⊙ (dout·vᵀ − delta))ᵀ·q.
 //
 // Two routes, one contract (float32 sums; P and dS rounded to bf16 on the
 // bf16 route as the operands of the products that follow them, as the bf16
-// forward rounds P):
-// * bf16: one key-major pass on wgmma with TMA (namespace wg, below): S and dP
-//   computed once, five products a tile pair, dq added into a float32
-//   workspace in a fixed order, then a finish kernel;
-// * float32: the CUDA cores, float32 throughout (TF32 would break the float32
-//   tolerance, as in the forward), in JAX's two passes: dq (a block per (query
-//   tile, head, batch row)) and dk/dv (a block per (key tile, kv head, batch
-//   row)).
+// forward rounds P), one key-major order:
+// * bf16: one pass on wgmma with TMA (namespace wg, below), dq added into a
+//   float32 workspace in a fixed order, then a finish kernel;
+// * float32 (namespace cc, after it): one pass on the CUDA cores in exact
+//   float32 FMAs (TF32's products round at 2^-11, which the float32 bound of
+//   2e-5 · max|plain| does not hold), on the forward's register-blocked tiles
+//   fed by cp.async (f32_tiles.cuh), dq added in the same order into dq
+//   itself.
 // Common design:
 // * launches on the stream counted as one by the wrapper: delta (a warp a
 //   query row), then the route's kernels.
-// * no atomics on any value: a kv head's G query heads are looped inside one
-//   block or work item, over the query tiles that can see its keys (causal:
-//   from its first key; window: up to its last key + window), so a key's sums
-//   are made in a fixed order; the bf16 route's dq adds follow a counter a
-//   query tile; a launch gives the same bits every time.
-// * tiles are visited over the forward's bounds (flash_attention.cu); keys
-//   and queries past a ragged end, and hidden keys, have P = 0, as JAX's
-//   exp(NEG − lse) = 0.  Non-causal attention with Sq != Sk (cross-attention)
-//   visits every tile.
+// * a work item is (key tile, kv head, batch row); it loops over the query
+//   tiles that can see its keys and its kv head's G query heads in a fixed
+//   order, and computes S and dP once a tile pair: five products, Sᵀ, dPᵀ,
+//   dV += Pᵀ·dout, dK += dSᵀ·q and dQ-partial = dS·K; dK and dV stay on chip
+//   for the whole item.
+// * no atomics on any value: each (batch, head, query tile) has a counter,
+//   and an item adds its dQ-partial only when the counter says that every key
+//   tile before its own that sees the tile has added; so dq sums its key tiles
+//   in ascending order, and a launch gives the same bits every time.
+// * keys and queries past a ragged end, and hidden keys, have P = 0, as
+//   JAX's exp(NEG − lse) = 0.  Non-causal attention with Sq != Sk
+//   (cross-attention) visits every tile.
 // * float32 is compiled for head dims 16, 32, 64, 128 and 256, bf16 for
 //   (64, 64), (128, 128), MLA's (192, 128) and (256, 256); the wrapper
 //   zero-pads other head dims to the next (ops.py) and slices the padded
 //   lanes off.
-// CUDA-core route (float32 only): tiles are staged in shared memory,
-// d-major, with padded strides; thread (ty, tx) of 16 × 8 owns rows ty + 16i
-// and columns tx + 8j of each score tile, and rows ty + 16i, columns tx + 8d
-// of each accumulator, so every shared-memory read is free of bank conflicts
-// or a broadcast.  dS (or Pᵀ, then dSᵀ) goes through shared memory to the
-// products that contract over the score tile.
 //
 // Bound on the H100: operations.  The backward needs about 2.5× the forward's
-// 4·B·H·hd·(keys seen) flops (5 products of the forward's 2).  The bf16 route
-// does those 5 (plus the diagonal tiles' masked halves) at 989 TFLOP/s peak,
-// and moves the dq workspace through L2 a tile pair at a time; the float32
-// route does 7 (S and dP in both passes) at 67 TFLOP/s peak.
+// 4·B·H·hd·(keys seen) flops (5 products of the forward's 2): 3.44·10^11 at
+// tinyllama's training shape (B = 8, S = 2,048, H = 32, hd 64, causal).  The
+// bf16 route does them (plus the diagonal tiles' masked halves) at 989 TFLOP/s
+// peak, the float32 route at 67 TFLOP/s on the CUDA cores: 5.13 ms.  Both move
+// the dq tiles through L2 a tile pair at a time.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "f32_tiles.cuh"
 #include "mma_bf16.cuh"
 #include "port_common.cuh"
 #include "sm90.cuh"
@@ -62,7 +64,7 @@ namespace {
 
 using namespace port::tc;
 
-constexpr int BW_THREADS = 128;   // 16 × 8 threads
+constexpr int BW_THREADS = 128;   // the delta kernel: a warp a query row
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -91,317 +93,6 @@ __global__ void __launch_bounds__(BW_THREADS)
     const int head = static_cast<int>(r % h);
     const long long bs = r / h;
     delta[(bs / sq * h + head) * sq + bs % sq] = s;
-  }
-}
-
-// ---- pass 1: dq, a block per (query tile, head, batch row) -----------------
-
-template <int HD>
-struct DqShape {
-  static constexpr int RM = HD <= 64 ? 4 : 2;   // query rows per thread
-  static constexpr int BQ = 16 * RM;
-  static constexpr int BK = 64;
-  static constexpr int QS = BQ + 1;
-  static constexpr int KS = BK + 1;
-  static constexpr int FLOATS = 2 * HD * QS + 2 * HD * KS + BQ * KS;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
-
-template <int HD>
-__global__ void __launch_bounds__(BW_THREADS)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int sq, int sk, int h, int kvh, int causal, int window,
-              float scale) {
-  using S = DqShape<HD>;
-  constexpr int RM = S::RM, BQ = S::BQ, BK = S::BK, QS = S::QS, KS = S::KS, DM = HD / 8;
-  extern __shared__ float smem[];
-  float* qt = smem;             // [HD][QS] q, d-major
-  float* dot = qt + HD * QS;    // [HD][QS] dout, d-major
-  float* kt = dot + HD * QS;    // [HD][KS] k, d-major
-  float* vt = kt + HD * KS;     // [HD][KS] v, d-major
-  float* dss = vt + HD * KS;    // [BQ][KS] dS
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int iq = gridDim.x - 1 - blockIdx.x;   // the most causal work first
-  const int head = blockIdx.y, bi = blockIdx.z;
-  const int kv_head = head / (h / kvh);
-  const int q_lo = iq * BQ;
-  const long long q_stride = static_cast<long long>(h) * HD;
-  const long long k_stride = static_cast<long long>(kvh) * HD;
-  const float* qb = q + static_cast<long long>(bi) * sq * q_stride + head * HD;
-  const float* dob = dout + static_cast<long long>(bi) * sq * q_stride + head * HD;
-  const float* kb = k + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-  const float* vb = v + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-  const long long row0 = (static_cast<long long>(bi) * h + head) * sq;
-
-  for (int e = tid; e < BQ * HD; e += BW_THREADS) {
-    const int r = e / HD, d = e % HD;
-    const bool live = q_lo + r < sq;
-    const long long off = (q_lo + r) * q_stride + d;
-    qt[d * QS + r] = live ? ld(qb + off) : 0.0f;
-    dot[d * QS + r] = live ? ld(dob + off) : 0.0f;
-  }
-  float lse_r[RM], del_r[RM], acc[RM][DM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    lse_r[i] = row < sq ? lse[row0 + row] : 0.0f;
-    del_r[i] = row < sq ? delta[row0 + row] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < DM; ++c) acc[i][c] = 0.0f;
-  }
-
-  const int nk = (sk + BK - 1) / BK;
-  const int hi = causal ? min((q_lo + BQ + BK - 1) / BK, nk) : nk;
-  const int lo = window ? max(q_lo - window + 1, 0) / BK : 0;
-  for (int it = lo; it < hi; ++it) {
-    const int k_lo = it * BK;
-    __syncthreads();   // the previous tile is read out of kt, vt and dss
-    for (int e = tid; e < BK * HD; e += BW_THREADS) {
-      const int r = e / HD, d = e % HD;
-      const bool live = k_lo + r < sk;
-      const long long off = (k_lo + r) * k_stride + d;
-      kt[d * KS + r] = live ? ld(kb + off) : 0.0f;
-      vt[d * KS + r] = live ? ld(vb + off) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[RM][8], dp[RM][8];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[RM], o[RM], b[8], c[8];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        a[i] = qt[d * QS + ty + 16 * i];
-        o[i] = dot[d * QS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        b[j] = kt[d * KS + tx + 8 * j];
-        c[j] = vt[d * KS + tx + 8 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], c[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = q_lo + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k_lo + tx + 8 * j;
-        const float p = visible(row, col, sq, sk, causal, window)
-                            ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
-        dss[(ty + 16 * i) * KS + tx + 8 * j] = p * (dp[i][j] - del_r[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[RM], w[DM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) p[i] = dss[(ty + 16 * i) * KS + c];
-#pragma unroll
-      for (int d = 0; d < DM; ++d) w[d] = kt[(tx + 8 * d) * KS + c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int d = 0; d < DM; ++d) acc[i][d] = fmaf(p[i], w[d], acc[i][d]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q_lo + ty + 16 * i;
-    if (row >= sq) continue;
-    float* o = dq + (static_cast<long long>(bi) * sq + row) * q_stride + head * HD;
-#pragma unroll
-    for (int d = 0; d < DM; ++d) o[tx + 8 * d] = acc[i][d] * scale;
-  }
-}
-
-// ---- pass 2: dk, dv, a block per (key tile, kv head, batch row) -------------
-
-template <int HD>
-struct DkvShape {
-  static constexpr int RK = HD <= 64 ? 4 : 2;    // keys per thread
-  static constexpr int QJ = HD <= 128 ? 8 : 4;   // queries per thread in a tile
-  static constexpr int BK = 16 * RK;
-  static constexpr int BQ = 8 * QJ;
-  static constexpr int QS = BQ + 1;
-  static constexpr int KS = BK + 1;
-  static constexpr int FLOATS = 2 * HD * QS + 2 * HD * KS + BK * QS;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
-
-template <int HD>
-__global__ void __launch_bounds__(BW_THREADS)
-    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int h, int kvh,
-               int causal, int window, float scale) {
-  using S = DkvShape<HD>;
-  constexpr int RK = S::RK, QJ = S::QJ, BK = S::BK, BQ = S::BQ, QS = S::QS, KS = S::KS;
-  constexpr int DM = HD / 8;
-  extern __shared__ float smem[];
-  float* qt = smem;             // [HD][QS] q, d-major
-  float* dot = qt + HD * QS;    // [HD][QS] dout, d-major
-  float* kt = dot + HD * QS;    // [HD][KS] k, d-major
-  float* vt = kt + HD * KS;     // [HD][KS] v, d-major
-  float* pt = vt + HD * KS;     // [BK][QS] Pᵀ, then dSᵀ
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int ik = blockIdx.x, kv_head = blockIdx.y, bi = blockIdx.z;
-  const int groups = h / kvh;
-  const int k_lo = ik * BK;
-  const long long q_stride = static_cast<long long>(h) * HD;
-  const long long k_stride = static_cast<long long>(kvh) * HD;
-  const float* kb = k + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-  const float* vb = v + static_cast<long long>(bi) * sk * k_stride + kv_head * HD;
-
-  for (int e = tid; e < BK * HD; e += BW_THREADS) {
-    const int r = e / HD, d = e % HD;
-    const bool live = k_lo + r < sk;
-    const long long off = (k_lo + r) * k_stride + d;
-    kt[d * KS + r] = live ? ld(kb + off) : 0.0f;
-    vt[d * KS + r] = live ? ld(vb + off) : 0.0f;
-  }
-  float dka[RK][DM], dva[RK][DM];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int c = 0; c < DM; ++c) dka[i][c] = dva[i][c] = 0.0f;
-
-  // the query tiles that can see keys [k_lo, k_lo + BK)
-  const int q_begin = causal ? k_lo : 0;
-  const int q_end = window ? min(sq, k_lo + BK - 1 + window) : sq;
-  const int t_lo = q_begin / BQ;
-  const int t_hi = q_end > q_begin ? (q_end + BQ - 1) / BQ : t_lo;
-
-  for (int g = 0; g < groups; ++g) {
-    const int head = kv_head * groups + g;
-    const float* qb = q + static_cast<long long>(bi) * sq * q_stride + head * HD;
-    const float* dob = dout + static_cast<long long>(bi) * sq * q_stride + head * HD;
-    const long long row0 = (static_cast<long long>(bi) * h + head) * sq;
-    for (int it = t_lo; it < t_hi; ++it) {
-      const int q_lo = it * BQ;
-      __syncthreads();   // the previous tile is read out of qt, dot and pt
-      for (int e = tid; e < BQ * HD; e += BW_THREADS) {
-        const int r = e / HD, d = e % HD;
-        const bool live = q_lo + r < sq;
-        const long long off = (q_lo + r) * q_stride + d;
-        qt[d * QS + r] = live ? ld(qb + off) : 0.0f;
-        dot[d * QS + r] = live ? ld(dob + off) : 0.0f;
-      }
-      float lse_q[QJ], del_q[QJ];
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) {
-        const int row = q_lo + tx + 8 * j;
-        lse_q[j] = row < sq ? lse[row0 + row] : 0.0f;
-        del_q[j] = row < sq ? delta[row0 + row] : 0.0f;
-      }
-      __syncthreads();
-
-      // Sᵀ and dPᵀ: keys ty + 16i against queries tx + 8j
-      float sp[RK][QJ], dpt[RK][QJ];
-#pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) sp[i][j] = dpt[i][j] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float a[RK], c[RK], b[QJ], o[QJ];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          a[i] = kt[d * KS + ty + 16 * i];
-          c[i] = vt[d * KS + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          b[j] = qt[d * QS + tx + 8 * j];
-          o[j] = dot[d * QS + tx + 8 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < QJ; ++j) {
-            sp[i][j] = fmaf(a[i], b[j], sp[i][j]);
-            dpt[i][j] = fmaf(c[i], o[j], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        const int col = k_lo + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          const int row = q_lo + tx + 8 * j;
-          const float p = visible(row, col, sq, sk, causal, window)
-                              ? expf(sp[i][j] * scale - lse_q[j]) : 0.0f;
-          sp[i][j] = p;
-          pt[(ty + 16 * i) * QS + tx + 8 * j] = p;
-        }
-      }
-      __syncthreads();
-
-      // dV += Pᵀ·dout
-#pragma unroll 4
-      for (int c = 0; c < BQ; ++c) {
-        float p[RK], w[DM];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) p[i] = pt[(ty + 16 * i) * QS + c];
-#pragma unroll
-        for (int d = 0; d < DM; ++d) w[d] = dot[(tx + 8 * d) * QS + c];
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int d = 0; d < DM; ++d) dva[i][d] = fmaf(p[i], w[d], dva[i][d]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int j = 0; j < QJ; ++j)
-          pt[(ty + 16 * i) * QS + tx + 8 * j] = sp[i][j] * (dpt[i][j] - del_q[j]);
-      __syncthreads();
-
-      // dK += dSᵀ·q
-#pragma unroll 4
-      for (int c = 0; c < BQ; ++c) {
-        float p[RK], w[DM];
-#pragma unroll
-        for (int i = 0; i < RK; ++i) p[i] = pt[(ty + 16 * i) * QS + c];
-#pragma unroll
-        for (int d = 0; d < DM; ++d) w[d] = qt[(tx + 8 * d) * QS + c];
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int d = 0; d < DM; ++d) dka[i][d] = fmaf(p[i], w[d], dka[i][d]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int key = k_lo + ty + 16 * i;
-    if (key >= sk) continue;
-    const long long off = (static_cast<long long>(bi) * sk + key) * k_stride + kv_head * HD;
-#pragma unroll
-    for (int d = 0; d < DM; ++d) {
-      dk[off + tx + 8 * d] = dka[i][d] * scale;
-      dv[off + tx + 8 * d] = dva[i][d];
-    }
   }
 }
 
@@ -1188,66 +879,564 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace wg
 
-template <int HD>
-int launch(const void* q_, const void* k_, const void* v_, const void* out_, const void* dout_,
-           const float* lse, float* delta, void* dq_, void* dk_, void* dv_, int b, int sq,
-           int sk, int h, int kvh, int causal, int window, float scale, cudaStream_t stream) {
-  const float* q = static_cast<const float*>(q_);
-  const float* k = static_cast<const float*>(k_);
-  const float* v = static_cast<const float*>(v_);
-  const float* dout = static_cast<const float*>(dout_);
-  const long long rows = static_cast<long long>(b) * sq * h;
-  delta_kernel<float><<<static_cast<unsigned>((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)),
-                        BW_THREADS, 0, stream>>>(static_cast<const float*>(out_), dout, delta,
-                                                 rows, sq, h, HD);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// ---- float32: one key-major pass on the CUDA cores ------------------------------------
+//
+// The bf16 route's order (namespace wg, above) on register-blocked float32
+// tiles fed by cp.async (f32_tiles.cuh, the forward's).  A work item is (key
+// tile of BN keys, kv head, batch row); persistent blocks (as many as fit on
+// the card) take items in order from an atomic counter, in wg's order (chunks
+// of up to four key tiles of each group), so an item only ever waits on an
+// item already taken.  An item copies its K and V tiles once, then walks its
+// steps: the query tiles of BM = 64 rows that see its keys (f32_tiles.cuh
+// query_span), from the last down, and the G query heads inside each.  A
+// step's q, dout, lse and delta are copied into the one stage under the step
+// before's dQ product (the only product that does not read them).  A step is
+// five products, all exact float32 FMAs:
+//   Sᵀ = K·qᵀ and dPᵀ = V·doutᵀ: a thread holds RK consecutive keys × BM/LC
+//     queries; P = exp2(Sᵀ·scale·log2e − lse·log2e), 0 where the mask hides
+//     the pair (tested only on tiles a causal or window edge, or a ragged end,
+//     cuts), dSᵀ = P ⊙ (dPᵀ − delta);
+//   dV += Pᵀ·dout and dK += dSᵀ·q: Pᵀ, then dSᵀ, go to the warp's rows of a
+//     shared tile behind __syncwarp, and a thread adds RK keys × hd/LC columns,
+//     which stay in registers for the whole item;
+//   dQ-partial = dS·K over the item's keys: after one block barrier (every
+//     dSᵀ row written), a thread holds BM/(LK·WARPS) consecutive queries × a
+//     64-column panel's 64/LC columns, and adds the partial · scale into dq in
+//     device memory.
+// The lanes of a warp are LK row groups × LC = 32/LK column groups.  With
+// LK = 2 every product reads one operand as one 16-byte chunk a quarter-warp
+// (an LDS.128 the H100 serves in ~2.5 SM cycles, against ~4.1 for 8 chunks:
+// tools/time_flash_bwd.py --smem) and holds 8 × 4 tiles, so shared memory
+// keeps up with the FMA pipes.  At hd 128 and 256 the warps pair up (SPLIT =
+// 2): both warps of a pair hold the same keys, one computes Sᵀ and P, the
+// other dPᵀ and dS, and each adds dK and dV for half of the columns, so the
+// accumulators fit in registers.
+// S and dP are computed once a step (the two-pass route this replaced
+// computed them in both passes: 7 products, not 5).  dq without atomics on
+// any value: one thread waits (acquire) until the tile's counter equals the
+// number of key tiles before this one that see the tile, a block barrier
+// passes that on, the threads read, add and write their dq elements (past L1),
+// and after the next barrier one thread bumps the counter (release); so each
+// dq element sums its key tiles in ascending order, and every launch gives
+// the same bits.  dq (B, Sq, H, hd) is the zeroed workspace itself: no finish
+// kernel.  A key group that the step's queries cannot see skips its products
+// and writes zeros to its dSᵀ rows.
+// Shapes (by_head_dim): hd <= 64: 4 warps, RK = 8, BN = 64, two blocks an SM
+// (80 KB of shared memory each at hd 64); hd 128: 8 warps in pairs, RK = 8,
+// BN = 64; hd 256: 8 warps in pairs, RK = 4, BN = 32.
+namespace cc {
 
-  using Q = DqShape<HD>;
-  auto dq_k = dq_kernel<HD>;
-  err = cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Q::BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_k<<<dim3((sq + Q::BQ - 1) / Q::BQ, h, b), BW_THREADS, Q::BYTES, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(dq_), sq, sk, h, kvh, causal, window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+using namespace port::f32;
+using port::sm90::ld_acquire;
+using port::sm90::st_release;
 
-  using K = DkvShape<HD>;
-  auto dkv_k = dkv_kernel<HD>;
-  err = cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(K::BYTES));
+template <int HD, int LK, int RK, int WARPS, int BM, int SPLIT>
+struct Shape {
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LC = 32 / LK;                 // lanes: LK row groups × LC column groups
+  static constexpr int KG = WARPS / SPLIT;           // key groups: SPLIT warps share one
+  static constexpr int BN = KG * LK * RK;            // keys an item
+  static constexpr int C = HD / 4;                   // 16-byte chunks of a row of q, k, v, dout
+  static constexpr int QJ = BM / LC;                 // Sᵀ queries of a thread: 4·LC·u + 4tc + j
+  static constexpr int CB = BM / 4;                  // chunks of a dSᵀ row
+  static constexpr int DM = HD / (SPLIT * LC);       // dK, dV columns of a thread
+  static constexpr int VW = DM < 4 ? DM : 4;         // columns of a load: LC·VW·n + VW·tc
+  static constexpr int NV = DM / VW;
+  static constexpr int QR = BM / (WARPS * LK);       // dQ rows of a thread, consecutive
+  static constexpr int RV = QR < 4 ? QR : 4;         // their dSᵀ loads
+  static constexpr int PW = HD < 64 ? HD : 64;       // dQ columns a panel
+  static constexpr int PD = PW / LC;                 // of a thread
+  static constexpr int PV = PD < 4 ? PD : 4;         // their loads: LC·PV·n + PV·tc
+  static constexpr int NPV = PD / PV;
+  static constexpr int NP = HD / PW;                 // dQ panels
+  static constexpr int KV_FLOATS = BN * HD;
+  static constexpr int STAGE_FLOATS = 2 * BM * HD + 2 * BM;   // q, dout, lse, delta
+  static constexpr int DS_FLOATS = BN * BM;
+  static constexpr int FLOATS = 2 * KV_FLOATS + STAGE_FLOATS + SPLIT * DS_FLOATS;
+  static constexpr size_t BYTES = FLOATS * sizeof(float);
+  static constexpr int MIN_BLOCKS = 233472 / (static_cast<int>(BYTES) + 1024) >= 2 ? 2 : 1;
+  static_assert(BYTES <= 232448, "shared memory");
+  static_assert(QJ % 4 == 0 && QR % RV == 0 && DM >= 1 && PD >= 1 && (SPLIT == 1 || SPLIT == 2)
+                && WARPS % SPLIT == 0, "tile shape");
+};
+
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* delta;
+  float* dq;            // (B, Sq, H, HD), zeroed: the workspace of the ordered adds
+  float* dk;            // (B, Sk, KV, HD)
+  float* dv;
+  int* counters;        // [0]: the work counter; then (B, H, query tiles), zeroed
+  int b, sq, sk, h, kvh, causal, window, nq, nk, chunk, n_items;
+  float scale, scale_log2;
+};
+
+struct Item {
+  int n, bi, kvh;
+};
+
+// wg::decode's order: chunks of `chunk` key tiles, each over every (batch,
+// kv head) group, a group's key tiles of a chunk in a row
+__device__ __forceinline__ Item decode(int item, const Args& a) {
+  const int per_chunk = a.b * a.kvh * a.chunk;
+  const int r = item % per_chunk, g = r / a.chunk;
+  return Item{item / per_chunk * a.chunk + r % a.chunk, g / a.kvh, g % a.kvh};
+}
+
+// VW consecutive floats at `p` into x[0 .. VW)
+template <int VW>
+__device__ __forceinline__ void ldv(const float* p, float* x) {
+  if constexpr (VW == 4) {
+    const float4 y = *reinterpret_cast<const float4*>(p);
+    x[0] = y.x;
+    x[1] = y.y;
+    x[2] = y.z;
+    x[3] = y.w;
+  } else if constexpr (VW == 2) {
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] = y.x;
+    x[1] = y.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// the same from device memory, past L1
+template <int VW>
+__device__ __forceinline__ void ldv_cg(const float* p, float* x) {
+  if constexpr (VW == 4) {
+    const float4 y = __ldcg(reinterpret_cast<const float4*>(p));
+    x[0] = y.x;
+    x[1] = y.y;
+    x[2] = y.z;
+    x[3] = y.w;
+  } else if constexpr (VW == 2) {
+    const float2 y = __ldcg(reinterpret_cast<const float2*>(p));
+    x[0] = y.x;
+    x[1] = y.y;
+  } else {
+    x[0] = __ldcg(p);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void stv_cg(float* p, const float* x) {
+  if constexpr (VW == 4)
+    __stcg(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+  else if constexpr (VW == 2)
+    __stcg(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
+  else
+    __stcg(p, x[0]);
+}
+
+// element (r, col) of a swizzled tile of C chunks a row, G rows a swizzle group
+template <int C, int G>
+__device__ __forceinline__ const float* elem(const float* tile, int r, int col) {
+  return tile + 4 * chunk_at<C, G>(r, col >> 2) + (col & 3);
+}
+
+template <int HD, int LK, int RK, int WARPS, int BM, int SPLIT>
+__global__ void __launch_bounds__(32 * WARPS, (Shape<HD, LK, RK, WARPS, BM, SPLIT>::MIN_BLOCKS))
+    bwd_kernel(const __grid_constant__ Args a) {
+  using S = Shape<HD, LK, RK, WARPS, BM, SPLIT>;
+  constexpr int THREADS = S::THREADS, LC = S::LC, BN = S::BN, C = S::C, QJ = S::QJ,
+                CB = S::CB, DM = S::DM, VW = S::VW, NV = S::NV, QR = S::QR, RV = S::RV,
+                PW = S::PW, PD = S::PD, PV = S::PV, NPV = S::NPV, WK = LK * RK, KG = S::KG;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);   // [BN][HD] K, swizzled by RK rows
+  float* vs = ks + S::KV_FLOATS;                 // [BN][HD] V
+  float* qs = vs + S::KV_FLOATS;   // the step's q [BM][HD], dout [BM][HD], lse, delta [BM]
+  const float* dos = qs + BM * HD;
+  const float* lse_s = dos + BM * HD;
+  const float* del_s = lse_s + BM;
+  float* ds = qs + S::STAGE_FLOATS;              // [BN][BM] Pᵀ, then (SPLIT 1) dSᵀ
+  float* ds2 = ds + (SPLIT - 1) * S::DS_FLOATS;  // [BN][BM] dSᵀ (SPLIT 2)
+  // the item, between items (the tile is read out then, and written only after
+  // the step's first barrier)
+  int* item_slot = reinterpret_cast<int*>(ds);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, tk = lane / LC, tc = lane % LC;
+  // the warp's key group, and which of its SPLIT column ranges of dK and dV it owns
+  const int kg = w % KG, half = w / KG, col0 = half * (HD / SPLIT);
+  const int groups = a.h / a.kvh;
+  const long long q_stride = static_cast<long long>(a.h) * HD;
+  const long long k_stride = static_cast<long long>(a.kvh) * HD;
+  // this thread's keys (rows of K, V, dSᵀ) and Sᵀ queries in the tiles: a key
+  // group is WK keys, a thread's RK consecutive ones
+  auto kr = [&](int i) { return kg * WK + tk * RK + i; };
+  auto qc = [&](int j) { return 4 * LC * (j >> 2) + 4 * tc + (j & 3); };
+
+  for (;;) {
+    if (tid == 0) {   // past the last key tile in the last chunk: no item
+      int item;
+      Item m;
+      do {
+        item = atomicAdd(a.counters, 1);
+        if (item >= a.n_items) item = -1;
+        if (item >= 0) m = decode(item, a);
+      } while (item >= 0 && m.n >= a.nk);
+      *item_slot = item;
+    }
+    __syncthreads();
+    const int item = *item_slot;
+    if (item < 0) return;
+    const Item m = decode(item, a);
+    const int k_lo = m.n * BN, kw0 = k_lo + kg * WK;   // the item's, this warp's first key
+    int t_lo, t_hi;
+    query_span(k_lo, min(k_lo + BN, a.sk), BM, a.sq, a.causal, a.window, t_lo, t_hi);
+    const int steps = (t_hi - t_lo) * groups;
+    const long long kv_off = static_cast<long long>(m.bi) * a.sk * k_stride + m.kvh * HD;
+    load_tile<BN, C, RK, THREADS>(ks, a.k + kv_off, k_stride, k_lo, a.sk);
+    load_tile<BN, C, RK, THREADS>(vs, a.v + kv_off, k_stride, k_lo, a.sk);
+    // step j: query tile t_hi - 1 - j / G of head kvh·G + j % G
+    auto head_of = [&](int j) { return m.kvh * groups + j % groups; };
+    auto tile_of = [&](int j) { return t_hi - 1 - j / groups; };
+    auto load_step = [&](int j) {
+      const int q_lo = tile_of(j) * BM;
+      const long long off = static_cast<long long>(m.bi) * a.sq * q_stride + head_of(j) * HD;
+      load_tile<BM, C, 4, THREADS>(qs, a.q + off, q_stride, q_lo, a.sq);
+      load_tile<BM, C, 4, THREADS>(qs + BM * HD, a.dout + off, q_stride, q_lo, a.sq);
+      // the rows' lse and delta, 4 bytes a thread (zeros past Sq)
+      const long long row0 = (static_cast<long long>(m.bi) * a.h + head_of(j)) * a.sq;
+      for (int e = tid; e < 2 * BM; e += THREADS) {
+        const int r = e % BM;
+        const bool live = q_lo + r < a.sq;
+        cp4(qs + 2 * BM * HD + e, (e < BM ? a.lse : a.delta) + row0 + (live ? q_lo + r : 0), live);
+      }
+    };
+    if (steps > 0) load_step(0);
+    cp_commit();
+
+    float dka[RK][DM], dva[RK][DM];
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int c = 0; c < DM; ++c) dka[i][c] = dva[i][c] = 0.0f;
+    int* held = nullptr;   // the counter of the step whose adds are in flight
+    int held_to = 0;
+
+    for (int j = 0; j < steps; ++j) {
+      const int head = head_of(j), t = tile_of(j), q_lo = t * BM;
+      cp_wait_all();
+      __syncthreads();   // step j's tiles landed; step j - 1's dq adds done, dSᵀ read out
+      if (tid == 0 && held != nullptr) st_release(held, held_to);
+
+      const bool hidden = kw0 >= a.sk || (a.causal && kw0 > q_lo + BM - 1) ||
+                          (a.window && q_lo - (kw0 + WK - 1) >= a.window);
+      const bool edge = q_lo + BM > a.sq || kw0 + WK > a.sk ||
+                        (a.causal && kw0 + WK - 1 > q_lo) ||
+                        (a.window && q_lo + BM - 1 - kw0 >= a.window);
+      // acc += rows(kr)·cols(qc)ᵀ over the head dim: Sᵀ = K·qᵀ or dPᵀ = V·doutᵀ; the
+      // queries' chunks held, the keys' streamed
+      auto product = [&](const float* keys, const float* queries, float (&acc)[RK][QJ]) {
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int jq = 0; jq < QJ; ++jq) acc[i][jq] = 0.0f;
+#pragma unroll 2
+        for (int dc = 0; dc < C; ++dc) {
+          float4 qq[QJ];
+#pragma unroll
+          for (int jq = 0; jq < QJ; ++jq) qq[jq] = ld4<C, 4>(queries, qc(jq), dc);
+#pragma unroll
+          for (int i = 0; i < RK; ++i) {
+            const float4 kk = ld4<C, RK>(keys, kr(i), dc);
+#pragma unroll
+            for (int jq = 0; jq < QJ; ++jq) acc[i][jq] = dot4(kk, qq[jq], acc[i][jq]);
+          }
+        }
+      };
+      // P = exp2(Sᵀ·scale·log2e − lse·log2e), 0 where the mask hides the pair
+      // (tested only on a tile an edge cuts); with_ds: dS = P ⊙ (dPᵀ − delta) into dp
+      auto probs = [&](auto masked, auto with_ds, float (&x)[RK][QJ], float (&dp)[RK][QJ]) {
+#pragma unroll
+        for (int u = 0; u < QJ / 4; ++u) {
+          const float4 l4 = reinterpret_cast<const float4*>(lse_s)[LC * u + tc];
+          const float4 d4 = reinterpret_cast<const float4*>(del_s)[LC * u + tc];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jq = 4 * u + e;
+            const float lse2 = at(l4, e) * LOG2E, del = at(d4, e);
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {
+              float p = ex2(x[i][jq] * a.scale_log2 - lse2);
+              if constexpr (decltype(masked)::value)
+                p = visible(q_lo + qc(jq), k_lo + kr(i), a.sq, a.sk, a.causal, a.window) ? p
+                                                                                       : 0.0f;
+              x[i][jq] = p;
+              if constexpr (decltype(with_ds)::value) dp[i][jq] = p * (dp[i][jq] - del);
+            }
+          }
+        }
+      };
+      // this thread's rows of a [BN][BM] tile
+      auto store_rows = [&](float* buf, const float (&x)[RK][QJ]) {
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int u = 0; u < QJ / 4; ++u)
+            st4<CB, RK>(buf, kr(i), LC * u + tc, make_float4(x[i][4 * u], x[i][4 * u + 1],
+                                                             x[i][4 * u + 2], x[i][4 * u + 3]));
+      };
+      // acc += rows(kr) of buf · rhs[:, c0 + the thread's columns], over the step's queries
+      auto contract = [&](const float* buf, const float* rhs, int c0, float (&acc)[RK][DM]) {
+#pragma unroll 2
+        for (int c4 = 0; c4 < CB; ++c4) {
+          float4 pa[RK];
+#pragma unroll
+          for (int i = 0; i < RK; ++i) pa[i] = ld4<CB, RK>(buf, kr(i), c4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float y[DM];
+#pragma unroll
+            for (int n = 0; n < NV; ++n)
+              ldv<VW>(elem<C, 4>(rhs, 4 * c4 + e, c0 + LC * VW * n + VW * tc), y + VW * n);
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {
+              const float pv = at(pa[i], e);
+#pragma unroll
+              for (int d = 0; d < DM; ++d) acc[i][d] = fmaf(pv, y[d], acc[i][d]);
+            }
+          }
+        }
+      };
+      const float zero[RK][QJ] = {};
+      if constexpr (SPLIT == 1) {   // a warp: Sᵀ, dPᵀ, P, dS, dV, dK for its keys
+        if (hidden) {
+          store_rows(ds, zero);
+        } else {
+          float s[RK][QJ], dp[RK][QJ];
+          product(ks, qs, s);
+          product(vs, dos, dp);
+          if (edge)
+            probs(std::true_type{}, std::true_type{}, s, dp);
+          else
+            probs(std::false_type{}, std::true_type{}, s, dp);
+          store_rows(ds, s);
+          __syncwarp();
+          contract(ds, dos, 0, dva);
+          __syncwarp();   // Pᵀ is read out
+          store_rows(ds, dp);
+          __syncwarp();
+          contract(ds, qs, 0, dka);
+        }
+      } else {   // a warp pair: Sᵀ → P and dPᵀ → dS, then dV and dK a column half each
+        float x[RK][QJ];
+        if (!hidden && half == 0) {
+          product(ks, qs, x);
+          if (edge)
+            probs(std::true_type{}, std::false_type{}, x, x);
+          else
+            probs(std::false_type{}, std::false_type{}, x, x);
+          store_rows(ds, x);
+        } else if (!hidden) {
+          product(vs, dos, x);
+        } else if (half == 1) {
+          store_rows(ds2, zero);
+        }
+        __syncthreads();   // Pᵀ is in ds
+        if (!hidden && half == 1) {   // dS = P ⊙ (dPᵀ − delta)
+#pragma unroll
+          for (int u = 0; u < QJ / 4; ++u) {
+            const float4 d4 = reinterpret_cast<const float4*>(del_s)[LC * u + tc];
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {
+              const float4 p4 = ld4<CB, RK>(ds, kr(i), LC * u + tc);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                x[i][4 * u + e] = at(p4, e) * (x[i][4 * u + e] - at(d4, e));
+            }
+          }
+          store_rows(ds2, x);
+        } else if (!hidden) {
+          contract(ds, dos, col0, dva);
+        }
+        __syncthreads();   // dSᵀ is in ds2
+        if (!hidden) {
+          if (half == 1) contract(ds, dos, col0, dva);
+          contract(ds2, qs, col0, dka);
+        }
+      }
+
+      int* counter = a.counters + 1 + (static_cast<long long>(m.bi) * a.h + head) * a.nq + t;
+      const int before = m.n - first_key_tile(t, BM, BN, a.window);
+      if (tid == 0)   // a wait past ~10^7 reads is a broken order: fail the launch, not hang
+        for (int spins = 0; ld_acquire(counter) != before;)
+          if (++spins > (1 << 24)) __trap();
+      __syncthreads();   // every warp's dSᵀ rows are written; the earlier key tiles have added
+      held = counter;
+      held_to = before + 1;
+      if (j + 1 < steps) {   // q, dout, lse and delta are read out: the next step's, under dQ
+        load_step(j + 1);
+        cp_commit();
+      }
+
+      // dq += scale · dS·K, a panel of PW columns at a time; a thread's QR rows
+      // are consecutive
+      const int qd0 = w * LK * QR + tk * QR;
+      float* dqb = a.dq + (static_cast<long long>(m.bi) * a.sq * a.h + head) * HD;
+      // dq's elements of panel p, read past L1 (a panel ahead when there are several)
+      auto read_dq = [&](int p, float (&z)[QR][PD]) {
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const int qrow = min(q_lo + qd0 + r, a.sq - 1);
+#pragma unroll
+          for (int n = 0; n < NPV; ++n)
+            ldv_cg<PV>(dqb + qrow * q_stride + p * PW + LC * PV * n + PV * tc, z[r] + PV * n);
+        }
+      };
+      float next[QR][PD];
+      if constexpr (S::NP > 1) read_dq(0, next);
+#pragma unroll
+      for (int p = 0; p < S::NP; ++p) {
+        float part[QR][PD];
+#pragma unroll
+        for (int r = 0; r < QR; ++r)
+#pragma unroll
+          for (int d = 0; d < PD; ++d) part[r][d] = 0.0f;
+#pragma unroll 4
+        for (int key = 0; key < BN; ++key) {
+          float x[QR], y[PD];
+#pragma unroll
+          for (int r = 0; r < QR; r += RV) ldv<RV>(elem<CB, RK>(ds2, key, qd0 + r), x + r);
+#pragma unroll
+          for (int n = 0; n < NPV; ++n)
+            ldv<PV>(elem<C, RK>(ks, key, p * PW + LC * PV * n + PV * tc), y + PV * n);
+#pragma unroll
+          for (int r = 0; r < QR; ++r)
+#pragma unroll
+            for (int d = 0; d < PD; ++d) part[r][d] = fmaf(x[r], y[d], part[r][d]);
+        }
+        float old[QR][PD];
+        if constexpr (S::NP > 1) {
+#pragma unroll
+          for (int r = 0; r < QR; ++r)
+#pragma unroll
+            for (int d = 0; d < PD; ++d) old[r][d] = next[r][d];
+          if (p + 1 < S::NP) read_dq(p + 1, next);
+        } else {
+          read_dq(p, old);
+        }
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const int qrow = q_lo + qd0 + r;
+          if (qrow >= a.sq) continue;
+#pragma unroll
+          for (int n = 0; n < NPV; ++n) {
+            float z[PV];
+#pragma unroll
+            for (int e = 0; e < PV; ++e)
+              z[e] = __fadd_rn(old[r][PV * n + e], __fmul_rn(part[r][PV * n + e], a.scale));
+            stv_cg<PV>(dqb + qrow * q_stride + p * PW + LC * PV * n + PV * tc, z);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the last step's dq adds are done (and the tiles read out)
+    if (tid == 0 && held != nullptr) st_release(held, held_to);
+
+    // dK = scale·Σ dSᵀ·q, dV = Σ Pᵀ·dout, this thread's keys
+#pragma unroll
+    for (int i = 0; i < RK; ++i) {
+      const int key = k_lo + kr(i);
+      if (key >= a.sk) continue;
+      const long long off = (static_cast<long long>(m.bi) * a.sk + key) * k_stride + m.kvh * HD;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int col = col0 + LC * VW * n + VW * tc;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          a.dk[off + col + e] = dka[i][VW * n + e] * a.scale;
+          a.dv[off + col + e] = dva[i][VW * n + e];
+        }
+      }
+    }
+  }
+}
+
+template <int HD, int LK, int RK, int WARPS, int BM, int SPLIT>
+int launch(Args a, cudaStream_t stream) {
+  using S = Shape<HD, LK, RK, WARPS, BM, SPLIT>;
+  auto kern = bwd_kernel<HD, LK, RK, WARPS, BM, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(S::BYTES));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, S::THREADS, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_k<<<dim3((sk + K::BK - 1) / K::BK, kvh, b), BW_THREADS, K::BYTES, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(dk_), static_cast<float*>(dv_), sq, sk, h,
-      kvh, causal, window, scale);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  a.nq = (a.sq + BM - 1) / BM;
+  a.nk = (a.sk + S::BN - 1) / S::BN;
+  // as wg::launch: a wave of items holds about four key tiles of each group
+  const int groups = a.b * a.kvh, resident = per_sm * wg::sm_count();
+  const int wave = resident / 4 > 0 ? resident / 4 : 1;
+  a.chunk = groups <= wave ? 1 : (groups + wave - 1) / wave < 4 ? (groups + wave - 1) / wave : 4;
+  a.n_items = (a.nk + a.chunk - 1) / a.chunk * a.chunk * groups;
+  const int grid = a.n_items < resident ? a.n_items : resident;
+  kern<<<grid, S::THREADS, S::BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int by_head_dim(int hd, const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
-                int b, int sq, int sk, int h, int kvh, int causal, int window, float scale,
-                cudaStream_t stream) {
-#define PORT_FA_BWD(HD)                                                                    \
-  return launch<HD>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kvh, causal, \
-                       window, scale, stream)
+                int* counters, int b, int sq, int sk, int h, int kvh, int causal, int window,
+                float scale, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(b) * sq * h;
+  delta_kernel<float><<<static_cast<unsigned>((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)),
+                        BW_THREADS, 0, stream>>>(static_cast<const float*>(out),
+                                                 static_cast<const float*>(dout), delta, rows, sq,
+                                                 h, hd);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.counters = counters;
+  a.b = b;
+  a.sq = sq;
+  a.sk = sk;
+  a.h = h;
+  a.kvh = kvh;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.scale_log2 = scale * LOG2E;
+  // <HD, LK, RK, WARPS, BM, SPLIT>: keys an item WARPS / SPLIT · LK · RK, query
+  // rows a step BM; hd 128 and 256 split dK and dV's columns between the warps
+  // of a pair
   switch (hd) {
-    case 16: PORT_FA_BWD(16);
-    case 32: PORT_FA_BWD(32);
-    case 64: PORT_FA_BWD(64);
-    case 128: PORT_FA_BWD(128);
-    case 256: PORT_FA_BWD(256);
+    case 16: return launch<16, 2, 8, 4, 64, 1>(a, stream);
+    case 32: return launch<32, 2, 8, 4, 64, 1>(a, stream);
+    case 64: return launch<64, 2, 8, 4, 64, 1>(a, stream);
+    case 128: return launch<128, 2, 8, 8, 64, 2>(a, stream);
+    case 256: return launch<256, 2, 4, 8, 64, 2>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PORT_FA_BWD
 }
+
+}  // namespace cc
 
 }  // namespace
 
 // q, k: (B, S, heads, hd); v, out, dout: (.., hdv); lse: (B, H, Sq) float32 from
 // the forward; delta: (B, H, Sq) float32 scratch; scale: 1/sqrt(true head dim)
 // rounded to float32.  bf16 = 0: float32 inputs on the CUDA cores, hd == hdv
-// one padded width, dq, dk, dv at it.  bf16 = 1: bfloat16 inputs on wgmma,
+// one padded width, dq, dk, dv at it; dq zeroed by the caller (the ordered
+// adds' workspace), counters (1 + B·H·ceil(Sq/64)) int32 zeroed; dq_acc
+// unused.  bf16 = 1: bfloat16 inputs on wgmma,
 // (hd, hdv) one of (64, 64), (128, 128), (192, 128), (256, 256); dq_acc
 // (B, Sq, H, hd) float32 and counters (1 + B·H·ceil(Sq/64)) int32, zeroed by
 // the caller; dq written at hd_out (<= hd), dk and dv at hd and hdv.
@@ -1260,8 +1449,8 @@ extern "C" int port_flash_attention_bwd(const void* q, const void* k, const void
                                         cudaStream_t stream) {
   if (!bf16) {
     if (hd != hdv) return static_cast<int>(cudaErrorInvalidValue);
-    return by_head_dim(hd, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kvh,
-                       causal, window, scale, stream);
+    return cc::by_head_dim(hd, q, k, v, out, dout, lse, delta, dq, dk, dv, counters, b, sq, sk,
+                           h, kvh, causal, window, scale, stream);
   }
   using B = __nv_bfloat16;
   const long long rows = static_cast<long long>(b) * sq * h;

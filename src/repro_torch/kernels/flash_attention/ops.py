@@ -4,7 +4,8 @@ On a CUDA tensor the forward launches a hand-written kernel, chosen by
 dtype: bfloat16 goes to ``csrc/flash_attention_mma.cu`` (tensor cores,
 float32 sums, P rounded to bf16 before P·V), float32 to
 ``csrc/flash_attention.cu`` (CUDA cores, float32 throughout, as the JAX
-kernel computes); any other dtype is refused.  On a CPU tensor it runs the
+kernel computes, in exact float32 FMAs on register-blocked tiles fed by
+cp.async); any other dtype is refused.  On a CPU tensor it runs the
 plain version, ``repro_torch.models.flash``.  There is no fallback from one
 to the other.  GQA layout: q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk,
 KV, hdv), H = KV·G; the output is (B, Sq, H, hdv) in q's dtype.
@@ -14,8 +15,9 @@ Training: when autograd records (grad enabled and q, k or v requires grad),
 ``torch.autograd.Function`` whose forward is the same kernel writing the
 log-sum-exp too (``flash_attention_with_lse``) and whose backward is the
 hand-written backward kernel ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``: bf16 in one key-major pass on wgmma with TMA,
-float32 on the CUDA cores); on CPU tensors both are the plain pair of
+(``flash_attention_bwd``: one key-major pass, bf16 on wgmma with TMA, float32
+on the CUDA cores; ``kernels/flash_attention/ref.py`` states its order); on
+CPU tensors both are the plain pair of
 ``models/flash.py`` (``_flash_fwd_impl``, ``_flash_bwd``).  Calls that
 record no gradient (the LM forward, serving) keep the forward-only launch.
 
@@ -33,7 +35,8 @@ its own, ``BWD_WIDTHS`` (``bwd_head_dims``): (64, 64), (128, 128), MLA's
 v, out and dout to its second (16, 32 → 64; 112 → 128).  Its dq sums in a
 float32 workspace ``dq_acc`` (B, Sq, H, hd) in a fixed order, under one
 counter per (batch, head, query tile); the wrapper allocates both zeroed, and
-a finish kernel writes dq at the true head dim.
+a finish kernel writes dq at the true head dim.  The float32 backward adds
+into dq itself (zeroed, at the padded width) under the same counters.
 
 ``flash_attention.launches`` counts the forward kernel's launches on both
 routes (with or without the log-sum-exp), ``flash_attention.routes`` each;
@@ -59,7 +62,7 @@ ROUTES = {torch.bfloat16: ("bf16_tensor_cores", "port_flash_attention_bf16"),
 BWD_ROUTES = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_cores"}
 # the bf16 backward's (hd, hdv) pairs, in order of size
 BWD_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
-# query rows of a tile of the bf16 backward (its dq counters are one a tile)
+# query rows of a tile of either backward route (its dq counters are one a tile)
 BWD_QUERY_TILE = 64
 # the plain pair's blocks (models/flash.py's defaults)
 PLAIN_BLOCKS = (512, 1024)
@@ -165,6 +168,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     _lib.require_cuda("flash_attention_bwd", lse)
     route = BWD_ROUTES[q.dtype]
     hdv = v.shape[-1]
+    counters = torch.zeros(1 + b * h * -(-sq // BWD_QUERY_TILE), dtype=torch.int32,
+                           device=q.device)
     if route == "bf16_wgmma":
         width, vwidth = bwd_head_dims(hd, hdv)
         qp, kp = _pad(q, width), _pad(k, width)
@@ -172,13 +177,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         scale = 1.0 / math.sqrt(hd)
         dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
         dq_acc = torch.zeros((b, sq, h, width), dtype=torch.float32, device=q.device)
-        counters = torch.zeros(1 + b * h * -(-sq // BWD_QUERY_TILE), dtype=torch.int32,
-                               device=q.device)
     else:
         qp, kp, vp, scale, _ = pad_head_dims(q, k, v)
         width = vwidth = qp.shape[-1]
         outp, doutp = _pad(out, width), _pad(dout, width)
-        dq, dq_acc, counters = torch.empty_like(qp), None, None
+        dq, dq_acc = torch.zeros_like(qp), None
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     code = _lib.library().port_flash_attention_bwd(

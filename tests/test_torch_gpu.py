@@ -1365,6 +1365,43 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, h
     assert all(torch.equal(a, c) for got in again for a, c in zip(grads, got))
 
 
+# the float32 backward (one key-major pass on the CUDA cores) at recurrentgemma's local
+# attention (window, MQA, hd 256) and seamless' cross-attention (non-causal, S_q != S_k),
+# cut in length: against the plain _flash_bwd and the key-major order model
+# (kernels/flash_attention/ref.py) on the card, both within 2e-5 of max |plain|, the same
+# bits on every launch
+F32_BWD_ROWS = [
+    (1, 1024, 1024, 10, 1, 256, True, 512),
+    (2, 512, 768, 16, 16, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window", F32_BWD_ROWS)
+def test_flash_attention_f32_backward_at_window_and_cross_shapes(cuda, b, sq, sk, h, kv, hd,
+                                                                  causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_with_lse
+    from repro_torch.kernels.flash_attention.ref import BWD_TILES, flash_bwd_key_major_plain
+    from repro_torch.models.flash import _flash_bwd
+    gen = torch.Generator().manual_seed(sq + sk + hd)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda)
+                   for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd), (b, sq, h, hd)))
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.routes["f32_cuda_cores"]
+    grads = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    assert flash_attention_bwd.routes["f32_cuda_cores"] == before + 1
+    block = lambda n: next(x for x in (512, 256, n) if n % x == 0)
+    want = _flash_bwd(causal, window, block(sq), block(sk), (q, k, v, out, lse), do)
+    order = flash_bwd_key_major_plain(q, k, v, out, do, lse, causal=causal, window=window,
+                                      tiles=BWD_TILES[hd])
+    for g, w, o, t in zip(grads, want, order, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        _check_bwd(g, w, torch.float32)
+        _check_bwd(g, o, torch.float32)
+    again = [flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+             for _ in range(BWD_REPEATS - 1)]
+    assert all(torch.equal(a, c) for got in again for a, c in zip(grads, got))
+
+
 @pytest.mark.parametrize("nk", [1, 4])
 def test_wgmma_tile_helpers_match_matmul(cuda, nk):
     """The bf16 backward's building blocks (``csrc/sm90.cuh``) on their own at

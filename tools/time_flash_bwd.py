@@ -1,4 +1,5 @@
-"""Check and time the bf16 attention backward kernel on the card, alone.
+"""Check and time the attention kernels on the card, alone: the bf16 backward,
+or (``--f32``) the float32 forward and backward.
 
 The quick loop for work on ``kernels/flash_attention/csrc/flash_attention_bwd.cu``
 (the key-major ``wgmma`` pass): it builds the port's kernels, holds the
@@ -15,6 +16,26 @@ name and power limit, then one JSON line a shape (the largest error in bf16
 spacings of scale, whether the bounds and the bits held, ms a launch).
 
     PYTHONPATH=src python tools/time_flash_bwd.py [--rows] [--repeats 3] [--timed 5]
+
+``--f32`` is the quick loop for the float32 routes
+(``csrc/flash_attention.cu`` and the CUDA-core route of
+``flash_attention_bwd.cu``): it prints the compiler's registers and spills of
+their kernels, then for each shape (small ragged, GQA, window, cross and hd
+16/32/112/128/256 shapes, then tinyllama's forward at 4 × 2,048 and backward
+at 8 × 2,048 and ``chip_smoke.py``'s float32 cross and window rows) runs the
+forward with its log-sum-exp and the backward, holds out against the plain
+forward (2e-5, absolute and relative: ``chip_smoke.py``'s ``FLASH_TOL``), out
+bit for bit against the forward without the log-sum-exp, and dq, dk, dv
+against the plain ``_flash_bwd`` (max |d| <= 2e-5 max |plain|:
+``BWD_F32_REL``), checks that ``--repeats`` launches of each give the same
+bits, and times ``--timed`` launches of each with CUDA events, beside SDPA in
+float32 (forward, and fwd+bwd less fwd) at the large shapes.
+
+    PYTHONPATH=src python tools/time_flash_bwd.py --f32 [--repeats 3] [--timed 5]
+
+``--smem`` builds and runs ``tools/smem_probe.cu``: the SM cycles a warp's
+shared-memory load takes by width and by the number of distinct addresses it
+touches (the cost model behind the float32 kernels' thread tiles).
 """
 from __future__ import annotations
 
@@ -22,13 +43,16 @@ import argparse
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_with_lse
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_with_lse)
 from repro_torch.kernels.flash_attention.tiles import tile_products, tile_products_plain
 from repro_torch.models.flash import _flash_bwd
+from repro_torch.models.flash import flash_attention as flash_attention_plain
 
 # (b, sq, sk, h, kv, hd, hdv, causal, window)
 SMALL = [
@@ -49,6 +73,123 @@ ROWS = [
     (1, 4096, 4096, 10, 1, 256, 256, True, 2048),
     (4, 1024, 1536, 16, 16, 64, 64, False, 0),
 ]
+
+
+# --f32: (b, sq, sk, h, kv, hd, causal, window)
+F32_SMALL = [
+    (2, 256, 256, 8, 2, 64, True, 0),        # GQA
+    (1, 200, 200, 4, 4, 32, True, 0),        # ragged
+    (2, 50, 50, 16, 2, 16, True, 0),         # hd 16, G = 8, fewer rows than a tile
+    (1, 256, 384, 4, 2, 128, False, 0),      # cross, S_q != S_k
+    (1, 200, 328, 4, 4, 64, False, 0),       # ragged cross
+    (1, 300, 300, 4, 4, 64, True, 100),      # window, ragged
+    (1, 512, 512, 4, 1, 256, True, 128),     # window, MQA, hd 256
+    (1, 130, 130, 16, 2, 112, False, 0),     # hd 112, padded to 128
+    (2, 1024, 1024, 8, 2, 64, True, 0),      # many key tiles (the ordered dq adds)
+]
+# tinyllama's forward (B = 4) and training (B = 8) shapes, and chip_smoke.py's float32
+# backward rows at seamless' cross and recurrentgemma's window shapes
+F32_ROWS = [
+    (4, 2048, 2048, 32, 4, 64, True, 0),
+    (8, 2048, 2048, 32, 4, 64, True, 0),
+    (4, 1024, 1536, 16, 16, 64, False, 0),
+    (1, 4096, 4096, 10, 1, 256, True, 2048),
+]
+F32_TOL = 2e-5          # chip_smoke.py's FLASH_TOL[float32] and BWD_F32_REL
+F32_OPS_PER_S = 67e12   # float32 on the CUDA cores, H100 SXM
+
+
+def attention_ops(b, sq, sk, h, hd, causal, window) -> float:
+    """chip_smoke.py's: flops of the scores and P·V over the keys each query sees."""
+    qpos = torch.arange(sq, dtype=torch.float64)
+    lo = (qpos - window + 1).clamp(min=0) if window else torch.zeros(sq, dtype=torch.float64)
+    hi = (qpos + 1).clamp(max=sk) if causal else torch.full((sq,), float(sk), dtype=torch.float64)
+    return 4.0 * b * h * hd * float((hi - lo).clamp(min=0).sum())
+
+
+def events_ms(fn, n: int) -> float:
+    """Device ms a call of ``fn`` over ``n`` back-to-back calls."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def f32_case(shape, repeats: int, timed: int, sdpa: bool) -> dict:
+    """The float32 forward and backward at one shape against the plain versions."""
+    b, sq, sk, h, kv, hd, causal, window = shape
+    gen = torch.Generator("cuda").manual_seed(sq + sk + hd + h)
+    q, k, v, do = (torch.randn(dims, generator=gen, device="cuda")
+                   for dims in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd), (b, sq, h, hd)))
+    fwd = lambda: flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    bq = min(512, sq) if sq % min(512, sq) == 0 else sq
+    bk = next(x for x in (1024, 512, 256, sk) if sk % x == 0)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, block_q=bq, block_k=bk)
+    fwd_err = float((out - want).abs().max())
+    fwd_ok = bool(((out - want).abs() <= F32_TOL + F32_TOL * want.abs()).all())
+    lse_bits = torch.equal(out, fwd())
+    del want
+    bwd = lambda: flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    got = bwd()
+    want = _flash_bwd(causal, window, bq, bk, (q, k, v, out, lse), do)
+    rel = {n: float((g - w).abs().max() / w.abs().max())
+           for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    del want
+    same = (all(torch.equal(out, fwd()) for _ in range(repeats - 1))
+            and all(torch.equal(a, c) for _ in range(repeats - 1) for a, c in zip(got, bwd())))
+    ops = attention_ops(b, sq, sk, h, hd, causal, window)
+    row = dict(shape=list(shape), fwd_max_abs_err=fwd_err, fwd_bound_held=fwd_ok,
+               out_bits_with_lse=lse_bits, bwd_max_rel_err=rel,
+               bwd_bound_held=all(r <= F32_TOL for r in rel.values()), bits_equal=same,
+               repeats=repeats, fwd_ms=events_ms(fwd, timed), bwd_ms=events_ms(bwd, timed),
+               fwd_bound_ms=ops / F32_OPS_PER_S * 1e3,
+               bwd_bound_ms=2.5 * ops / F32_OPS_PER_S * 1e3)
+    if sdpa:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if window:
+            d = torch.arange(sq, device="cuda")[:, None] - torch.arange(sk, device="cuda")[None, :]
+            mask = (d >= 0) & (d < window)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window, enable_gqa=h != kv)
+        lib_fb = lambda: torch.autograd.grad(lib(), (qt, kt, vt), dot)
+        with torch.no_grad():
+            row["sdpa_fwd_ms"] = events_ms(lib, timed)
+        row["sdpa_bwd_ms"] = events_ms(lib_fb, timed) - events_ms(lib, timed)
+    return row
+
+
+def ptxas_lines(log: str) -> list:
+    """The compiler's register and spill lines of the float32 attention kernels."""
+    keep, out = False, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = "flash_fwd_kernel" in line or "2cc10bwd_kernel" in line
+            if keep:
+                out.append(line.split("'")[1] if "'" in line else line)
+        elif keep and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+def smem_probe() -> None:
+    """Build ``tools/smem_probe.cu`` into the build directory and print its lines."""
+    src = Path(__file__).with_name("smem_probe.cu")
+    exe = _lib.BUILD_ROOT / "smem_probe"
+    exe.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_lib.nvcc(), *_lib.ARCH, "-O3", "-o", str(exe), str(src)], check=True,
+                   timeout=300)
+    run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=300)
+    print(run.stdout.strip(), flush=True)
+    if run.returncode:
+        raise SystemExit(f"smem_probe failed: {run.stderr}")
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -92,15 +233,30 @@ def main() -> None:
     ap.add_argument("--rows", action="store_true", help="also the five bf16 rows of chip_smoke")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--timed", type=int, default=5)
+    ap.add_argument("--f32", action="store_true",
+                    help="the float32 forward and backward instead of the bf16 backward")
+    ap.add_argument("--smem", action="store_true",
+                    help="only the shared-memory load costs (tools/smem_probe.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_flash_bwd: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.smem:
+        smem_probe()
+        return
     t0 = time.perf_counter()
     _lib.library()
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+    if args.f32:
+        for line in ptxas_lines(_lib.build()[1]["log"]):
+            print(line, flush=True)
+        for shape in F32_SMALL + F32_ROWS:
+            print(json.dumps(f32_case(shape, args.repeats, args.timed, shape in F32_ROWS)),
+                  flush=True)
+            torch.cuda.empty_cache()
+        return
     gen = torch.Generator("cuda").manual_seed(64)
     q, k, dout = (torch.randn(dims, generator=gen, device="cuda").to(torch.bfloat16)
                   for dims in ((64, 64), (256, 64), (64, 64)))
