@@ -102,6 +102,17 @@ capacity factor 1.25), kimi-k2, falcon-mamba, recurrentgemma and seamless
 at full width and a cut depth, two steps each; and
 ``launch.train.train_lasso`` at rcv1's shape against ``solve``.
 
+Last (``dryrun``), the dry run of the production meshes
+(``launch/dryrun.py``): ``--arch paper-lasso --both-meshes`` on the card, the
+sharded engine's program for each Table-2 dataset at the block shapes of the
+16×16 and 2×16×16 meshes (rank 0 of the grid alone on ``DryMesh``, 50
+steps), each cell with 8 collectives a step, its bytes a step equal to the
+count from its block shapes, its in-order scatter launches and its peak
+memory, and the scatter held bit for bit against its plain version at the
+largest blocks' α-delta and v̄ shapes; beside it, on the host, every arch's
+first cell counted on ``meta`` at full size (fallbacks, argument bytes a
+device, FLOPs) by the CLI in processes of their own.
+
 Phases print one JSON line each and raise on any failure (non-zero exit).
 The last three lines are the card's name and power limit as ``nvidia-smi``
 reports them, the ``{"kernels": [...]}`` record and
@@ -120,6 +131,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -178,6 +190,10 @@ from repro_torch.distributed.fw_shard import (DistFWConfig, distributed_fw,  # n
 from repro_torch.distributed.ingest import ShardSource  # noqa: E402
 from repro_torch.distributed import reference as shard_reference  # noqa: E402
 from repro_torch.launch.shard import free_port, run_ranks, solve_rank  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.configs.paper_lasso import DATASETS as LASSO_DATASETS  # noqa: E402
+from repro_torch.core.solvers.jax_shard import dry_block  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.kernels.spmv.ref import SEGMENT, ell_matvec_ref, ell_rmatvec_ref, segments  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import encdec, mamba  # noqa: E402
@@ -4734,11 +4750,178 @@ def phase_lm_train() -> tuple:
     return rows, dict(counts=counts, per_step=TRAIN_STEPS), family_counts
 
 
+# ---------------------------------------------------------------------------
+# the dry run: the paper-lasso program at the Table-2 block shapes on the card,
+# the LM cells counted on meta on the host
+# ---------------------------------------------------------------------------
+
+# the LM cells the phase counts: each arch's first supported cell (train_4k).
+# The full sweep (every cell of every arch) takes ~4 minutes of host time on
+# meta, mostly falcon-mamba's and recurrentgemma's scans, past the phase's 120 s;
+# ``python -m repro_torch.launch.dryrun`` runs it.  The slowest start first.
+DRY_LM_FIRST = ("falcon-mamba-7b", "kimi-k2-1t-a32b", "deepseek-v2-236b", "recurrentgemma-2b")
+# processes at a time: the host's 8 cores also run the card's cells
+DRY_LM_WORKERS = 6
+# the cells whose scatter shapes are held against the plain version: the most
+# lanes a step (web) and the widest α shard (kdda)
+DRY_SCATTER_CELLS = ("web", "kdda")
+
+
+class DryLM:
+    """One ``launch.dryrun`` process an arch, on the host (``meta``), at most
+    ``DRY_LM_WORKERS`` at a time, started by a thread of their own so they
+    run beside the card's cells."""
+
+    def __init__(self, out_dir: str):
+        self.env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+                        OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        self.out_dir, self.procs, self.stop = out_dir, {}, threading.Event()
+        self.archs = list(DRY_LM_FIRST) + [a for a in ARCH_IDS if a not in DRY_LM_FIRST]
+        self.thread = threading.Thread(target=self._pump, daemon=True)
+        self.thread.start()
+
+    def _pump(self) -> None:
+        for arch in self.archs:
+            while (not self.stop.is_set() and
+                   sum(p.poll() is None for p in self.procs.values()) >= DRY_LM_WORKERS):
+                time.sleep(0.2)
+            if self.stop.is_set():
+                return
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", dryrun.supported_cells(arch)[0], "--out", self.path(arch)]
+            self.procs[arch] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                                stderr=subprocess.PIPE, text=True,
+                                                env=self.env)
+
+    def path(self, arch: str) -> str:
+        return os.path.join(self.out_dir, f"{arch}.json")
+
+    def result(self, arch: str, deadline: float) -> dict:
+        while arch not in self.procs:
+            require(self.thread.is_alive() and time.perf_counter() < deadline,
+                    f"dryrun {arch}: never started")
+            time.sleep(0.2)
+        proc = self.procs[arch]
+        _, stderr = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        require(proc.returncode == 0, f"dryrun {arch}: exit {proc.returncode}: {stderr[-2000:]}")
+        (cell,) = json.load(open(self.path(arch)))["results"]
+        return cell
+
+    def close(self) -> None:
+        self.stop.set()
+        self.thread.join()
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _dry_scatter_check(name: str, mesh) -> dict:
+    """The in-order scatter at the shapes the dry run's step gives it on the
+    cell's block (its densest column's rows, and their local columns), on
+    the card against the plain version on the CPU, bit for bit."""
+    ds = LASSO_DATASETS[name]
+    a, b, kc, kr = dryrun.lasso_padding(name, mesh)
+    blk, _ = dry_block(ds.n, ds.d, a, b, kc=kc, kr=kr, density=ds.nnz_per_row / ds.d)
+    j = int((blk.csc_vals != 0).sum(1).argmax())
+    rows = blk.csc_rows[j].long()
+    lane_ok = blk.csc_vals[j] != 0
+    g = torch.Generator().manual_seed(SEED)
+    gsc = torch.randn(kc, generator=g)
+    vals = torch.where(lane_ok[:, None], blk.csr_vals[rows], 0.0)
+    out = {"column_rows": int(lane_ok.sum())}
+    for what, dst, idx, src, live in (
+            ("alpha_delta", torch.zeros(blk.csc_rows.shape[0]), blk.csr_cols[rows].long(),
+             gsc[:, None] * vals, vals != 0),
+            ("vbar", torch.zeros(blk.csr_cols.shape[0]), rows, torch.where(lane_ok, gsc, 0.0),
+             lane_ok)):
+        want = scatter_add_ordered(dst.clone(), idx, src, live)
+        got = scatter_add_ordered(*(t.to(DEVICE) for t in (dst, idx, src, live)))
+        require(_bits_equal(got, want), f"dryrun {name}: the {what} scatter differs from "
+                "its plain version")
+        out[what] = dict(lanes=int(idx.numel()), live=int(live.sum()), targets=int(dst.numel()),
+                         max_abs_err=float((got.cpu() - want).abs().max()))
+    return out
+
+
+def phase_dryrun() -> dict:
+    """``launch.dryrun``: the paper-lasso cells on the card through the CLI's
+    ``main`` (both meshes), the LM cells on ``meta`` in processes of their own
+    beside them.  Returns the path's launch counts."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dryrun-")
+    lm_runs = DryLM(tmp)
+    try:
+        out = os.path.join(tmp, "paper-lasso.json")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", "paper-lasso", "--both-meshes", "--out", out])
+        counts = launch_counts()
+        lasso_s = time.perf_counter() - t0
+        require(rc == 0, "dryrun: a paper-lasso cell failed")
+        cells = json.load(open(out))["results"]
+        require(len(cells) == 2 * len(LASSO_DATASETS), f"dryrun: {len(cells)} lasso cells")
+        for c in cells:
+            a, b = c["grid"]
+            mesh = dryrun.make_production_mesh(multi_pod=c["mesh"] == "2x16x16")
+            require((a, b, c["kc"], c["kr"]) == dryrun.lasso_padding(c["shape"], mesh),
+                    f"dryrun {c['shape']} {c['mesh']}: padding {c['kc']}, {c['kr']}")
+            want_step = 4 * b + 4 + 4 + 8 * c["kc"] + 4 * c["d_loc"] + 4 + 4
+            require(c["collectives_per_step"] == {"all-gather": 1, "all-reduce": 7},
+                    f"dryrun {c['shape']}: collectives a step {c['collectives_per_step']}")
+            require(c["bytes_per_step"] == want_step,
+                    f"dryrun {c['shape']}: {c['bytes_per_step']} B a step, the shapes give "
+                    f"{want_step}")
+            require(c["scatter_launches"] == 1 + 3 * c["steps"],
+                    f"dryrun {c['shape']}: {c['scatter_launches']} scatter launches")
+            require(c["memory"]["peak_bytes"], f"dryrun {c['shape']}: no peak memory")
+            emit("dryrun_lasso", dataset=c["shape"], mesh=c["mesh"], grid=[a, b], kc=c["kc"],
+                 kr=c["kr"], n_loc=c["n_loc"], d_loc=c["d_loc"], live_lanes=c["live_lanes"],
+                 block_bytes=c["memory"]["argument_size_in_bytes"],
+                 collectives_per_step=c["collectives_per_step"],
+                 bytes_per_step=c["bytes_per_step"],
+                 bytes_per_step_from_shapes=want_step, steps=c["steps"],
+                 collective_bytes_run=c["collective_bytes"],
+                 collective_bytes_flat=c["collective_bytes_flat"],
+                 collective_bytes_output=c["collective_bytes_output"],
+                 scatter_launches_per_step=(c["scatter_launches"] - 1) / c["steps"],
+                 scatter_launches=c["scatter_launches"],
+                 max_memory_allocated=c["memory"]["peak_bytes"],
+                 allocated_before=c["memory"]["allocated_before_bytes"], seconds=c["trace_s"])
+        require(counts["scatter_add_ordered"] == sum(c["scatter_launches"] for c in cells),
+                "dryrun: the scatter's launch count is not the cells'")
+        require(sum(counts.values()) == counts["scatter_add_ordered"],
+                f"dryrun: kernels other than the scatter launched: {counts}")
+        single = dryrun.make_production_mesh()
+        scatter = {name: _dry_scatter_check(name, single) for name in DRY_SCATTER_CELLS}
+        emit("dryrun_scatter", mesh="16x16", cells=scatter)
+        lm = {}
+        for arch in lm_runs.archs:
+            cell = lm_runs.result(arch, deadline=t_phase + 600)
+            require(cell["flops"] > 0 and cell["memory"]["argument_size_in_bytes"] > 0,
+                    f"dryrun {arch}: {cell}")
+            lm[arch] = cell
+            emit("dryrun_lm", arch=arch, shape=cell["shape"], mesh=cell["mesh"],
+                 device="meta (host)", fallbacks=len(cell["fallbacks"]),
+                 argument_bytes_per_device=cell["memory"]["argument_size_in_bytes"],
+                 flops=cell["flops"], trace_s=cell["trace_s"])
+    finally:
+        lm_runs.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("dryrun_done", seconds=time.perf_counter() - t_phase, lasso_s=lasso_s,
+         lasso_cells=len(cells), lm_cells=len(lm),
+         lm_cut="each arch's first supported cell (train_4k); the other cells: "
+                "python -m repro_torch.launch.dryrun")
+    return counts
+
+
 def add_path_launches(kernels: list, paths: dict) -> None:
     """The launches of the later slices' paths beside each kernel's
     main-path count, a path's rebuild-only draws included: ``torch_dense``,
-    the oracle, the fit service's run, ``jax_shard`` at 1×1 and each
-    ``lm_archs`` arch's bf16 forward."""
+    the oracle, the fit service's run, ``jax_shard`` at 1×1, each
+    ``lm_archs`` arch's bf16 forward, training, and the dry run's paper-lasso
+    cells."""
     for entry in kernels:
         name = entry["name"]
         entry["launches_by_path"] = {
@@ -4836,6 +5019,8 @@ def main() -> int:
         if entry["name"] == "flash_attention":
             entry["launches_per_train_step"] = (train_run["counts"]["flash_attention"]
                                                 / train_run["per_step"])
+    # the dry run, last: the paper-lasso cells on the card, the LM cells on the host
+    dry_counts = phase_dryrun()
     add_path_launches(kernels, {
         **{f"torch_dense_{r}": engines[r] for r in engines},
         **{f"reference_{r}": reference[r] for r in reference},
@@ -4843,7 +5028,8 @@ def main() -> int:
         **{f"jax_shard_{r}": dict(counts=c, rebuilds={}) for r, c in shard["counts"].items()},
         **{f"lm_{arch}": dict(counts=run["counts"], rebuilds={}) for arch, run in archs.items()},
         f"lm_train_{TRAIN_ARCH}": dict(counts=train_run["counts"], rebuilds={}),
-        **{f"lm_train_{arch}": dict(counts=c, rebuilds={}) for arch, c in family_counts.items()}})
+        **{f"lm_train_{arch}": dict(counts=c, rebuilds={}) for arch, c in family_counts.items()},
+        "dryrun_paper_lasso": dict(counts=dry_counts, rebuilds={})})
     emit("done", seconds=time.perf_counter() - t_start)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,13 +16,18 @@ engines' coordinates exactly.  Each rank computes on ``config.device``:
 ``cuda`` (the rank's current card) unless the config says ``cpu``.
 
 The setup (Alg 2 lines 8-14) runs once per solve or sweep group; the T
-steps follow under the spans ``shard.setup`` and ``shard.scan``.  A group
+steps follow under the spans ``shard.setup`` and ``shard.scan``.
+
+``shard_dry_run`` is the counterpart of the JAX package's ``shard_lowering``
+for ``launch/dryrun.py``: rank 0 of a grid alone, on ``distributed``'s
+``DryMesh``, recording the collectives it would send.  A group
 of configs runs as lanes on a 1×1 mesh (the JAX package's vmap), and one
 config after another on a larger mesh.  ``max_seconds`` is refused, as in
 JAX: the run never looks at a clock.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Sequence, Tuple
 
@@ -35,8 +40,11 @@ from repro_torch.core.solvers.autotune import platform_of
 from repro_torch.core.solvers.config import STOP_GAP_TOL, STOP_MAX_STEPS, FWConfig, FWResult
 from repro_torch.core.solvers.registry import check_device
 from repro_torch.core.solvers.torch_sparse import _sync
-from repro_torch.distributed.collectives import ShardMesh, make_mesh
-from repro_torch.distributed.fw_shard import rank_labels, shard_scan, shard_setup
+from repro_torch.distributed.block_sparse import (BlockAssembler, LocalBlock, _run_ranks,
+                                                  block_specs)
+from repro_torch.distributed.collectives import Collective, DryMesh, ShardMesh, make_mesh
+from repro_torch.distributed.fw_shard import DistFWConfig, rank_labels, shard_scan, shard_setup
+from repro_torch.kernels.scatter import scatter_add_ordered
 from repro_torch.distributed.ingest import ShardSource
 
 PRIVATE_SELECTION = "gumbel"
@@ -143,3 +151,92 @@ def solve_shard_group(src: ShardSource, y, configs: Sequence[FWConfig]) -> List[
         _reject_max_seconds(c)
     mesh = make_mesh(*mesh_grid(configs[0], src))
     return _run(src, y, configs, mesh, lanes=mesh.a * mesh.b == 1)
+
+
+@dataclasses.dataclass
+class ShardDryRun:
+    """What rank 0 of an (a × b) grid ran: its block's shapes and bytes,
+    the collectives of the setup, of each step (every step sends the same)
+    and of the output's gather, and its in-order scatter launches."""
+
+    block: LocalBlock
+    block_bytes: int            # the rank's block and its labels
+    setup: List[Collective]
+    step: List[Collective]
+    steps: int
+    output: List[Collective]
+    scatter_launches: int
+
+    @property
+    def records(self) -> List[Collective]:
+        """The collectives of the setup and the steps: what the JAX
+        package's whole-run program sends (its output w stays sharded over
+        "model", so it has no counterpart of the port's final gather)."""
+        return self.setup + self.step * self.steps
+
+
+def dry_block(n: int, d: int, a: int, b: int, *, kc: int, kr: int, density: float,
+              seed: int = 0) -> Tuple[LocalBlock, torch.Tensor]:
+    """Rank 0's block of an (N × D) design on an (a × b) grid, and its labels,
+    on the host: ``block_specs``' shapes exactly.  A COO of uniform random
+    entries at ``density`` (seeded by ``seed``), each column's first ``kc``
+    and each row's first ``kr`` entries kept, through ``BlockAssembler``."""
+    _, spec = block_specs(n, d, a, b, kc, kr)
+    d_loc, n_loc = spec.csc_rows.shape[0], spec.csr_cols.shape[0]
+    rng = np.random.default_rng(seed)
+    m = int(round(n_loc * d_loc * density))
+    key = np.unique(rng.integers(0, n_loc * d_loc, size=m, dtype=np.int64))
+    rows, cols = np.divmod(key, d_loc)                  # row-major: rows ascending
+    col_order = np.argsort(cols, kind="stable")
+    col_rank = np.empty_like(cols)
+    col_rank[col_order] = _run_ranks(cols[col_order])
+    keep = (col_rank < kc) & (_run_ranks(rows) < kr)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.normal(size=rows.size).astype(np.float32)
+    asm = BlockAssembler(n_loc, d_loc, 1, 1)
+    asm.count(rows, cols)
+    asm.alloc(kc, kr)
+    asm.fill(rows, cols, vals)
+    blk = asm.finish().local(0, 0, "cpu")
+    if any(tuple(t.shape) != tuple(u.shape) for t, u in zip(blk, spec)):
+        raise AssertionError("dry_block: the block's shapes are not block_specs'")
+    y = torch.from_numpy(rng.integers(0, 2, size=n_loc).astype(np.float32))
+    return blk, y
+
+
+def shard_dry_run(n: int, d: int, a: int, b: int, *, steps: int, kc: int, kr: int,
+                  density: float, selection: str = PRIVATE_SELECTION, compress_topk: int = 0,
+                  loss: str = "logistic", seed: int = 0, device="cuda") -> ShardDryRun:
+    """The ``jax_shard`` program of an (N × D) design on an (a × b) grid, run
+    by rank 0 alone for ``steps`` steps of one lane on ``device`` (the card
+    unless the caller asks for the CPU): ``shard_setup`` and ``shard_scan``
+    on a ``DryMesh``, over ``dry_block``'s block.  The counterpart of the JAX
+    package's ``shard_lowering``, which lowers this program for the
+    compiler: its numbers are one rank's shapes, launches, collective bytes
+    and memory, not a solve (the other ranks' blocks do not exist, and each
+    collective returns this rank's own part)."""
+    dev = check_device(device)
+    blk, y = dry_block(n, d, a, b, kc=kc, kr=kr, density=density, seed=seed)
+    blk = LocalBlock(*(t.to(dev) for t in blk))
+    y = y.to(dev)
+    rec: List[Collective] = []
+    mesh = DryMesh(a, b, recorder=rec)
+    cfg = DistFWConfig(steps=steps, loss=loss, selection=selection, seed=seed,
+                       compress_topk=compress_topk)
+    launches = scatter_add_ordered.launches
+    setup = shard_setup(blk, y, n=n, loss=loss, mesh=mesh)
+    n_setup = len(rec)
+    shard_scan(blk, y, setup, lams=[cfg.lam], em_scales=[cfg.em_scale(n)], gap_tols=[0.0],
+               keys=[prng.PRNGKey(seed)], steps=steps, shape=(n, d), loss=loss,
+               selection=selection, compress_topk=compress_topk, mesh=mesh)
+    _sync(dev)
+    body, output = rec[n_setup:-1], rec[-1:]     # the scan ends with w's gather
+    per = len(body) // max(steps, 1)
+    step = body[:per]
+    if len(body) != per * steps or any(body[i * per:(i + 1) * per] != step
+                                       for i in range(steps)):
+        raise AssertionError("shard_dry_run: the steps sent different collectives")
+    nbytes = sum(t.numel() * t.element_size() for t in (*blk, y))
+    return ShardDryRun(block=blk, block_bytes=nbytes, setup=rec[:n_setup],
+                       step=step, steps=steps, output=output,
+                       scatter_launches=scatter_add_ordered.launches - launches)

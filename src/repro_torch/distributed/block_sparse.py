@@ -111,11 +111,12 @@ class BlockAssembler:
         self._col_counts += np.bincount(col_key, minlength=self._col_counts.size)
         self._row_counts += np.bincount(row_key, minlength=self._row_counts.size)
 
-    def alloc(self) -> None:
-        """Fix (Kc, Kr) from the counts and allocate the padded arrays."""
+    def alloc(self, kc: int = 1, kr: int = 1) -> None:
+        """Fix (Kc, Kr) from the counts, at least (``kc``, ``kr``), and
+        allocate the padded arrays."""
         a, b = self.a, self.b
-        self.kc = max(1, int(self._col_counts.max(initial=0)))
-        self.kr = max(1, int(self._row_counts.max(initial=0)))
+        self.kc = max(kc, int(self._col_counts.max(initial=0)))
+        self.kr = max(kr, int(self._row_counts.max(initial=0)))
         self._arrays = (
             np.zeros((a, b, self.d_loc, self.kc), np.int32),
             np.zeros((a, b, self.d_loc, self.kc), np.float32),
@@ -157,3 +158,18 @@ def build_block_sparse(X: HostCSR, a: int, b: int) -> BlockSparse:
     asm.alloc()
     asm.fill(rows, X.indices, X.data)
     return asm.finish()
+
+
+def block_specs(n: int, d: int, a: int, b: int, kc: int, kr: int
+                ) -> Tuple[BlockSparse, LocalBlock]:
+    """``meta`` stand-ins for dry runs (no allocation): the (a × b) grid's
+    ``BlockSparse`` at padding (Kc, Kr), and one rank's ``LocalBlock``."""
+    n_loc, d_loc = block_layout(n, d, a, b)
+    meta = lambda *shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    grid = BlockSparse(csc_rows=meta(a, b, d_loc, kc, dtype=torch.int32),
+                       csc_vals=meta(a, b, d_loc, kc, dtype=torch.float32),
+                       csr_cols=meta(a, b, n_loc, kr, dtype=torch.int32),
+                       csr_vals=meta(a, b, n_loc, kr, dtype=torch.float32),
+                       shape=(n, d), padded=(n_loc * a, d_loc * b))
+    return grid, LocalBlock(*(t[0, 0] for t in (grid.csc_rows, grid.csc_vals,
+                                                grid.csr_cols, grid.csr_vals)))

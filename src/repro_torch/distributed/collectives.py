@@ -13,7 +13,16 @@ holds block (ai, bj).  Two families of subgroups carry the collectives:
 subgroup (``dist.new_group`` is collective), once per grid.
 
 Without a process group a 1×1 grid is ``LOCAL``: each collective is the
-identity and nothing is communicated.  With one, even an NCCL group of one
+identity and nothing is communicated.
+
+``recorder``: a list that each ``psum`` and ``all_gather`` appends a
+``Collective`` to (kind ``"all-reduce"`` or ``"all-gather"``, the axes, the
+dtype and the result's bytes), on a real grid as on ``DryMesh``, rank 0 of
+an (a × b) grid with no process group, which the dry run
+(``core/solvers/jax_shard.py`` ``shard_dry_run``) steps alone: its ``psum``
+returns a copy of its input and its ``all_gather`` ``axis_size`` copies, so
+the rank runs the shapes and launches of the grid's rank 0 and records the
+collectives that rank would send.  ``solve`` never takes it.  With one, even an NCCL group of one
 rank, each collective goes through ``torch.distributed``, on the tensors'
 own device: gloo takes CUDA tensors for ``all_reduce`` and ``all_gather``
 (float32 and int64), so four ranks on one card over gloo keep their compute
@@ -22,12 +31,21 @@ and their tensors on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 AXES = ("rows", "model")
+
+
+class Collective(NamedTuple):
+    """One collective a rank sent: its kind, axes, dtype and result bytes."""
+
+    kind: str                 # "all-reduce" | "all-gather"
+    axes: Tuple[str, ...]
+    dtype: str
+    nbytes: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +57,12 @@ class ShardMesh:
     rank: int = 0
     groups: Optional[Dict[Tuple[str, ...], object]] = None   # axes → process group
     backend: Optional[str] = None                           # None: no collectives
+    recorder: Optional[List[Collective]] = dataclasses.field(default=None, compare=False)
+
+    def _record(self, kind: str, axes: Sequence[str], out: torch.Tensor) -> None:
+        if self.recorder is not None:
+            self.recorder.append(Collective(kind, _key(axes), str(out.dtype).split(".")[-1],
+                                            out.numel() * out.element_size()))
 
     @property
     def ai(self) -> int:
@@ -64,6 +88,7 @@ class ShardMesh:
             return x
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.groups[_key(axes)])
+        self._record("all-reduce", axes, out)
         return out
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -74,7 +99,24 @@ class ShardMesh:
         src = x.contiguous()
         parts = [torch.empty_like(src) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, src, group=self.groups[(axis,)])
-        return torch.stack(parts)
+        out = torch.stack(parts)
+        self._record("all-gather", (axis,), out)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DryMesh(ShardMesh):
+    """Rank 0 of an (a × b) grid with no process group (the dry run's)."""
+
+    def psum(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        out = x.clone(memory_format=torch.contiguous_format)
+        self._record("all-reduce", axes, out)
+        return out
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        out = torch.stack([x.contiguous()] * self.axis_size(axis))
+        self._record("all-gather", (axis,), out)
+        return out
 
 
 LOCAL = ShardMesh(1, 1)

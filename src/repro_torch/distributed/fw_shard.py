@@ -16,11 +16,13 @@ masses, and the winner's in-shard draw picks the coordinate.  A step
 communicates:
 
   selection   all_gather of the b masses over "model"
-  winner      psums over "model" of its index, α_j and its column's (Kc,) lanes
+  winner      psums over "model" of its index (int32), α_j and its column's
+              (Kc,) lanes (int32 row ids, float32 values)
   α delta     psum of D/b floats over "rows", or with ``compress_topk`` = k an
-              all_gather of k indices and k values (error-feedback top-k: the
+              all_gather of k int32 indices and k values (error-feedback top-k: the
               residual stays on the rank and is re-added next step)
   g̃ dot      one psum over both axes
+  coordinate  the global index j, a psum over "model" (int32)
 
 The ops and the key schedule are the JAX package's, so on the CPU the port
 takes its coordinates:
@@ -196,7 +198,8 @@ def shard_scan(blk: LocalBlock, y_loc: torch.Tensor, setup, *, lams: Sequence[fl
             bw = torch.argmax(c_all, dim=1)
             j_self = torch.argmax(logits, dim=1)
         mine = bw == my_b
-        j_loc = mesh.psum(torch.where(mine, j_self, 0), ("model",))
+        # the index psums send int32, as JAX does, and widen after the sum
+        j_loc = mesh.psum(torch.where(mine, j_self, 0).to(torch.int32), ("model",)).long()
         alpha_j = mesh.psum(torch.where(mine, alpha[lane_ix, j_self], 0.0), ("model",))
         # ---- Alg 2 lines 16-21 (replicated scalars)
         d_tilde = torch.where(alpha_j == 0, lam, -lam * torch.sign(alpha_j))
@@ -230,7 +233,7 @@ def shard_scan(blk: LocalBlock, y_loc: torch.Tensor, setup, *, lams: Sequence[fl
             topi = top_k(resid.abs(), compress_topk)                         # (L, k)
             sent = resid.gather(1, topi)
             resid = resid.scatter(1, topi, 0.0)
-            gi = mesh.all_gather(topi, "rows").transpose(0, 1)              # (L, a, k)
+            gi = mesh.all_gather(topi.to(torch.int32), "rows").transpose(0, 1)  # (L, a, k)
             gv = mesh.all_gather(sent, "rows").transpose(0, 1)
             delta_sum = lane_scatter(zeros, gi, gv)
         else:
@@ -239,7 +242,8 @@ def shard_scan(blk: LocalBlock, y_loc: torch.Tensor, setup, *, lams: Sequence[fl
         # ---- g̃ (line 27): partial dots reduced over both axes
         dots = (vals * w_loc.gather(1, cols.reshape(lanes, -1)).reshape(lanes, kc, kr)).sum(dim=2)
         g_t = g_t + mesh.psum((gsc * dots).sum(dim=1), ("rows", "model")) * w_m
-        j_global = mesh.psum(torch.where(mine, my_b * d_loc + j_loc, 0), ("model",))
+        j_global = mesh.psum(torch.where(mine, my_b * d_loc + j_loc, 0).to(torch.int32),
+                             ("model",)).long()
         if early_stop:
             newly = ~done & (tol > 0) & (gap <= tol)
             new = (w_loc, w_m, g_t, vbar, qbar, alpha, resid)

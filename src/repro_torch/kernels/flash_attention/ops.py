@@ -43,14 +43,27 @@ routes (with or without the log-sum-exp), ``flash_attention.routes`` each;
 ``flash_attention_bwd.launches`` and ``.routes`` count the backward's (its
 kernels — delta, then dq and dk/dv, or the wgmma pass and its finish — as one
 launch).
+
+Each of the three entries (the forward, the forward with its log-sum-exp, the
+backward) is a ``torch.library.custom_op`` (``repro_torch::flash_fwd``,
+``flash_fwd_lse``, ``flash_bwd``) whose body is the dispatch above.  Each
+has a fake (``register_fake``): on the ``meta`` device it returns empty
+outputs of the right shapes and launches nothing, so a whole model step can
+be traced for its shapes (``roofline/counts.py``).  Each has a FLOP formula
+(``register_flop_formula``) for ``torch.utils.flop_counter.FlopCounterMode``:
+the card kernel's work, the scores and P·V over the keys each query sees
+(``attention_flops``), 2.5× that for the backward.  The mode counts the op
+once, on the CPU as on ``meta``, and not the plain version's own products.
 """
 from __future__ import annotations
 
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _lib
 from repro_torch.models.flash import _flash_bwd, _flash_fwd_impl
@@ -100,8 +113,8 @@ def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _pad(q, width), _pad(k, width), _pad(v, width), 1.0 / math.sqrt(hd), hdv
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
-    """Refuse what the kernels do not take."""
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Refuse shapes and dtypes the kernels do not take (on any device)."""
     b, _, h, hd = q.shape
     bk, _, kvh, hdk = k.shape
     if (k.shape[:3] != v.shape[:3] or v.dim() != 4 or bk != b or hdk != hd or kvh == 0
@@ -112,6 +125,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     if q.dtype not in ROUTES or any(t.dtype != q.dtype for t in (k, v) + more):
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                          "expected one of float32 or bfloat16 for all of them")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Refuse what the kernels do not take."""
+    _check_args(q, k, v, *more)
     _lib.require_cuda("flash_attention", q, k, v, *more)
     if any(t.data_ptr() % 16 for t in (q, k, v) + more):
         raise ValueError("flash_attention: expected 16-byte aligned tensors")
@@ -137,14 +155,20 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
     return (out if out.shape[-1] == hdv else out[..., :hdv].contiguous()), lse
 
 
+@torch.library.custom_op("repro_torch::flash_fwd_lse", mutates_args=())
+def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return _flash_fwd_impl(q, k, v, causal, window, *PLAIN_BLOCKS)
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, the log-sum-exp (B, KV, G, Sq) float32): the forward kernel with
     its log-sum-exp output on CUDA tensors, the plain forward on CPU ones."""
-    if q.device.type == "cpu":
-        return _flash_fwd_impl(q, k, v, causal, window, *PLAIN_BLOCKS)
-    return _forward(q, k, v, causal, window, with_lse=True)
+    return _flash_fwd_lse(q, k, v, causal, window)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -153,6 +177,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """(dq, dk, dv) in the inputs' dtype: the backward kernel on CUDA
     tensors, the plain ``_flash_bwd`` on CPU ones.  ``out`` and ``lse`` are
     the forward's (``flash_attention_with_lse``)."""
+    return _flash_bwd_op(q, k, v, out, dout, lse, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor, causal: bool, window: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return _flash_bwd(causal, window, *PLAIN_BLOCKS, (q, k, v, out, lse), dout)
     dout = dout.contiguous()
@@ -222,14 +253,78 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window)
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     return _forward(q, k, v, causal, window, with_lse=False)[0]
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _flash_fwd(q, k, v, causal, window)
+
+
 flash_attention.launches = 0
 flash_attention.routes = {route: 0 for route, _ in ROUTES.values()}
+
+
+# ---------------------------------------------------------------------------
+# shapes on ``meta`` and FLOPs for ``FlopCounterMode``
+# ---------------------------------------------------------------------------
+
+
+def _out_like(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal, window):
+    _check_args(q, k, v)
+    return _out_like(q, v)
+
+
+@_flash_fwd_lse.register_fake
+def _(q, k, v, causal, window):
+    _check_args(q, k, v)
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
+    return _out_like(q, v), q.new_empty((b, kvh, h // kvh, sq), dtype=torch.float32)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, dout, lse, causal, window):
+    _check_args(q, k, v, out, dout)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def keys_seen(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Σ over the Sq queries of the keys each one attends to: query i sees
+    keys [max(i − window + 1, 0), min(i + 1, Sk)) when causal, all Sk
+    otherwise."""
+    qpos = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, v_shape, causal: bool, window: int) -> int:
+    """The forward's work: 2·hd a key for the scores and 2·hdv for P·V, over
+    the keys each query of each head sees (unpadded head dims)."""
+    b, sq, h, hd = q_shape
+    sk, hdv = k_shape[1], v_shape[3]
+    return 2 * b * h * (hd + hdv) * keys_seen(sq, sk, causal, window)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_fwd, torch.ops.repro_torch.flash_fwd_lse])
+def _(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, v_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _(q_shape, k_shape, v_shape, out_shape_, dout_shape, lse_shape, causal, window, *args,
+      out_shape=None, **kwargs) -> int:
+    return 5 * attention_flops(q_shape, k_shape, v_shape, causal, window) // 2

@@ -3,7 +3,9 @@
 Parameters are plain dicts of tensors keyed as the JAX package's pytrees,
 weights in ``(d_in, d_out)`` orientation, so ``x @ w`` reads as in JAX.
 Init functions draw from an explicit ``torch.Generator`` on the target
-device; ``*_apply`` functions are plain tensor functions.  Attention in the
+device, or take ``SHAPE_ONLY``, which puts every tensor on ``meta`` and
+draws nothing (the dry run's abstract init); ``*_apply`` functions are plain
+tensor functions.  Attention in the
 token-parallel forward goes through the flash-attention kernel op, which
 launches the hand-written kernel on CUDA tensors and runs the plain
 blockwise version (``models/flash.py``) on CPU tensors.
@@ -35,9 +37,27 @@ NEG = -1e30
 # ---------------------------------------------------------------------------
 
 
+class ShapeOnly:
+    """Stands in for an init's ``torch.Generator`` where only the shapes are
+    wanted: the tensors go on ``meta``, which has no generator, and nothing
+    is drawn."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
+def uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    """float32 U(lo, hi) draws of ``shape`` from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return t if gen is SHAPE_ONLY else t.uniform_(lo, hi, generator=gen)
+
+
 def _trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if gen is not SHAPE_ONLY:
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(scale).to(dtype)
 
 
@@ -208,6 +228,8 @@ def _stack_init(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype) -> t
     """(e, d_in, d_out) expert weights, drawn an expert at a time so the
     float32 temporary is one expert's (kimi-k2's stack is 11 GB in bf16)."""
     out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    if gen is SHAPE_ONLY:
+        return out
     for i in range(e):
         out[i] = _trunc_normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
     return out
@@ -261,7 +283,7 @@ def _moe_dispatch(p, x, cfg: ModelConfig, cap: int):
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
     token_of = sort_idx // k
-    counts = torch.bincount(sorted_e, minlength=e)
+    counts = expert_counts(sorted_e, e)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_e]
     keep = pos_in_e < cap
@@ -290,9 +312,17 @@ def _moe_dispatch(p, x, cfg: ModelConfig, cap: int):
         y = y + ffn_apply(p["shared"], x, cfg)
 
     # load-balance aux loss (Switch): E · Σ_e f_e · p_e
-    frac = torch.bincount(flat_e, minlength=e) / (t * k)
+    frac = expert_counts(flat_e, e) / (t * k)
     aux = e * (frac * probs.mean(0)).sum()
     return y, {"moe_aux": aux, "dropped": 1.0 - keep.float().mean()}
+
+
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """(E,) int64 lanes per expert: ``bincount(ids, minlength=e)`` for ids
+    below e, at a length that does not depend on the ids (so it runs on
+    ``meta``)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
 
 
 def moe_route(p, x, cfg: ModelConfig):

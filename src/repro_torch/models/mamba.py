@@ -37,8 +37,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dev = gen.device
     # S4D-real initialization for A; dt = exp(u), u ~ U(log 1e-3, log 1e-1), through softplus⁻¹
     a_init = torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n)
-    u = torch.empty(di, dtype=torch.float32, device=dev).uniform_(
-        math.log(1e-3), math.log(1e-1), generator=gen)
+    u = cm.uniform(gen, di, math.log(1e-3), math.log(1e-1))
     dt_bias = torch.log(torch.exp(torch.exp(u)) - 1.0 + 1e-9)
     return {
         "ln": torch.zeros(d, dtype=dtype, device=dev),

@@ -48,7 +48,7 @@ def rec_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     d, dr, k = cfg.d_model, cfg.d_rnn, cfg.conv_kernel
     dev = gen.device
     # Λ so that a ∈ [0.9, 0.999] at r = 1 (Griffin §2.4): softplus⁻¹(-log a / c)
-    u = torch.empty(dr, dtype=torch.float32, device=dev).uniform_(0.9, 0.999, generator=gen)
+    u = cm.uniform(gen, dr, 0.9, 0.999)
     return {
         "ln": torch.zeros(d, dtype=dtype, device=dev),
         "in_x": cm.dense_init(gen, d, dr, dtype),

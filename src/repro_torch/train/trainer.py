@@ -69,27 +69,33 @@ def make_train_state(params, opt: Optimizer, stacked: Iterable[str] = ()) -> Tra
                       opt_state=opt.init(params, stacked), stacked=stacked)
 
 
-def _slice(batch, i: int, n: int):
+def microbatch(batch, i: int, n: int):
+    """Slice i of n of every input's leading (batch) dim."""
     def part(x):
         mb = x.shape[0] // n
         return x[i * mb:(i + 1) * mb]
     return {k: part(v) for k, v in batch.items()}
 
 
+def microbatch_grads(loss_fn: Callable, tc: TrainConfig, params, batch):
+    """(loss, gradients over the leaves in ``tree_leaves`` order) of one
+    microbatch: the loss under ``tc.remat`` and its backward."""
+    leaves = tree_leaves(params)
+    loss = loss_fn(params, batch, remat=tc.remat)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    if tc.grad_reduce_dtype:
+        grads = [g.to(getattr(torch, tc.grad_reduce_dtype)) for g in grads]
+    return loss.detach().float(), grads
+
+
 def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
     """loss_fn(params, batch, remat=...) -> scalar.  Returns the step."""
     opt = get_optimizer(tc.optimizer)
     schedule = make_schedule(tc.schedule, tc.peak_lr, tc.total_steps, tc.warmup)
-    reduce_dtype = getattr(torch, tc.grad_reduce_dtype) if tc.grad_reduce_dtype else None
 
     def grads_of(params, batch):
-        leaves = tree_leaves(params)
-        loss = loss_fn(params, batch, remat=tc.remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        if reduce_dtype is not None:
-            grads = [g.to(reduce_dtype) for g in grads]
-        return loss.detach().float(), grads
+        return microbatch_grads(loss_fn, tc, params, batch)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
@@ -98,7 +104,7 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
             g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for p in tree_leaves(params)]
             for i in range(tc.microbatches):
-                loss, g = grads_of(params, _slice(batch, i, tc.microbatches))
+                loss, g = grads_of(params, microbatch(batch, i, tc.microbatches))
                 g_sum = [a + b.float() for a, b in zip(g_sum, g)]
                 loss_sum = loss_sum + loss.cpu()
             loss = loss_sum / tc.microbatches

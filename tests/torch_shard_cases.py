@@ -84,3 +84,36 @@ def run(rank, world, data):
     out["service_expected_charge"] = svc._charged_steps(svc.accountants["acme"],
                                                         done[0].config)
     return out
+
+
+def record_collectives(rank, world, data):
+    """The collectives this rank of a real 2×2 grid sends (``ShardMesh``'s
+    recorder) in one private run of ``data["steps"]`` steps on its block:
+    ``tests/test_torch_launch_dryrun.py`` holds rank 0's against ``DryMesh``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.distributed.block_sparse import BlockAssembler
+    from repro_torch.distributed.collectives import make_mesh
+    from repro_torch.distributed.fw_shard import (DistFWConfig, rank_labels, shard_scan,
+                                                  shard_setup)
+
+    n, d = data["shape"]
+    rec = []
+    mesh = dataclasses.replace(make_mesh(2, 2), recorder=rec)
+    asm = BlockAssembler(n, d, 2, 2)
+    asm.count(data["rows"], data["cols"])
+    asm.alloc(data["kc"], data["kr"])
+    asm.fill(data["rows"], data["cols"], data["vals"])
+    blocks = asm.finish()
+    blk = blocks.local(mesh.ai, mesh.bj, "cpu")
+    y_pad = torch.zeros(blocks.padded[0], dtype=torch.float32)
+    y_pad[:n] = torch.as_tensor(data["y"], dtype=torch.float32)
+    y_loc = rank_labels(y_pad, blocks, mesh)
+    cfg = DistFWConfig(steps=data["steps"])
+    setup = shard_setup(blk, y_loc, n=n, loss=cfg.loss, mesh=mesh)
+    shard_scan(blk, y_loc, setup, lams=[cfg.lam], em_scales=[cfg.em_scale(n)], gap_tols=[0.0],
+               keys=[prng.PRNGKey(0)], steps=cfg.steps, shape=(n, d), mesh=mesh)
+    return {"padding": (asm.kc, asm.kr), "records": [tuple(c) for c in rec]}
