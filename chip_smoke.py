@@ -61,7 +61,7 @@ Then it drives the LM at the full published width of ``tinyllama-1.1b``
 
 * ``forward`` (``last_only``) at B = 4 × S = 2,048 through the flash-attention
   kernel, held in float32 (its CUDA-core route) against the same forward
-  with the plain attention, and timed in bfloat16 (its tensor-core route);
+  with the plain attention, and timed in bfloat16 (its wgmma route);
 * the serving engine (4 slots, 8 requests, greedy), and decode ≡ forward;
 * ``examples/dp_lasso_probe.py``'s pipeline: backbone features, a random-ReLU
   expansion and a private ``torch_sparse`` solve on them.
@@ -179,7 +179,8 @@ from repro_torch.kernels.spmv import ell_matvec, ell_rmatvec  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_bwd, flash_attention_with_lse)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import pad_head_dims, padded_head_dim  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (bf16_head_dims, pad_head_dims,  # noqa: E402
+                                                     padded_head_dim)
 from repro_torch.kernels.scatter import scatter_add_ordered  # noqa: E402
 from repro_torch.kernels.scatter.cases import CASES as SCATTER_CASES, one_hot_target  # noqa: E402
 from repro_torch.kernels.scatter.ref import scatter_add_ordered_ref  # noqa: E402
@@ -2073,8 +2074,19 @@ def bf16_ulps(diff: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return diff / (torch.finfo(torch.bfloat16).eps * torch.maximum(ref.abs(), rms))
 
 
+def require_bf16_bits(name: str, q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The bf16 forward's out, required bit for bit the same with the
+    log-sum-exp output and on a second launch (no atomics)."""
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    require(torch.equal(got, out), f"{name}: the log-sum-exp output changed the forward's out")
+    require(torch.equal(got, flash_attention(q, k, v, causal=causal, window=window)),
+            f"{name}: the bf16 forward's bits differ launch to launch")
+    return got
+
+
 def phase_flash_vs_plain() -> dict:
-    """Each route of the kernel (bf16: tensor cores, float32: CUDA cores)
+    """Each route of the kernel (bf16: wgmma with TMA, float32: CUDA cores)
     against the plain blockwise version (models/flash.py) on the card;
     returns the error at the LM forward's shape by dtype."""
     cfg = get_model(LM_ARCH).cfg
@@ -2093,7 +2105,12 @@ def phase_flash_vs_plain() -> dict:
     for shape, dtype, causal, window in cases:
         sk = shape[5] if len(shape) > 5 else shape[1]
         q, k, v = _qkv(*shape[:5], dtype, seed=sum(shape), sk=sk)
-        got = flash_attention(q, k, v, causal=causal, window=window)
+        if dtype == torch.bfloat16:
+            got = require_bf16_bits(f"flash_attention {shape}", q, k, v, causal, window)
+        else:
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            require(torch.equal(got, flash_attention(q, k, v, causal=causal, window=window)),
+                    "flash_attention is not deterministic")
         want = flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block_k=plain_block_k(sk))
         diff, ref = (got.float() - want.float()).abs(), want.float()
@@ -2108,14 +2125,13 @@ def phase_flash_vs_plain() -> dict:
                 f"flash_attention {shape} {dtype} causal={causal} window={window}: "
                 f"max |d| {err} over tolerance {tol}, or {ulps} bf16 ulps of scale "
                 f"over {FLASH_BF16_ULPS}")
-        require(torch.equal(got, flash_attention(q, k, v, causal=causal, window=window)),
-                "flash_attention is not deterministic")
         if shape == lm:
             err_lm[dtype] = err
         emit("flash_vs_plain", shape=list(shape[:5]), seq_k=sk,
              dtype=str(dtype).replace("torch.", ""),
              causal=causal, window=window, max_abs_err=err, tolerance=tol,
              tolerance_rule="|d| <= tol + tol * |plain|", deterministic=True,
+             bits_with_lse=dtype == torch.bfloat16 or None,
              **({} if ulps is None else dict(
                  max_bf16_ulps_of_scale=ulps, bf16_ulps_bound=FLASH_BF16_ULPS,
                  scaled_rule="|d| <= 4 * 2^-7 * max(|plain|, RMS of the row over hd)")))
@@ -2170,7 +2186,7 @@ def phase_lm_forward():
     got = api32.forward(p32, tokens, last_only=True)
     require(launch_counts()["flash_attention"] == api32.cfg.n_layers, "f32 forward launches")
     f32_routes = dict(flash_attention.routes)
-    require(f32_routes == {"bf16_tensor_cores": 0, "f32_cuda_cores": api32.cfg.n_layers},
+    require(f32_routes == {"bf16_wgmma": 0, "f32_cuda_cores": api32.cfg.n_layers},
             f"f32 forward routes {f32_routes}")
     reset_launch_counts()
     with plain_attention():
@@ -2199,7 +2215,7 @@ def phase_lm_forward():
     want_counts["flash_attention"] = api.cfg.n_layers
     require(counts == want_counts, f"bf16 forward launches {counts}, expected {want_counts}")
     routes = dict(flash_attention.routes)
-    require(routes == {"bf16_tensor_cores": api.cfg.n_layers, "f32_cuda_cores": 0},
+    require(routes == {"bf16_wgmma": api.cfg.n_layers, "f32_cuda_cores": 0},
             f"bf16 forward routes {routes}")
     peak = torch.cuda.max_memory_allocated()
     ms = sync_ms(fwd, reps=3)
@@ -2208,10 +2224,10 @@ def phase_lm_forward():
     prof = profile_steps("lm_forward_bf16", 1, fwd)
     require(launch_counts()["flash_attention"] == api.cfg.n_layers,
             f"profiled bf16 forward: {launch_counts()['flash_attention']} flash launches")
-    # both routes' kernels are named flash_fwd_*; the bf16 forward runs the mma one
+    # both routes' kernels are named flash_fwd_*; the bf16 forward runs the wgmma one
     flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
     flash_dev = sum(flash.values())
-    require(flash_dev > 0 and all("mma" in k for k in flash),
+    require(flash_dev > 0 and all("flash_fwd_wgmma" in k for k in flash),
             f"bf16 forward: flash kernels in the profile {list(flash)}")
     flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
     # the wrappers launched one a layer (above); the profiler may drop a record
@@ -2348,11 +2364,15 @@ def flash_kernel_times(routes: dict, f32_routes: dict, errs: dict) -> list:
     ops = attention_ops(b, s, s, h, hd, True, 0)
     rows = []
     for dtype, name, source, launches, peak in (
-            (torch.bfloat16, "flash_attention", "flash_attention_mma.cu",
-             routes["bf16_tensor_cores"], BF16_OPS_PER_S),
+            (torch.bfloat16, "flash_attention", "flash_attention_wgmma.cu",
+             routes["bf16_wgmma"], BF16_OPS_PER_S),
             (torch.float32, "flash_attention_f32", "flash_attention.cu",
              f32_routes["f32_cuda_cores"], F32_OPS_PER_S)):
         q, k, v = _qkv(b, s, h, kv, hd, dtype, seed=11)
+        extra = {}
+        if dtype == torch.bfloat16:
+            require_bf16_bits(name, q, k, v, True, 0)
+            extra = dict(kernel_head_dim=bf16_head_dims(hd, hd), bits_with_lse=True)
         ms = device_ms([lambda: flash_attention(q, k, v, causal=True)] * 10)
         plain = device_ms([lambda: flash_attention_plain(q, k, v, causal=True)] * 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2370,7 +2390,8 @@ def flash_kernel_times(routes: dict, f32_routes: dict, errs: dict) -> list:
                          source=f"src/repro_torch/kernels/flash_attention/csrc/{source}",
                          replaces="src/repro/kernels/flash_attention/kernel.py:106",
                          launches=launches, max_abs_err=errs[dtype], ms=ms, plain_ms=plain,
-                         bound_ms=bd, bound_by=by, library_ms=lib, tflop_per_s=ops / ms / 1e9))
+                         bound_ms=bd, bound_by=by, library_ms=lib, tflop_per_s=ops / ms / 1e9,
+                         **extra))
         del q, k, v, qt, kt, vt, lib_out
     return rows
 
@@ -3411,7 +3432,8 @@ def phase_flash_head_dims() -> None:
             require(ok, f"flash ({hd}, {hdv}) {dtype}: max |d| {float(diff.max())}, "
                     f"bf16 ulps {ulps}")
             emit("flash_head_dims", hd=hd, hdv=hdv, dtype=str(dtype).replace("torch.", ""),
-                 kernel_head_dim=pad_head_dims(q, k, v)[0].shape[-1],
+                 kernel_head_dim=(bf16_head_dims(hd, hdv) if dtype == torch.bfloat16
+                                  else pad_head_dims(q, k, v)[0].shape[-1]),
                  max_abs_err=float(diff.max()), tolerance=tol,
                  max_bf16_ulps_of_scale=ulps)
     hashes = {}
@@ -3753,11 +3775,15 @@ def _arch_cuts(arch: str, layers) -> dict:
     return {} if layers is None else {"n_layers": [get_model(arch).cfg.n_layers, layers]}
 
 
-def _kernel_head_dim(cfg):
-    """The flash kernel's head dim for the arch (None: no attention layer)."""
+def _kernel_head_dim(cfg, dtype):
+    """The flash kernel's head dims for the arch in ``dtype`` (None: no attention
+    layer): float32 the padded width, bf16 the pair of ``BF16_WIDTHS``."""
     if not _flash_calls(cfg):
         return None
-    return padded_head_dim(cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0), cfg.vhd)
+    hd = cfg.hd + (cfg.rope_head_dim if cfg.use_mla else 0)
+    if dtype == torch.bfloat16:
+        return bf16_head_dims(hd, cfg.vhd)
+    return padded_head_dim(hd, cfg.vhd)
 
 
 def _flash_calls(cfg) -> int:
@@ -3868,7 +3894,7 @@ def _arch_parity(arch: str) -> None:
     with recorded_routes() as got_routes:
         got = api.forward(p, batch, last_only=True)
     launches, routes = launch_counts()["flash_attention"], dict(flash_attention.routes)
-    require(launches == n_flash and routes == {"bf16_tensor_cores": 0,
+    require(launches == n_flash and routes == {"bf16_wgmma": 0,
                                                "f32_cuda_cores": n_flash},
             f"{arch} f32 forward: {launches} flash launches, routes {routes}")
     reset_launch_counts()
@@ -3903,7 +3929,8 @@ def _arch_parity(arch: str) -> None:
     emit("lm_archs", arch=arch, run="parity_float32", batch=b, seq=seq,
          frames=ENCDEC_F32_FRAMES if cfg.family == "encdec" else None,
          layers=cfg.n_layers, reduced=reduced, cache=cache, flash_launches=launches,
-         routes=routes, kernel_head_dim=_kernel_head_dim(cfg), reference=reference,
+         routes=routes, kernel_head_dim=_kernel_head_dim(cfg, torch.float32),
+         reference=reference,
          max_abs_logit_err=d, bound=LOGITS_ATOL, top1_equal=True, logit_std=float(want.std()),
          routing=routing, decode_tokens=ARCH_DECODE, decode_vs_forward_max_abs=dd,
          decode_bound=decode_bound, serving_float32=serving)
@@ -3975,7 +4002,7 @@ def _arch_timing(arch: str, batch: int, seq: int, layers) -> tuple:
     want_counts = {name: 0 for name in counts}
     want_counts["flash_attention"] = n_flash
     require(counts == want_counts, f"{arch} bf16 forward launches {counts}")
-    require(routes == {"bf16_tensor_cores": n_flash, "f32_cuda_cores": 0},
+    require(routes == {"bf16_wgmma": n_flash, "f32_cuda_cores": 0},
             f"{arch} bf16 forward routes {routes}")
     peak = torch.cuda.max_memory_allocated()
     # a forward of a second or more is timed once more (first_ms is the other reading)
@@ -3995,14 +4022,15 @@ def _arch_timing(arch: str, batch: int, seq: int, layers) -> tuple:
     flash = {k: v for k, v in prof["by_kernel"].items() if "flash_fwd" in k}
     flash_calls = sum(c for k, c in prof["calls"].items() if "flash_fwd" in k)
     # the wrappers launched n_flash (above); the profiler may drop a record
-    require((sum(flash.values()) > 0 if n_flash else not flash) and all("mma" in k for k in flash)
+    require((sum(flash.values()) > 0 if n_flash else not flash)
+            and all("flash_fwd_wgmma" in k for k in flash)
             and max(n_flash - 1, 0) <= flash_calls <= n_flash,
             f"{arch} profiled flash kernels {list(flash)}, {flash_calls} calls")
     busy = sum(prof["by_kernel"].values())
     fields = dict(forward_ms=ms, first_forward_ms=first_ms, tokens_per_s=batch * seq / ms * 1e3,
                   max_memory_allocated=peak, init_s=init_s, profile_s=profile_s,
                   launches=counts, routes=routes,
-                  kernel_head_dim=_kernel_head_dim(cfg), device_busy_ms=busy,
+                  kernel_head_dim=_kernel_head_dim(cfg, torch.bfloat16), device_busy_ms=busy,
                   device_kernels=sum(prof["calls"].values()),
                   flash_device_ms=sum(flash.values()), flash_profiled_calls=flash_calls,
                   flash_share_of_busy=sum(flash.values()) / busy,
@@ -4152,7 +4180,7 @@ def _window_mask(sq: int, sk: int, window: int) -> torch.Tensor:
     return (d >= 0) & (d < window)
 
 
-# flash rows at the other archs' shapes (bf16, tensor cores): name, arch, its shape (B and
+# flash rows at the other archs' shapes (bf16, wgmma): name, arch, its shape (B and
 # S from the arch's bf16 forward unless given), causal, window
 ARCH_FLASH_ROWS = (
     ("flash_attention_mla", "deepseek-v2-236b", {}, True, 0),
@@ -4165,7 +4193,7 @@ ARCH_FLASH_ROWS = (
 
 
 def arch_flash_rows(archs: dict) -> list:
-    """Flash (bf16, tensor cores) at MLA's (192, 128) head dims (H = KV =
+    """Flash (bf16, wgmma) at MLA's (192, 128) head dims (H = KV =
     128), kimi-k2's 112 (H = 64, KV = 8), recurrentgemma's local attention
     (H = 10, KV = 1, hd 256, window 2,048) and seamless' cross-attention
     (its 1,024 tokens against its 1,536 frames, 16 heads of 64), each at its
@@ -4190,7 +4218,7 @@ def arch_flash_rows(archs: dict) -> list:
         flash = lambda: flash_attention(q, k, v, causal=causal, window=window)
         plain_fn = lambda: flash_attention_plain(q, k, v, causal=causal, window=window,
                                                  block_k=plain_block_k(sk))
-        got, want = flash(), plain_fn().float()
+        got, want = require_bf16_bits(name, q, k, v, causal, window), plain_fn().float()
         diff = (got.float() - want).abs()
         tol = FLASH_TOL[torch.bfloat16]
         ulps = float(bf16_ulps(diff, want).max())
@@ -4212,15 +4240,15 @@ def arch_flash_rows(archs: dict) -> list:
         bd, by = bound(nbytes, ops, BF16_OPS_PER_S)
         rows.append(dict(name=name, route="cuda",
                          source="src/repro_torch/kernels/flash_attention/csrc/"
-                         "flash_attention_mma.cu",
+                         "flash_attention_wgmma.cu",
                          replaces="src/repro/kernels/flash_attention/kernel.py:106",
                          launches=launches,
                          max_abs_err=float(diff.max()), ms=ms, plain_ms=plain, bound_ms=bd,
                          bound_by=by, library_ms=lib, library_ms_by_backend=sdpa_backends(sdpa),
                          shape=dict(arch=arch, b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, hdv=hdv,
                                     causal=causal, window=window),
-                         kernel_head_dim=padded_head_dim(hd, hdv), max_bf16_ulps_of_scale=ulps,
-                         tflop_per_s=ops / ms / 1e9))
+                         kernel_head_dim=bf16_head_dims(hd, hdv), max_bf16_ulps_of_scale=ulps,
+                         tflop_per_s=ops / ms / 1e9, bits_with_lse=True))
         del q, k, v, qt, kt, vt, lib_out, got, want, diff, mask
     return rows
 
@@ -4451,7 +4479,7 @@ def lm_train_bwd_rows(launches: dict) -> list:
                          shape=dict(arch=arch, b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, hdv=hdv,
                                     causal=causal, window=window, dtype=str(dtype)),
                          kernel_head_dim=(padded_head_dim(hd, hdv) if dtype == torch.float32
-                                          else fa_ops.bwd_head_dims(hd, hdv)),
+                                          else bf16_head_dims(hd, hdv)),
                          kernel_route=taken[0], bits_equal_launches=1 + repeats,
                          launches_at_shape=at,
                          tflop_per_s=ops / ms / 1e9, seconds=time.perf_counter() - t0))
@@ -4689,7 +4717,7 @@ def phase_lm_train() -> tuple:
     # remat: a layer's forward runs twice a step, its backward once
     require(counts["flash_attention"] == 2 * n_layers * TRAIN_STEPS
             and counts["flash_attention_bwd"] == n_layers * TRAIN_STEPS
-            and routes["bf16_tensor_cores"] == counts["flash_attention"]
+            and routes["bf16_wgmma"] == counts["flash_attention"]
             and bwd_routes["bf16_wgmma"] == counts["flash_attention_bwd"],
             f"tinyllama training launches {counts}, routes {routes}, {bwd_routes}")
     step_ms = [h["sec"] * 1e3 for h in hist]

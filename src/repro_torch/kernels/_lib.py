@@ -33,7 +33,7 @@ SOURCES = (
     _PKG / "bsls_draw" / "csrc" / "two_level_draw.cu",
     _PKG / "coord_update" / "csrc" / "coord_update.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
-    _PKG / "flash_attention" / "csrc" / "flash_attention_mma.cu",
+    _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
     _PKG / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     _PKG / "flash_attention" / "csrc" / "wgmma_tile_check.cu",
     _PKG / "scatter" / "csrc" / "scatter_add_ordered.cu",
@@ -57,7 +57,7 @@ SIGNATURES = {
                           + [_P]),
     "port_coord_update_short_route_max": [],
     "port_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _P],
-    "port_flash_attention_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "port_flash_attention_bf16": [_P] * 5 + [_I] * 12 + [_F, _P],
     "port_flash_attention_bwd": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
     "port_wgmma_tile_check": [_P, _P, _P, _I, _P, _P, _P, _P],
     "port_scatter_add_ordered": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P],

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (flash_attention_bwd.cu, wgmma_tile_check.cu): mbarriers, TMA tile loads,
-// the wgmma shared-memory descriptor of the 128-byte swizzle, the m64n64k16
-// bf16 products (both operands in shared memory, or A in registers), warp-
-// group register hand-over, named barriers and the global acquire/release
-// pair of an ordered add.
+// (flash_attention_wgmma.cu, flash_attention_bwd.cu, wgmma_tile_check.cu):
+// mbarriers, TMA tile loads, the wgmma shared-memory descriptor of the
+// 128-byte swizzle, the m64n64k16 bf16 products (both operands in shared
+// memory, or A in registers), warpgroup register hand-over, named barriers,
+// the global acquire/release pair of an ordered add, exp2 in one MUFU op and
+// the 4-D tensor maps of the attention layouts.
 //
 // Tiles live in shared memory as "panels": R rows of 64 bf16 (128 bytes), in
 // 8-row atoms of 1,024 bytes, the 16-byte chunk c of row r stored at chunk
@@ -224,12 +225,30 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
+// 2^x, one MUFU.EX2 (results below 2^-126 flush to zero)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- host: tensor maps -------------------------------------------------------------
+// ---- host: the SM count, tensor maps ------------------------------------------------
+
+// the current device's SM count, read once
+static inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -272,6 +291,22 @@ static inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a (B, S, heads, width) tensor in boxes of one panel row (128 bytes) x `rows`
+// rows of one head and batch row
+static inline cudaError_t map4(CUtensorMap* map, const void* ptr, int b, int s, int heads,
+                               int width, int rows, bool f32 = false) {
+  const cuuint64_t el = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(width) * el,
+                                 static_cast<cuuint64_t>(heads) * width * el,
+                                 static_cast<cuuint64_t>(s) * heads * width * el};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / el), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  return make_map(map, ptr, 4, dims, strides, box,
+                  f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 }  // namespace sm90

@@ -1,7 +1,7 @@
 // flash_attention, float32 route: the online-softmax attention forward of
 // every attention layer of the LM's token-parallel forward (models/common.py
-// attn_apply) in float32.  bf16 inputs go to flash_attention_mma.cu (tensor
-// cores); float32 stays on the CUDA cores in exact float32 fused multiply-
+// attn_apply) in float32.  bf16 inputs go to flash_attention_wgmma.cu (wgmma
+// with TMA); float32 stays on the CUDA cores in exact float32 fused multiply-
 // adds, as the JAX kernel computes in float32 (TF32's products round at 2^-11,
 // which the float32 bound of 2e-5 does not hold).
 //

@@ -56,13 +56,10 @@
 #include <type_traits>
 
 #include "f32_tiles.cuh"
-#include "mma_bf16.cuh"
 #include "port_common.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-using namespace port::tc;
 
 constexpr int BW_THREADS = 128;   // the delta kernel: a warp a query row
 
@@ -803,31 +800,6 @@ __global__ void dq_finish_kernel(const float* __restrict__ acc, __nv_bfloat16* _
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// a (B, S, heads, width) tensor in boxes of one panel row x `rows` rows
-cudaError_t map4(CUtensorMap* map, const void* ptr, int b, int s, int heads, int width, int rows,
-                 bool f32 = false) {
-  const cuuint64_t el = f32 ? 4 : 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(width) * el,
-                                 static_cast<cuuint64_t>(heads) * width * el,
-                                 static_cast<cuuint64_t>(s) * heads * width * el};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(ROW / el), 1, static_cast<cuuint32_t>(rows),
-                             1};
-  return make_map(map, ptr, 4, dims, strides, box,
-                  f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
-}
-
 template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, float* dq_acc, int* counters, void* dq, void* dk, void* dv, int b,
@@ -1374,7 +1346,7 @@ int launch(Args a, cudaStream_t stream) {
   a.nq = (a.sq + BM - 1) / BM;
   a.nk = (a.sk + S::BN - 1) / S::BN;
   // as wg::launch: a wave of items holds about four key tiles of each group
-  const int groups = a.b * a.kvh, resident = per_sm * wg::sm_count();
+  const int groups = a.b * a.kvh, resident = per_sm * port::sm90::sm_count();
   const int wave = resident / 4 > 0 ? resident / 4 : 1;
   a.chunk = groups <= wave ? 1 : (groups + wave - 1) / wave < 4 ? (groups + wave - 1) / wave : 4;
   a.n_items = (a.nk + a.chunk - 1) / a.chunk * a.chunk * groups;

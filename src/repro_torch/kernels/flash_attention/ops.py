@@ -1,14 +1,18 @@
 """``flash_attention``: the attention of every layer of the LM, forward and backward.
 
 On a CUDA tensor the forward launches a hand-written kernel, chosen by
-dtype: bfloat16 goes to ``csrc/flash_attention_mma.cu`` (tensor cores,
-float32 sums, P rounded to bf16 before P·V), float32 to
-``csrc/flash_attention.cu`` (CUDA cores, float32 throughout, as the JAX
-kernel computes, in exact float32 FMAs on register-blocked tiles fed by
-cp.async); any other dtype is refused.  On a CPU tensor it runs the
-plain version, ``repro_torch.models.flash``.  There is no fallback from one
-to the other.  GQA layout: q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk,
-KV, hdv), H = KV·G; the output is (B, Sq, H, hdv) in q's dtype.
+dtype: bfloat16 goes to ``csrc/flash_attention_wgmma.cu`` (route
+``bf16_wgmma``: Hopper's warpgroup products fed by TMA, sm_90a; persistent
+blocks, one an SM, over items of 128 query rows, a producer thread keeping Q
+and a ring of K and V tiles in flight and two consumer warpgroups of 64 rows;
+S = Q·Kᵀ from shared memory, P rounded to bf16 in registers as the A operand
+of O += P·V; float32 sums), float32 to ``csrc/flash_attention.cu`` (CUDA cores, float32
+throughout, as the JAX kernel computes, in exact float32 FMAs on
+register-blocked tiles fed by cp.async); any other dtype is refused.  On a
+CPU tensor it runs the plain version, ``repro_torch.models.flash``.  There is
+no fallback from one to the other.  GQA layout: q (B, Sq, H, hd), k (B, Sk,
+KV, hd), v (B, Sk, KV, hdv), H = KV·G; the output is (B, Sq, H, hdv) in q's
+dtype.
 
 Training: when autograd records (grad enabled and q, k or v requires grad),
 ``flash_attention`` goes through ``FlashAttention``, a
@@ -21,22 +25,25 @@ CPU tensors both are the plain pair of
 ``models/flash.py`` (``_flash_fwd_impl``, ``_flash_bwd``).  Calls that
 record no gradient (the LM forward, serving) keep the forward-only launch.
 
-The kernels are compiled for the head dims in ``HEAD_DIMS``.  Any other hd,
-and a v head dim of its own (MLA's 192 against 128), goes through
-``pad_head_dims``: q and k are zero-padded to the next size in the table
-that holds both hd and hdv, v to the same width, the kernel gets the true
-``1/sqrt(hd)`` as an argument, and the output is sliced back to hdv.  The
-padded lanes add exact zeros to q·k and to P·V, and q is not rescaled, so
-no rounding is added; hd 64 gives the bits it gave before the padding
-existed (``1/sqrt(64)`` is exact).  The float32 backward pads dout as v and
-slices the padded lanes of dq and dk off.  The bf16 backward has a table of
-its own, ``BWD_WIDTHS`` (``bwd_head_dims``): (64, 64), (128, 128), MLA's
-(192, 128) native, (256, 256); q and k are padded to the pair's first width,
-v, out and dout to its second (16, 32 → 64; 112 → 128).  Its dq sums in a
-float32 workspace ``dq_acc`` (B, Sq, H, hd) in a fixed order, under one
-counter per (batch, head, query tile); the wrapper allocates both zeroed, and
-a finish kernel writes dq at the true head dim.  The float32 backward adds
-into dq itself (zeroed, at the padded width) under the same counters.
+Head dims.  Both bf16 kernels share one table, ``BF16_WIDTHS``
+(``bf16_head_dims``): (64, 64), (128, 128), MLA's (192, 128) native, (256,
+256), the least pair that holds (hd, hdv) (16, 18, 24, 32 → 64; 112 → 128).
+The backward zero-pads q and k to the pair's first width, v, out and dout
+to its second.  The forward reads q, k and v at their own widths (TMA
+zero-fills a panel's lanes past them; ``_stored_width`` pads a width only to
+a whole number of 16 bytes, 18 → 24) and writes its output at the true
+hdv.  The float32 kernels are compiled for the head dims in ``HEAD_DIMS``;
+any other hd, and a v head dim of its own, goes through ``pad_head_dims``:
+q, k and v zero-padded to the least size of the table that holds both, the
+output sliced back to hdv.  Either way the kernel gets the true
+``1/sqrt(hd)`` as an argument: the padded lanes add exact zeros to q·k and to
+P·V, and q is not rescaled, so no rounding is added.  The float32 backward
+pads dout as v and slices the padded lanes of dq and dk off.  The bf16
+backward's dq sums in a float32 workspace ``dq_acc`` (B, Sq, H, hd) in a
+fixed order, under one counter per (batch, head, query tile); the wrapper
+allocates both zeroed, and a finish kernel writes dq at the true head dim.
+The float32 backward adds into dq itself (zeroed, at the padded width) under
+the same counters.
 
 ``flash_attention.launches`` counts the forward kernel's launches on both
 routes (with or without the log-sum-exp), ``flash_attention.routes`` each;
@@ -70,11 +77,11 @@ from repro_torch.models.flash import _flash_bwd, _flash_fwd_impl
 from repro_torch.models.flash import flash_attention as flash_attention_plain
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-ROUTES = {torch.bfloat16: ("bf16_tensor_cores", "port_flash_attention_bf16"),
+ROUTES = {torch.bfloat16: ("bf16_wgmma", "port_flash_attention_bf16"),
           torch.float32: ("f32_cuda_cores", "port_flash_attention")}
 BWD_ROUTES = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_cores"}
-# the bf16 backward's (hd, hdv) pairs, in order of size
-BWD_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
+# the (hd, hdv) pairs of both bf16 kernels (forward and backward), in order of size
+BF16_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
 # query rows of a tile of either backward route (its dq counters are one a tile)
 BWD_QUERY_TILE = 64
 # the plain pair's blocks (models/flash.py's defaults)
@@ -90,17 +97,26 @@ def padded_head_dim(hd: int, hdv: int) -> int:
     raise ValueError(f"flash_attention: head dims {hd}, {hdv} exceed {HEAD_DIMS[-1]}")
 
 
-def bwd_head_dims(hd: int, hdv: int) -> Tuple[int, int]:
-    """The bf16 backward's (hd, hdv) for a head dim pair: the first of
-    ``BWD_WIDTHS`` that holds both (MLA's (192, 128) natively)."""
-    for width, vwidth in BWD_WIDTHS:
+def bf16_head_dims(hd: int, hdv: int) -> Tuple[int, int]:
+    """The bf16 kernels' (hd, hdv) for a head dim pair: the first of
+    ``BF16_WIDTHS`` that holds both (MLA's (192, 128) natively)."""
+    for width, vwidth in BF16_WIDTHS:
         if width >= hd and vwidth >= hdv:
             return width, vwidth
-    raise ValueError(f"flash_attention_bwd: head dims {hd}, {hdv} exceed {BWD_WIDTHS[-1]}")
+    raise ValueError(f"flash_attention: head dims {hd}, {hdv} exceed {BF16_WIDTHS[-1]}")
 
 
 def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _stored_width(n: int, width: int) -> int:
+    """The width the bf16 forward reads a head dim n at, for a kernel width:
+    TMA reads the tensor in place and zero-fills a 64-column panel's lanes past
+    it, so n is padded only to a whole number of 16 bytes, or to the kernel's
+    width where its last panel would lie wholly past n."""
+    n8 = -(-n // 8) * 8
+    return n8 if n8 > width - 64 else width
 
 
 def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -139,16 +155,25 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
     """The forward kernel on CUDA tensors: (out (B, Sq, H, hdv), the
     log-sum-exp (B, KV, G, Sq) float32 or None)."""
     _check(q, k, v)
-    b, sq, h, _ = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    q, k, v, scale, hdv = pad_head_dims(q, k, v)
+    b, sq, h, hd = q.shape
+    sk, kvh, hdv = k.shape[1], k.shape[2], v.shape[-1]
     route, entry = ROUTES[q.dtype]
-    out = torch.empty_like(q)
     lse = (torch.empty((b, kvh, h // kvh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if route == "bf16_wgmma":
+        width, vwidth = bf16_head_dims(hd, hdv)
+        qk_w, v_w = _stored_width(hd, width), _stored_width(hdv, vwidth)
+        q, k, v = _pad(q, qk_w), _pad(k, qk_w), _pad(v, v_w)
+        out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
+        widths = (width, vwidth, qk_w, v_w, hdv)
+        scale = 1.0 / math.sqrt(hd)
+    else:
+        q, k, v, scale, hdv = pad_head_dims(q, k, v)
+        out = torch.empty_like(q)
+        widths = (q.shape[-1],)
     code = getattr(_lib.library(), entry)(
         _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(out), _lib.ptr(lse), b, sq, sk, h, kvh,
-        q.shape[-1], int(causal), int(window), scale, _lib.stream())
+        *widths, int(causal), int(window), scale, _lib.stream())
     _lib.check(code, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.routes[route] += 1
@@ -202,7 +227,7 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     counters = torch.zeros(1 + b * h * -(-sq // BWD_QUERY_TILE), dtype=torch.int32,
                            device=q.device)
     if route == "bf16_wgmma":
-        width, vwidth = bwd_head_dims(hd, hdv)
+        width, vwidth = bf16_head_dims(hd, hdv)
         qp, kp = _pad(q, width), _pad(k, width)
         vp, outp, doutp = _pad(v, vwidth), _pad(out, vwidth), _pad(dout, vwidth)
         scale = 1.0 / math.sqrt(hd)

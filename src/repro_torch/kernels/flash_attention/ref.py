@@ -1,11 +1,12 @@
-"""Materialised attention, the oracle of the flash-attention tests, and the
-float32 kernels' tile schedule and backward order.
+"""Materialised attention, the oracle of the flash-attention tests, the
+kernels' tile schedules, and the orders of the bf16 forward and the backward.
 
 ``attention_ref`` is a copy of ``repro/kernels/flash_attention/ref.py``: O(S²)
 memory, test sizes only.  GQA layout as ``models/flash.py``: q (B, Sq, H, hd),
 k/v (B, Sk, KV, hd) with H = KV·G query heads per kv head.  ``visited_tiles``
-walks the float32 kernels' loops (``key_span``, ``query_span``,
-``first_key_tile``: ``kernels/csrc/f32_tiles.cuh`` line for line), and
+walks the kernels' loops (``key_span``, ``query_span``, ``first_key_tile``:
+``kernels/csrc/f32_tiles.cuh`` line for line), ``flash_fwd_bf16_plain``
+computes the bf16 forward in the ``wgmma`` kernel's order and arithmetic, and
 ``flash_bwd_key_major_plain`` sums the backward in the float32 kernel's order.
 """
 from __future__ import annotations
@@ -15,6 +16,8 @@ import math
 import torch
 
 NEG = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
@@ -51,6 +54,12 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Ten
 FWD_TILES = {16: (128, 64, 32), 32: (128, 64, 32), 64: (128, 64, 32), 128: (128, 64, 16),
              256: (64, 32, 16)}
 BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (32, 64)}
+# the bf16 forward's tiles by (hd, hdv) of ops.BF16_WIDTHS (flash_attention_wgmma.cu's
+# Shape): query rows a block, keys a tile; each of a block's two consumer warpgroups
+# owns BF16_FWD_WG_ROWS of its rows and visits the key tiles of its own live rows
+BF16_FWD_TILES = {(64, 64): (128, 128), (128, 128): (128, 128), (192, 128): (128, 128),
+                  (256, 256): (128, 64)}
+BF16_FWD_WG_ROWS = 64
 
 
 def key_span(q0: int, q1: int, bk: int, sk: int, causal: bool, window: int):
@@ -88,10 +97,16 @@ def visited_tiles(kind: str, sq: int, sk: int, causal: bool, window: int, *, til
     ``kind="forward"``, ``tiles=(bq, bk, warp_rows)``: each block of bq query
     rows visits the key tiles of ``key_span`` over its live rows, and each warp
     computes those of them that its own rows visit (step: the warp).
+    ``kind="forward_bf16"``, ``tiles=(bq, bk)``: the bf16 ``wgmma`` forward,
+    the same walk with a consumer warpgroup of ``BF16_FWD_WG_ROWS`` rows in
+    place of the warp (step: the warpgroup).
     ``kind="backward"``, ``tiles=(bn, bm)``: each key tile (an item) visits
     the query tiles of ``query_span`` from the last down, its kv head's
     ``groups`` query heads inside each (step: the head)."""
-    if kind == "forward":
+    if kind == "forward_bf16":
+        yield from visited_tiles("forward", sq, sk, causal, window,
+                                 tiles=tuple(tiles) + (BF16_FWD_WG_ROWS,))
+    elif kind == "forward":
         bq, bk, wr = tiles
         for q_lo in range(0, sq, bq):
             lo, hi = key_span(q_lo, min(q_lo + bq, sq), bk, sk, causal, window)
@@ -112,6 +127,61 @@ def visited_tiles(kind: str, sq: int, sk: int, causal: bool, window: int, *, til
                 yield (t * bm, min(t * bm + bm, sq)), (k0, k1), j % groups
     else:
         raise ValueError(f"visited_tiles: kind {kind!r}")
+
+
+def flash_fwd_bf16_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                         tiles: tuple = (128, 128), scale: float = None):
+    """(out in q's dtype, the log-sum-exp (B, KV, G, Sq) float32): the bf16
+    forward in the ``wgmma`` kernel's order and arithmetic (plain PyTorch; each
+    tile's products by ``einsum``).  Each consumer warpgroup's rows visit their
+    key tiles (``visited_tiles("forward_bf16")``) in ascending order, keeping
+    m, l and the accumulator in float32 in the log2 domain: x = s·(scale·log2 e)
+    (the factor rounded to float32, as the kernel's), NEG where the causal or
+    window mask hides a key (keys past Sk, -inf in the kernel, add 0 and are
+    left out), p = 2^(x − m), l summing p in float32, P rounded to bf16 before
+    P·V; out = acc / max(l, 1e-30), lse = m·ln 2 + log(max(l, 1e-30)).  (On a
+    tile no mask cuts the kernel forms x − m in one FMA, and it sums l over
+    partial chains: rounding differences of a float32 ulp.)"""
+    b, sq, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    hdv = v.shape[-1]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    f32 = torch.float32
+    dev = q.device
+    scale_log2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    qf = q.float().reshape(b, sq, kv, g, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros((b, sq, kv, g, hdv), dtype=f32, device=dev)
+    lse = torch.zeros((b, kv, g, sq), dtype=f32, device=dev)
+    visits = {}
+    for rows, keys, _ in visited_tiles("forward_bf16", sq, sk, causal, window, tiles=tiles):
+        visits.setdefault(rows, []).append(keys)
+    for r0 in range(0, sq, BF16_FWD_WG_ROWS):
+        r1 = min(r0 + BF16_FWD_WG_ROWS, sq)
+        qt, qpos = qf[:, r0:r1], torch.arange(r0, r1, device=dev)
+        m = torch.full((b, kv, g, r1 - r0), NEG, dtype=f32, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kv, g, r1 - r0, hdv), dtype=f32, device=dev)
+        for k0, k1 in visits.get((r0, r1), []):
+            kpos = torch.arange(k0, k1, device=dev)
+            mask = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window:
+                mask &= qpos[:, None] - kpos[None, :] < window
+            x = torch.einsum("bqkgd,bskd->bkgqs", qt, kf[:, k0:k1]) * scale_log2
+            x = torch.where(mask, x, NEG)
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(torch.bfloat16).float(), vf[:, k0:k1])
+            m = m_new
+        out[:, r0:r1] = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+        lse[..., r0:r1] = m * LN2 + torch.log(torch.clamp(l, min=1e-30))
+    return out.reshape(b, sq, h, hdv).to(q.dtype), lse
 
 
 def flash_bwd_key_major_plain(q, k, v, out, dout, lse, *, causal: bool = True, window: int = 0,

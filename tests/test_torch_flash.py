@@ -10,13 +10,14 @@
 * With the default blocks (512 × 1024) against the JAX package's
   ``models/flash.py`` over several q blocks, within 2e-5; non-causal with
   q and k of different lengths (cross-attention) too.
-* The card's padding of head dims outside its table (``pad_head_dims``):
-  q, k and v zero-padded, the plain attention at the true scale, then
-  sliced, equals the unpadded plain attention bit for bit at hd 18, 24 and
-  112 and at (hd, hdv) = (192, 128), and the JAX package's blocked forward
-  within 2e-5.
+* The card's padding of head dims outside its tables (the float32 route's
+  ``pad_head_dims``, the bf16 route's ``bf16_head_dims``): q, k and v
+  zero-padded, the plain attention at the true scale, then sliced, equals the
+  unpadded plain attention bit for bit at hd 18, 24 and 112 and at (hd, hdv)
+  = (192, 128) (the bf16 table's native pair), and the JAX package's blocked
+  forward within 2e-5.
 * The kernel op on CPU tensors runs the plain version and counts no launch
-  on either route (bf16: tensor cores, float32: CUDA cores), and
+  on either route (bf16: ``wgmma`` with TMA, float32: CUDA cores), and
   ``reset_launch_counts`` clears both route counts.
 """
 import jax.numpy as jnp
@@ -29,7 +30,8 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.flash import flash_attention as j_flash_attention
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention as flash_op
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, pad_head_dims
+from repro_torch.kernels.flash_attention.ops import (BF16_WIDTHS, HEAD_DIMS, bf16_head_dims,
+                                                     pad_head_dims)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.flash import flash_attention
 
@@ -110,10 +112,10 @@ def test_kernel_op_on_cpu_runs_the_plain_version():
 
 def test_reset_launch_counts_clears_the_routes():
     flash_op.launches = 3
-    flash_op.routes = {"bf16_tensor_cores": 2, "f32_cuda_cores": 1}
+    flash_op.routes = {"bf16_wgmma": 2, "f32_cuda_cores": 1}
     reset_launch_counts()
     assert launch_counts()["flash_attention"] == 0
-    assert flash_op.routes == {"bf16_tensor_cores": 0, "f32_cuda_cores": 0}
+    assert flash_op.routes == {"bf16_wgmma": 0, "f32_cuda_cores": 0}
 
 
 @pytest.mark.parametrize("hd,hdv", [(18, 18), (24, 24), (112, 112), (192, 128)])
@@ -133,3 +135,13 @@ def test_padded_head_dims_equal_the_unpadded_plain_attention(hd, hdv):
     ref = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
                             block_q=64, block_k=64)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    # the bf16 route's table: q and k padded to the pair's first width, v to its second
+    # (18, 24 -> 64; 112 -> 128; MLA's (192, 128) native), the true scale
+    width, vwidth = bf16_head_dims(hd, hdv)
+    assert (width, vwidth) in BF16_WIDTHS
+    assert (width, vwidth) == {18: (64, 64), 24: (64, 64), 112: (128, 128), 192: (192, 128)}[hd]
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+    got = flash_attention(pad(tq, width), pad(tk, width), pad(tv, vwidth), block_q=64,
+                          block_k=64, scale=scale)
+    assert got.shape == (2, 128, 4, vwidth) and not got[..., hdv:].any()
+    assert torch.equal(got[..., :hdv], want)

@@ -119,15 +119,17 @@ def test_no_gradient_keeps_the_forward_only_call():
     ((64, 300), None),
 ])
 def test_bf16_backward_width_choice(pair, want):
-    """The bf16 backward's widths (``ops.bwd_head_dims``): MLA's (192, 128)
-    natively, 16, 32 and 112 zero-padded to the next pair of ``BWD_WIDTHS``,
-    anything past 256 refused."""
+    """The bf16 routes' widths, one table for the forward and the backward
+    (``ops.bf16_head_dims``): MLA's (192, 128) natively, 16, 32 and 112
+    zero-padded to the next pair of ``BF16_WIDTHS``, anything past 256
+    refused; both routes are the ``wgmma`` kernels."""
     if want is None:
         with pytest.raises(ValueError, match="exceed"):
-            fa_ops.bwd_head_dims(*pair)
+            fa_ops.bf16_head_dims(*pair)
     else:
-        assert fa_ops.bwd_head_dims(*pair) == want
-    assert fa_ops.BWD_ROUTES[torch.bfloat16] == "bf16_wgmma"
+        assert fa_ops.bf16_head_dims(*pair) == want
+        assert want in fa_ops.BF16_WIDTHS
+    assert fa_ops.ROUTES[torch.bfloat16][0] == fa_ops.BWD_ROUTES[torch.bfloat16] == "bf16_wgmma"
 
 
 def test_tile_products_plain_version_and_checks():

@@ -631,7 +631,7 @@ def test_flash_attention_pads_head_dims_outside_the_table(cuda, hd, hdv, dtype):
         assert ((got.float() - want).abs() <= 4 * torch.finfo(torch.bfloat16).eps * scale).all()
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_tensor_cores"),
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_wgmma"),
                                          (torch.float32, "f32_cuda_cores")])
 def test_flash_attention_routes_by_dtype(cuda, dtype, route):
     q = torch.randn(1, 128, 4, 64, device=cuda).to(dtype)
@@ -640,7 +640,42 @@ def test_flash_attention_routes_by_dtype(cuda, dtype, route):
     flash_attention(q, k, k)
     assert launch_counts()["flash_attention"] == 1
     assert flash_attention.routes == {name: int(name == route)
-                                      for name in ("bf16_tensor_cores", "f32_cuda_cores")}
+                                      for name in ("bf16_wgmma", "f32_cuda_cores")}
+
+
+# the bf16 forward (flash_attention_wgmma.cu: wgmma with TMA) against the plain version at
+# each pair of ops.BF16_WIDTHS and at widths padded to one: out within the bf16 bounds
+# (_check_flash), the log-sum-exp within 1e-5 (absolute and relative), out the same bits
+# on a rerun and with or without the log-sum-exp
+BF16_FWD_CASES = [                       # b, sq, sk, h, kv, hd, hdv, causal, window
+    (2, 256, 256, 8, 2, 64, 64, True, 0),
+    (1, 200, 328, 4, 4, 64, 64, False, 0),       # ragged non-causal cross
+    (1, 300, 300, 4, 1, 128, 128, True, 100),    # window, MQA, ragged
+    (1, 256, 256, 4, 4, 192, 128, True, 0),      # MLA's pair, native
+    (1, 256, 256, 4, 2, 112, 112, True, 0),      # kimi-k2's 112, padded to 128
+    (1, 512, 512, 4, 1, 256, 256, True, 128),    # hd 256 window (64-key tiles)
+    (2, 50, 50, 16, 2, 16, 16, True, 0),         # hd 16 padded to 64, fewer rows than a tile
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,hdv,causal,window", BF16_FWD_CASES)
+def test_flash_attention_bf16_wgmma_forward_matches_plain(cuda, b, sq, sk, h, kv, hd, hdv,
+                                                          causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    from repro_torch.models.flash import _flash_fwd_impl
+    gen = torch.Generator().manual_seed(sq + sk + hd + hdv + h)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, torch.bfloat16)
+               for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hdv)))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.routes == {"bf16_wgmma": 1, "f32_cuda_cores": 0}
+    assert got.shape == (b, sq, h, hdv) and got.dtype == torch.bfloat16
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, out)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+    want, lse_want = _flash_fwd_impl(q, k, v, causal, window, sq, sk)
+    _check_flash(got, want, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_want, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
